@@ -1,0 +1,716 @@
+"""Two-dimensional graph partitioning (paper §III-C) + stride mapping.
+
+Counterpart of ``repro.core.partition`` (in-memory build only; the
+streaming build and delta ingest come in a later slice). Host numpy, a copy
+of the reference, so every array is byte-identical to ``repro``'s for the
+same graph and config.
+
+Dimension 1: the (padded) vertex set is split into ``p`` equal intervals
+``I_q`` — one per graph core; core ``q`` owns all edges whose *destination*
+lies in ``I_q`` (pull-based horizontal partitioning of the inverse edge set).
+
+Dimension 2: each interval is split into ``l`` equal sub-intervals ``J`` of
+``sub_size`` vertices — sized so a sub-interval's labels fit the label
+scratch pad. Sub-partition ``S[i, m]`` holds edges with dst ∈ I_i and
+src ∈ ∪_q J[q, m]; the ``p`` sub-intervals active at phase ``m`` form
+meta-partition M_m.
+
+Neighbor indices are rewritten at partition time so that a source vertex id
+becomes a direct offset into the phase's gathered label block:
+``gathered_idx = src_core * sub_size + (src mod sub_size)``.
+
+On top of the (p, l, E_pad) bucket layout, ``partition_2d`` precomputes the
+COMPRESSED edge stream the kernel consumes: every (core, phase) bucket is
+binned into (R, T, Eb) row-block edge tiles (``prepare_tiles``) with
+degree-aware LPT row packing and hub-row splitting, each slot's (src, dstb,
+valid) triple is bit-packed into one int32 word (``pack_edge_words``), and
+the words are stacked into one (p, l, R, T, Eb) array so one kernel launch
+per phase runs all cores. Packed word format:
+
+  src_bits=16 (when p * sub_size <= 2^16 and vb <= 2^15 — the common case):
+      tile_word    = valid<<31 | dstb<<16 | src           4 index B/edge
+  src_bits=32 (fallback for larger gathered blocks):
+      tile_word    = src
+      tile_word_hi = valid<<31 | dstb                     8 index B/edge
+
+``tile_counts`` holds the per-(core, phase, row-block) count of REAL edge
+tiles so the kernel never touches all-padding tiles.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.graph import COOGraph
+
+__all__ = [
+    "PartitionConfig",
+    "PartitionedGraph",
+    "stride_permutation",
+    "apply_permutation",
+    "partition_2d",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionConfig:
+    p: int  # graph cores == memory channels == mesh devices
+    l: int  # sub-intervals per interval (scratch-pad phases)
+    lane: int = 8  # sub_size alignment (TPU lane quantum; 128 on real HW)
+    edge_pad: int = 8  # per-bucket edge-count alignment
+    stride: Optional[int] = None  # stride mapping (paper uses 100); None = off
+    scratch_size: Optional[int] = None  # if set, l is derived: labels per core phase
+    # fused-kernel tile layout (consumed by EngineOptions(backend='kernel')):
+    build_tiles: bool = True  # False skips the host-side binning (xla-only use)
+    tile_vb: Optional[int] = None  # row-block height; None = sub_size (R = l)
+    tile_eb: int = 128  # edge-tile width (lane quantum on real HW)
+    degree_aware_tiles: bool = True  # LPT row packing (see prepare_tiles)
+    pack_src_bits: Optional[int] = None  # force 16/32-bit regime; None = auto
+    # hub-row splitting (two-level reduce): the max edge count of one kernel
+    # row. 'auto' = per bucket max(tile_eb, ceil(E_bucket / R)) — no virtual
+    # row exceeds the mean row-block load, floored at one tile width. An int
+    # fixes the cap for every bucket. None disables splitting entirely (the
+    # pre-split layout is preserved byte-for-byte). Requires
+    # degree_aware_tiles: virtual rows only pay off when the LPT packer can
+    # spread them across row blocks.
+    split_threshold: Union[str, int, None] = "auto"  # 'auto' | int | None
+    # push (scatter) direction: a second CSC-style stream of the SAME edges
+    # binned by source block so a narrow frontier streams only its own
+    # out-edges (Beamer direction-optimizing traversal, docs/tile_layout.md
+    # §9). push_block must be a multiple of 32 (frontier-word alignment).
+    # None auto-sizes a block to hold ~2 full edge tiles of the bucket's
+    # average degree: fewer, denser blocks mean a smaller (B, Tp) scatter
+    # grid and less cross-block T padding, while frontier selectivity is
+    # preserved by the per-TILE coverage words (edges are source-sorted
+    # within a block, so each tile covers a narrow source range).
+    build_push: bool = True  # False skips the push stream (pull-only layout)
+    push_block: Optional[int] = None  # gathered sources per push block
+    # push edge-tile width; None = tile_eb. The scatter accumulator is the
+    # whole per-core row (no row blocking), so wider push tiles shrink the
+    # (B, Tp) grid without the load-balance concerns the pull layout's
+    # row-blocked tiles have — on a narrow frontier the grid-step count,
+    # not the per-tile edge work, is what the direction switch is buying.
+    push_eb: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionedGraph:
+    """Static-shape 2-D partitioned inverse-CSR-equivalent edge layout.
+
+    Edge arrays are laid out (p, l, E_pad): bucket [i, m] is sub-partition
+    S[i, m] sorted by local destination. ``src_gidx`` indexes the phase-m
+    gathered block (size p * sub_size); ``dst_lidx`` indexes core i's local
+    label shard (size l * sub_size).
+    """
+
+    p: int
+    l: int
+    sub_size: int
+    num_vertices: int  # real V
+    num_edges: int  # real E
+    src_gidx: np.ndarray  # (p, l, E_pad) int32
+    dst_lidx: np.ndarray  # (p, l, E_pad) int32
+    valid: np.ndarray  # (p, l, E_pad) bool
+    weights: Optional[np.ndarray]  # (p, l, E_pad) float32 or None
+    perm: Optional[np.ndarray]  # old -> new vertex id (stride mapping), or None
+    inv_perm: Optional[np.ndarray]
+    bucket_sizes: np.ndarray  # (p, l) int64 — real edges per sub-partition
+    # stacked fused-kernel COMPRESSED edge stream (one TileLayout per bucket,
+    # bit-packed, uniform (R, T) so all p cores of a phase launch as one
+    # kernel launch — see module docstring for the word format):
+    tile_word: Optional[np.ndarray] = None  # (p, l, R, T, Eb) int32 packed
+    tile_word_hi: Optional[np.ndarray] = None  # (p, l, R, T, Eb) int32 (32-bit regime)
+    tile_counts: Optional[np.ndarray] = None  # (p, l, R) int32 real tiles per block
+    tile_weights: Optional[np.ndarray] = None  # (p, l, R, T, Eb) f32 or None
+    tile_row_pos: Optional[np.ndarray] = None  # (p, l, Vl) int32 or None
+    # per-tile source-coverage bitmaps (frontier-aware dynamic skipping):
+    # bit j of tile (i, m, r, t)'s word set iff the tile reads a source in
+    # frontier word j of phase m's gathered block. Wc = ceil(p * Ws / 32)
+    # with Ws = ceil(sub_size / 32) — see core/frontier_words.py and
+    # docs/tile_layout.md §7 for the shared layout contract.
+    tile_coverage: Optional[np.ndarray] = None  # (p, l, R, T, Wc) uint32
+    tile_vb: int = 0  # row-block height (0 = tiles not built)
+    src_bits: int = 0  # packed-word regime: 16 or 32 (0 = tiles not built)
+    # hub-row splitting (two-level reduce). When any bucket split a row,
+    # tile_row_pos is None and these take over; R may exceed Vl / vb:
+    # packed kernel-output position -> natural row (-1 = spare, identity):
+    tile_row_orig: Optional[np.ndarray] = None  # (p, l, R * vb) int32
+    # gather form of the same map, what the engine's level-2 combine reads:
+    tile_split_map: Optional[np.ndarray] = None  # (p, l, Vl, S_max) int32, -1 pad
+    split_rows: int = 0  # natural (bucket, row) pairs split into > 1 virtual rows
+    t_max_unsplit: int = 0  # T the stacked stream would need without splitting
+    # push (scatter) stream: the SAME edge set, re-binned by SOURCE block
+    # (B = ceil(gathered_size / push_block) blocks of push_block gathered
+    # sources each) so a narrow frontier activates only the blocks that
+    # contain frontier sources. Same bit-packed word format, but the dstb
+    # field carries the FULL local destination row in [0, Vl) — the scatter
+    # kernel's accumulator is the whole per-core label row. push_coverage is
+    # tile_coverage_words over the push stream; ANDed against the frontier
+    # it IS the push-mode tile scheduler (docs/tile_layout.md §9).
+    push_word: Optional[np.ndarray] = None  # (p, l, B, Tp, Eb) int32 packed
+    push_word_hi: Optional[np.ndarray] = None  # (p, l, B, Tp, Eb) | None
+    push_counts: Optional[np.ndarray] = None  # (p, l, B) int32 real tiles
+    push_weights: Optional[np.ndarray] = None  # (p, l, B, Tp, Eb) f32 | None
+    push_coverage: Optional[np.ndarray] = None  # (p, l, B, Tp, Wc) uint32
+    push_src_bits: int = 0  # push packed-word regime (0 = push not built)
+    push_block: int = 0  # gathered sources per push block (0 = not built)
+    # the config that built this layout — carried so delta ingestion
+    # (``apply_edge_deltas``) can re-tile dirty buckets under the exact same
+    # layout rules (thresholds, tile widths, push sizing) without the caller
+    # re-supplying them. None on hand-built partitions: delta ingest refuses.
+    config: Optional[PartitionConfig] = None
+    # device copies of the arrays above, filled on first use by
+    # ``device_array`` and shared by every engine run on this graph
+    device_cache: dict = dataclasses.field(
+        default_factory=dict, compare=False, repr=False
+    )
+
+    @classmethod
+    def from_numpy(cls, fields: dict) -> "PartitionedGraph":
+        """State carry-over: build the port's graph from the fields of a
+        reference ``repro.core.partition.PartitionedGraph`` (numpy arrays and
+        ints, keyed by field name), so both engines run on the very same
+        arrays. ``config`` may be any dataclass or dict with the
+        ``PartitionConfig`` fields."""
+        names = {f.name for f in dataclasses.fields(cls)} - {"device_cache"}
+        unknown = set(fields) - names
+        if unknown:
+            raise ValueError(f"unknown PartitionedGraph fields: {sorted(unknown)}")
+        kw = {
+            k: (np.asarray(v) if hasattr(v, "__array__") else v)
+            for k, v in fields.items()
+        }
+        cfg = kw.get("config")
+        if cfg is not None and not isinstance(cfg, PartitionConfig):
+            cfg = cfg if isinstance(cfg, dict) else dataclasses.asdict(cfg)
+            kw["config"] = PartitionConfig(**cfg)
+        return cls(**kw)
+
+    def device_array(self, name: str, device, *, dtype=None, phase_major=False):
+        """Field ``name`` as a torch tensor on ``device`` (None stays None),
+        uploaded once and cached. ``phase_major`` moves the phase axis (axis
+        1) to the front, so the slice a phase launch reads is contiguous;
+        ``dtype`` converts first (index arrays become int64 for torch)."""
+        arr = getattr(self, name)
+        if arr is None:
+            return None
+        key = (name, str(torch.device(device)), dtype, phase_major)
+        hit = self.device_cache.get(key)
+        if hit is None:
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+            if phase_major:
+                t = t.transpose(0, 1)
+            hit = t.to(device=device, dtype=dtype).contiguous()
+            self.device_cache[key] = hit
+        return hit
+
+    @property
+    def vertices_per_core(self) -> int:
+        return self.l * self.sub_size
+
+    @property
+    def padded_vertices(self) -> int:
+        return self.p * self.l * self.sub_size
+
+    @property
+    def gathered_size(self) -> int:
+        return self.p * self.sub_size
+
+    @property
+    def edge_pad(self) -> int:
+        return int(self.src_gidx.shape[-1])
+
+    @property
+    def padding_ratio(self) -> float:
+        """Padded-slot fraction — the TPU cost of load imbalance (paper §IV-A:
+        'imbalanced partitions lead to a lot of idle time')."""
+        total_slots = self.p * self.l * self.edge_pad
+        return 1.0 - float(self.bucket_sizes.sum()) / max(total_slots, 1)
+
+    @property
+    def imbalance(self) -> float:
+        """max/mean real edges over buckets (1.0 = perfectly balanced)."""
+        mean = self.bucket_sizes.mean()
+        return float(self.bucket_sizes.max() / mean) if mean > 0 else 1.0
+
+    @property
+    def tile_padding_ratio(self) -> float:
+        """Padded-slot fraction of the fused-kernel tile layout — what
+        degree-aware row packing minimizes (hub rows no longer set T for
+        every row block). Every real edge occupies exactly one tile slot, so
+        this no longer needs a materialized valid array."""
+        if self.tile_word is None:
+            return 0.0
+        return 1.0 - float(self.bucket_sizes.sum()) / max(self.tile_word.size, 1)
+
+    @property
+    def stream_bytes_per_edge(self) -> float:
+        """Index-stream bytes per PULL edge slot of the compressed layout: 4
+        in the 16-bit packed regime (8 in the 32-bit fallback) vs 9
+        uncompressed (int32 src + int32 dstb + bool valid). When the push
+        (scatter) stream is built it stores the same edges a second time, so
+        its packed words are charged here too — amortized over the pull
+        slots so records stay comparable across layouts. Payload weights,
+        when present, add 4 more on both layouts and are excluded here."""
+        if self.tile_word is None:
+            return 0.0
+        pull = 4.0 * (1 if self.tile_word_hi is None else 2)
+        if self.push_word is None:
+            return pull
+        push = 4.0 * (1 if self.push_word_hi is None else 2)
+        return pull + push * self.push_word.size / max(self.tile_word.size, 1)
+
+    @property
+    def skipped_tile_fraction(self) -> float:
+        """Fraction of (core, phase, row-block) edge tiles the kernel's
+        scalar-prefetched tile-count early-out never streams or decodes."""
+        if self.tile_counts is None or self.tile_word is None:
+            return 0.0
+        t_max = self.tile_word.shape[3]
+        total = self.tile_counts.size * t_max
+        return 1.0 - float(self.tile_counts.sum()) / max(total, 1)
+
+    @property
+    def packed_rows_per_core(self) -> int:
+        """Kernel-output rows per core: R * vb. Equals vertices_per_core
+        unless hub-row splitting grew R to make room for virtual rows."""
+        if self.tile_word is None:
+            return self.vertices_per_core
+        return int(self.tile_word.shape[2]) * self.tile_vb
+
+    @property
+    def split_row_fraction(self) -> float:
+        """Fraction of natural (core, phase, row) slots hub-row splitting
+        broke into > 1 virtual rows (0.0 when splitting is off or no row
+        crossed the threshold)."""
+        total = self.p * self.l * self.vertices_per_core
+        return self.split_rows / max(total, 1)
+
+    def channel_arrays(self, problem=None) -> dict:
+        """The per-channel COMPRESSED edge stream, keyed for the engines.
+
+        Every array's leading axis is the core axis — one graph core == one
+        memory channel == one mesh device (docs/distributed.md) — and
+        ``stack_packed_tiles`` already padded the per-bucket ragged (R, T)
+        to the max over ALL (core, phase) buckets, so slice ``[q]`` is core
+        q's complete, uniformly-shaped channel shard: the distributed engine
+        ``NamedSharding``-places these over the ``graph`` mesh axis and each
+        device streams exactly its own packed words + tile counts (never the
+        flat (l, E_pad) src/dst/valid arrays). Keys match the engine's packed
+        edge-constant dict (``word``/``word_hi``/``counts``/``w``/
+        ``row_pos``/``split_map``; absent components are None).
+
+        ``problem``: when given, the weight stream is dropped unless the
+        problem's map UDF consumes it (``edge_op == 'add'``) — the kernel
+        then adds unit weight in registers. This is THE weight-streaming
+        rule; both engines get it from here so they cannot drift. The
+        coverage bitmaps follow the same rule: they are dropped unless the
+        problem's reduce is ``min`` — frontier skipping is only sound for
+        monotone min problems (a skipped tile's sources re-contribute values
+        already merged into the labels), while a sum reduce needs EVERY
+        contribution every iteration, so PageRank streams dense.
+        """
+        if self.tile_word is None:
+            raise ValueError(
+                "packed edge stream not built; re-partition with "
+                "PartitionConfig(build_tiles=True)"
+            )
+        arrs = {
+            "word": self.tile_word,  # (p, l, R, T, Eb) int32 packed
+            "word_hi": self.tile_word_hi,  # (p, l, R, T, Eb) | None
+            "counts": self.tile_counts,  # (p, l, R)
+            "w": self.tile_weights,  # (p, l, R, T, Eb) f32 | None
+            "row_pos": self.tile_row_pos,  # (p, l, Vl) | None
+            "split_map": self.tile_split_map,  # (p, l, Vl, S_max) | None
+            "coverage": self.tile_coverage,  # (p, l, R, T, Wc) u32 | None
+            "push_word": self.push_word,  # (p, l, B, Tp, Eb) | None
+            "push_word_hi": self.push_word_hi,  # (p, l, B, Tp, Eb) | None
+            "push_counts": self.push_counts,  # (p, l, B) | None
+            "push_w": self.push_weights,  # (p, l, B, Tp, Eb) | None
+            "push_coverage": self.push_coverage,  # (p, l, B, Tp, Wc) | None
+        }
+        if problem is not None and problem.edge_op != "add":
+            arrs["w"] = None
+            arrs["push_w"] = None
+        # frontier coverage is only sound for monotone reduces: min and the
+        # packed multi-source-BFS word OR. Sum problems must stay dense.
+        # The entire push stream follows the same rule — scattering only the
+        # frontier blocks' out-edges relies on skipped contributions being
+        # already merged, which only holds for idempotent monotone reduces
+        # (sum needs every contribution every iteration: push stays off).
+        if problem is not None and problem.reduce_kind not in ("min", "or"):
+            arrs["coverage"] = None
+            for k in (
+                "push_word", "push_word_hi", "push_counts",
+                "push_w", "push_coverage",
+            ):
+                arrs[k] = None
+        return arrs
+
+    @property
+    def coverage_bytes_per_edge(self) -> float:
+        """Index-stream overhead of the coverage metadata, amortized per edge
+        slot: Wc words per (Eb-slot) tile — e.g. 1/32 B/edge at Eb=128,
+        Wc=1 — vs the 4-8 B/edge packed words it lets the engine skip. Push
+        coverage words, when built, are counted too (same denominator)."""
+        if self.tile_coverage is None or self.tile_word is None:
+            return 0.0
+        cov = self.tile_coverage.size
+        if self.push_coverage is not None:
+            cov += self.push_coverage.size
+        return 4.0 * cov / max(self.tile_word.size, 1)
+
+    @property
+    def t_max_reduction(self) -> float:
+        """Stacked-stream T_max as a fraction of what the UNSPLIT layout
+        would need (the single fattest row block): 1.0 = splitting off or
+        no effect; the acceptance target on star-like graphs is <= 0.5."""
+        if self.tile_word is None or self.t_max_unsplit <= 0:
+            return 1.0
+        return float(self.tile_word.shape[3]) / float(self.t_max_unsplit)
+
+    def memory_report(self) -> dict:
+        """Byte accounting of the resident layout, field by field.
+
+        ``device`` covers the arrays the engines ship to the accelerator (the
+        packed edge/coverage streams plus counts and row maps); ``host_flat``
+        covers the flat (p, l, E_pad) bucket arrays that stay host-side for
+        delta ingestion and serving. ``device_bytes_per_edge`` is the
+        footprint metric the bounded-memory acceptance checks compare peak
+        build RSS against (the packed stream IS the final partition
+        footprint; the flat arrays are reported separately because a
+        memmap-backed build keeps them on disk)."""
+        device_fields = (
+            "tile_word", "tile_word_hi", "tile_counts", "tile_weights",
+            "tile_coverage", "tile_row_pos", "tile_row_orig",
+            "tile_split_map", "push_word", "push_word_hi", "push_counts",
+            "push_weights", "push_coverage",
+        )
+        flat_fields = ("src_gidx", "dst_lidx", "valid", "weights")
+        device = {
+            name: int(getattr(self, name).nbytes)
+            for name in device_fields
+            if getattr(self, name) is not None
+        }
+        host_flat = {
+            name: int(getattr(self, name).nbytes)
+            for name in flat_fields
+            if getattr(self, name) is not None
+        }
+        device_total = sum(device.values())
+        flat_total = sum(host_flat.values())
+        e = max(self.num_edges, 1)
+        return {
+            "device": device,
+            "host_flat": host_flat,
+            "device_total_bytes": device_total,
+            "host_flat_total_bytes": flat_total,
+            "total_bytes": device_total + flat_total,
+            "device_bytes_per_edge": device_total / e,
+            "bytes_per_edge": (device_total + flat_total) / e,
+        }
+
+
+def stride_permutation(num_vertices: int, stride: int = 100) -> np.ndarray:
+    """Paper §III-C stride mapping: new order v0, v100, v200, ..., v1, v101, ...
+
+    Returns ``perm`` with ``perm[old_id] = new_id``.
+    """
+    order = np.lexsort(
+        (np.arange(num_vertices) // stride, np.arange(num_vertices) % stride)
+    )
+    # order[k] = old id at new position k  ->  invert
+    perm = np.empty(num_vertices, dtype=np.int64)
+    perm[order] = np.arange(num_vertices, dtype=np.int64)
+    return perm
+
+
+def apply_permutation(g: COOGraph, perm: np.ndarray) -> COOGraph:
+    return COOGraph(
+        src=perm[g.src].astype(np.uint32),
+        dst=perm[g.dst].astype(np.uint32),
+        num_vertices=g.num_vertices,
+        weights=g.weights,
+    )
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _resolve_dims(num_vertices: int, cfg: PartitionConfig) -> tuple[int, int, int, int]:
+    """Resolve (p, l, sub_size, vpc) under cfg's scratch/lane rules.
+
+    (l derivation from scratch capacity, lane rounding of sub_size)."""
+    p, l = cfg.p, cfg.l
+    if cfg.scratch_size is not None:
+        # derive l from scratch capacity (paper: sub-interval fits scratch pad)
+        per_core = _round_up(-(-num_vertices // p), cfg.lane)
+        l = max(1, -(-per_core // cfg.scratch_size))
+    sub_size = _round_up(-(-num_vertices // (p * l)), cfg.lane)
+    return p, l, sub_size, l * sub_size
+
+
+def partition_2d(g: COOGraph, cfg: PartitionConfig) -> PartitionedGraph:
+    """Partition the *processing* edge set (u -> v means "v pulls from u").
+
+    ``g`` must already be the edge set in pull orientation (for BFS/WCC/SSSP/PR
+    on directed input, pass the original COO: dst pulls from src along inverse
+    edges, which is exactly iterating (src, dst) grouped by dst).
+    """
+    perm = inv = None
+    if cfg.stride is not None and cfg.stride > 1:
+        perm = stride_permutation(g.num_vertices, cfg.stride)
+        inv = np.argsort(perm)
+        g = apply_permutation(g, perm)
+
+    p, l, sub_size, vpc = _resolve_dims(g.num_vertices, cfg)
+
+    src = g.src.astype(np.int64)
+    dst = g.dst.astype(np.int64)
+    core = dst // vpc  # dim-1: destination interval owns the edge
+    phase = (src % vpc) // sub_size  # dim-2: source sub-interval index
+    src_core = src // vpc
+    gidx = src_core * sub_size + (src % sub_size)  # crossbar routing rewrite
+    lidx = dst % vpc
+
+    # bucket sort by (core, phase), then by local dst inside each bucket
+    key = (core * l + phase) * (vpc + 1) + lidx
+    order = np.argsort(key, kind="stable")
+    core, phase, gidx, lidx = core[order], phase[order], gidx[order], lidx[order]
+    w = g.weights[order] if g.weights is not None else None
+
+    bucket_id = core * l + phase
+    sizes = np.bincount(bucket_id, minlength=p * l).reshape(p, l)
+    e_pad = max(_round_up(int(sizes.max()), cfg.edge_pad), cfg.edge_pad)
+
+    src_gidx = np.zeros((p, l, e_pad), dtype=np.int32)
+    # padding edges point at the LAST local row so per-bucket dst stays sorted
+    # (segment reduces use indices_are_sorted=True); they carry the reduce
+    # identity so the row's value is unaffected.
+    dst_lidx = np.full((p, l, e_pad), vpc - 1, dtype=np.int32)
+    valid = np.zeros((p, l, e_pad), dtype=bool)
+    weights = np.zeros((p, l, e_pad), dtype=np.float32) if w is not None else None
+
+    starts = np.zeros(p * l + 1, dtype=np.int64)
+    np.cumsum(sizes.ravel(), out=starts[1:])
+    for i in range(p):
+        for m in range(l):
+            b = i * l + m
+            s, e = starts[b], starts[b + 1]
+            n = int(e - s)
+            src_gidx[i, m, :n] = gidx[s:e]
+            dst_lidx[i, m, :n] = lidx[s:e]
+            valid[i, m, :n] = True
+            if weights is not None:
+                weights[i, m, :n] = w[s:e]
+
+    tiles = (
+        _build_tile_layouts(
+            p, l, vpc, src_gidx, dst_lidx, valid, weights, cfg, sub_size
+        )
+        if cfg.build_tiles
+        else {}
+    )
+
+    return PartitionedGraph(
+        p=p,
+        l=l,
+        sub_size=sub_size,
+        num_vertices=g.num_vertices,
+        num_edges=g.num_edges,
+        src_gidx=src_gidx,
+        dst_lidx=dst_lidx,
+        valid=valid,
+        weights=weights,
+        perm=perm,
+        inv_perm=inv,
+        bucket_sizes=sizes,
+        config=cfg,
+        **tiles,
+    )
+
+
+def _bucket_split_threshold(cfg: PartitionConfig, bucket_edges: int, r_blocks: int):
+    """Resolve cfg.split_threshold for one bucket (None = splitting off)."""
+    if cfg.split_threshold is None or not cfg.degree_aware_tiles:
+        return None
+    if cfg.split_threshold == "auto":
+        # cap every kernel row at the bucket's MEAN row-block load (a row at
+        # the mean cannot raise T above it) but never below one tile width —
+        # sub-tile chunks cost R without shrinking T.
+        return max(cfg.tile_eb, -(-int(bucket_edges) // max(r_blocks, 1)))
+    return int(cfg.split_threshold)
+
+
+def _build_tile_layouts(p, l, vpc, src_gidx, dst_lidx, valid, weights, cfg, sub_size):
+    """Bin every (core, phase) bucket into (R, T, Eb) row-block tiles, bit-pack
+    each slot's index triple into the compressed word stream, and stack to
+    (p, l, R, T, Eb) with uniform (R, T) (max over buckets; padded tiles are
+    recorded in ``tile_counts`` so the kernel skips them) so the engine
+    launches all cores of a phase in one kernel launch. Hub rows above the
+    split threshold become virtual rows (see prepare_tiles); when any bucket
+    split, ``tile_row_orig``/``tile_split_map`` replace ``tile_row_pos`` and
+    the engine runs the two-level reduce."""
+    from repro_torch.kernels.csr_gather_reduce.ops import (
+        choose_src_bits,
+        prepare_push_tiles,
+        prepare_tiles,
+        split_map_from_row_orig,
+        stack_packed_tiles,
+        stack_push_tiles,
+        tile_coverage_words,
+    )
+
+    vb = cfg.tile_vb if cfg.tile_vb is not None else sub_size
+    assert vpc % vb == 0, (vpc, vb)
+    eb = cfg.tile_eb
+    src_bits = (
+        cfg.pack_src_bits
+        if cfg.pack_src_bits is not None
+        else choose_src_bits(p * sub_size, vb)
+    )
+    layouts = [
+        [
+            prepare_tiles(
+                src_gidx[i, m], dst_lidx[i, m], valid[i, m],
+                num_rows=vpc, vb=vb, eb=eb,
+                weights=weights[i, m] if weights is not None else None,
+                balance_rows=cfg.degree_aware_tiles,
+                split_threshold=_bucket_split_threshold(
+                    cfg, int(valid[i, m].sum()), vpc // vb
+                ),
+            )
+            for m in range(l)
+        ]
+        for i in range(p)
+    ]
+    flat = [layouts[i][m] for i in range(p) for m in range(l)]
+    word, word_hi, counts, wts = stack_packed_tiles(flat, src_bits=src_bits)
+    r_blocks, t_max = word.shape[1], word.shape[2]
+    tile_word = word.reshape(p, l, r_blocks, t_max, eb)
+    tile_word_hi = (
+        word_hi.reshape(p, l, r_blocks, t_max, eb) if word_hi is not None else None
+    )
+    tile_counts = counts.reshape(p, l, r_blocks)
+    tile_weights = (
+        wts.reshape(p, l, r_blocks, t_max, eb) if wts is not None else None
+    )
+    tile_coverage = tile_coverage_words(
+        tile_word, tile_word_hi, src_bits=src_bits, p=p, sub_size=sub_size
+    )
+    any_split = any(t.row_orig is not None for row in layouts for t in row)
+    tile_row_pos = tile_row_orig = tile_split_map = None
+    split_rows = 0
+    t_max_unsplit = max(t.t_tiles_unsplit for t in flat)
+    if any_split:
+        # every bucket needs a row_orig map (split or not) so one uniform
+        # (p, l, Vl, S_max) gather drives the engine's level-2 combine.
+        packed_rows = r_blocks * vb
+        tile_row_orig = np.full((p, l, packed_rows), -1, dtype=np.int32)
+        maps = []
+        for i in range(p):
+            for m in range(l):
+                t = layouts[i][m]
+                if t.row_orig is not None:
+                    ro = t.row_orig
+                elif t.row_pos is not None:
+                    ro = np.full(vpc, -1, dtype=np.int32)
+                    ro[t.row_pos] = np.arange(vpc, dtype=np.int32)
+                else:
+                    ro = np.arange(vpc, dtype=np.int32)
+                tile_row_orig[i, m, : ro.shape[0]] = ro
+                maps.append(split_map_from_row_orig(tile_row_orig[i, m], vpc))
+                split_rows += t.num_split_rows
+        s_max = max(sm.shape[1] for sm in maps)
+        tile_split_map = np.full((p, l, vpc, s_max), -1, dtype=np.int32)
+        for b, sm in enumerate(maps):
+            tile_split_map[b // l, b % l, :, : sm.shape[1]] = sm
+    else:
+        any_packed = any(t.row_pos is not None for row in layouts for t in row)
+        tile_row_pos = (
+            np.tile(np.arange(vpc, dtype=np.int32), (p, l, 1)) if any_packed else None
+        )
+        if tile_row_pos is not None:
+            for i in range(p):
+                for m in range(l):
+                    t = layouts[i][m]
+                    if t.row_pos is not None:
+                        tile_row_pos[i, m] = t.row_pos
+    push = {}
+    if cfg.build_push:
+        # push (scatter) stream: same edges, binned by SOURCE block. The
+        # packed dstb field holds the FULL local destination row [0, vpc),
+        # so the 16-bit regime additionally needs vpc <= 2^15; an explicit
+        # pack_src_bits=32 forces both streams into the wide regime.
+        push_src_bits = (
+            cfg.pack_src_bits
+            if cfg.pack_src_bits is not None
+            else choose_src_bits(p * sub_size, vpc)
+        )
+        gathered = p * sub_size
+        peb = cfg.push_eb if cfg.push_eb is not None else eb
+        push_block = cfg.push_block
+        if push_block is None:
+            # auto-size: ~2 full push-tile widths of the average bucket
+            # degree per block, 32-aligned, clamped to one gathered block
+            total_edges = int(np.asarray(valid).sum())
+            avg_deg = total_edges / max(p * l, 1) / max(gathered, 1)
+            want = 2.0 * peb / max(avg_deg, 1e-9)
+            push_block = 32 * max(1, int(round(want / 32.0)))
+            push_block = min(push_block, 32 * ((gathered + 31) // 32))
+        push_layouts = [
+            prepare_push_tiles(
+                src_gidx[i, m], dst_lidx[i, m], valid[i, m],
+                gathered_size=gathered,
+                block_sources=push_block,
+                num_rows=vpc, eb=peb,
+                weights=weights[i, m] if weights is not None else None,
+            )
+            for i in range(p)
+            for m in range(l)
+        ]
+        pw, pw_hi, pcnt, pwts = stack_push_tiles(
+            push_layouts, src_bits=push_src_bits
+        )
+        b_blocks, tp_max = pw.shape[1], pw.shape[2]
+        push_word = pw.reshape(p, l, b_blocks, tp_max, peb)
+        push_word_hi = (
+            pw_hi.reshape(p, l, b_blocks, tp_max, peb)
+            if pw_hi is not None
+            else None
+        )
+        push = dict(
+            push_word=push_word,
+            push_word_hi=push_word_hi,
+            push_counts=pcnt.reshape(p, l, b_blocks),
+            push_weights=(
+                pwts.reshape(p, l, b_blocks, tp_max, peb)
+                if pwts is not None
+                else None
+            ),
+            push_coverage=tile_coverage_words(
+                push_word, push_word_hi,
+                src_bits=push_src_bits, p=p, sub_size=sub_size,
+            ),
+            push_src_bits=push_src_bits,
+            push_block=push_block,
+        )
+    return dict(
+        tile_word=tile_word,
+        tile_word_hi=tile_word_hi,
+        tile_counts=tile_counts,
+        tile_weights=tile_weights,
+        tile_row_pos=tile_row_pos,
+        tile_coverage=tile_coverage,
+        tile_vb=vb,
+        src_bits=src_bits,
+        tile_row_orig=tile_row_orig,
+        tile_split_map=tile_split_map,
+        split_rows=split_rows,
+        t_max_unsplit=t_max_unsplit,
+        **push,
+    )

@@ -60,3 +60,11 @@ def small_graphs():
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU with nvcc; skips where torch.cuda.is_available() is "
+        "false (see tests/test_torch_cuda.py for the command that runs them on a card)",
+    )
