@@ -193,14 +193,17 @@ class PartitionedGraph:
         """Field ``name`` as a torch tensor on ``device`` (None stays None),
         uploaded once and cached. ``phase_major`` moves the phase axis (axis
         1) to the front, so the slice a phase launch reads is contiguous;
-        ``dtype`` converts first (index arrays become int64 for torch)."""
+        ``dtype`` converts first (index arrays become int64 for torch).
+        uint32 fields (the coverage words) arrive as int32 tensors holding
+        the same bits (``core.u32``)."""
         arr = getattr(self, name)
         if arr is None:
             return None
         key = (name, str(torch.device(device)), dtype, phase_major)
         hit = self.device_cache.get(key)
         if hit is None:
-            t = torch.from_numpy(np.ascontiguousarray(arr))
+            arr = np.ascontiguousarray(arr)
+            t = torch.from_numpy(arr.view(np.int32) if arr.dtype == np.uint32 else arr)
             if phase_major:
                 t = t.transpose(0, 1)
             hit = t.to(device=device, dtype=dtype).contiguous()

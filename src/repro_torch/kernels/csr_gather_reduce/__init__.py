@@ -11,3 +11,7 @@ from repro_torch.kernels.csr_gather_reduce.ops import (  # noqa: F401
     split_map_from_row_orig,
     stack_packed_tiles,
 )
+from repro_torch.kernels.csr_gather_reduce.scatter import (  # noqa: F401
+    scatter_reduce_cores,
+    scatter_reduce_cores_plain,
+)

@@ -5,11 +5,15 @@ Counterpart of ``repro.kernels.csr_gather_reduce.kernel.gather_reduce_cores_pall
 of one phase, the reduce (min or sum) of the mapped payloads of the block's
 edges into ``vb`` output rows that start at the reduce identity:
 
-  for each real tile t < counts[c, r] and slot e of word[c, r, t]:
+  for each tile t that runs and slot e of word[c, r, t]:
       16-bit regime: src = w & 0xFFFF, dstb = (w >> 16) & 0x7FFF, valid = w < 0
       32-bit regime: src = w, dstb = hi & 0x7FFFFFFF, valid = hi < 0
       val = payload[src]          (+ weight, saturating at the identity, for 'add')
       out[c, r * vb + dstb] = reduce(out[...], val)      for valid slots
+
+A tile runs iff ``t < counts[c, r]`` (the static schedule) or, given the
+dynamic fetch map of the frontier-aware tile skip, iff ``fetch[c, r, t] ==
+t`` (``core.frontier_words.active_fetch_map``).
 
 On a CUDA tensor it launches the hand-written Hopper kernel in
 ``csrc/gather_reduce_cores.cu`` (built by ``nvcc`` at first use) or raises;
@@ -18,8 +22,7 @@ version of the same function, which is also what the kernel is checked
 against on the card. An int32 payload holds uint32 bit patterns
 (``core.u32``) and reduces with the unsigned min.
 
-This slice covers the static schedule: the ``fetch`` map of the dynamic
-tile skip, a trailing lane axis and the 'or' reduce come in later slices.
+A trailing lane axis and the 'or' reduce come with multi-query lanes.
 """
 from __future__ import annotations
 
@@ -59,8 +62,9 @@ def variant_name(payload_dtype: torch.dtype, kind: str, edge_op: str) -> str:
 
 
 def smem_limit_rows() -> int:
-    """Largest vb whose accumulator (plus the sum staging) fits one block."""
-    return SMEM_LIMIT // 4 - 3 * _THREADS
+    """Largest vb whose accumulator (plus the sum staging and the active-tile
+    list) fits one block."""
+    return SMEM_LIMIT // 4 - 4 * _THREADS - _THREADS // 32
 
 
 def _decode(word, word_hi, src_bits):
@@ -69,38 +73,60 @@ def _decode(word, word_hi, src_bits):
     return word, word_hi & 0x7FFFFFFF, word_hi < 0
 
 
+def tiles_that_run(counts, fetch, t_tiles: int) -> torch.Tensor:
+    """(p, R, T) bool: the tiles a launch reads, from the static counts or,
+    when given, the dynamic fetch map."""
+    t_idx = torch.arange(t_tiles, device=counts.device, dtype=torch.int32)
+    if fetch is not None:
+        return fetch == t_idx
+    return t_idx < counts.unsqueeze(-1)
+
+
+def _mapped(payload, src, weights, edge_op, identity):
+    """Gather the source payloads of the live slots and apply the map UDF."""
+    vals = payload[src.long()]
+    if edge_op == "add":  # saturating min-plus; no weights = unit weights
+        step = weights if weights is not None else 1.0
+        vals = torch.where(vals >= identity, torch.full_like(vals, identity), vals + step)
+    return vals
+
+
+def _min_into(vals, rows, size, identity):
+    """Min-reduce ``vals`` at ``rows`` into ``size`` slots holding the
+    identity; int32 values are uint32 bits (unsigned min in int64)."""
+    if vals.dtype == torch.int32:
+        out = torch.full((size,), int(identity) & u32.U32_MAX, dtype=torch.int64,
+                         device=vals.device)
+        out.scatter_reduce_(0, rows.long(), u32.widen(vals), "amin")
+        return u32.narrow(out)
+    out = torch.full((size,), identity, dtype=vals.dtype, device=vals.device)
+    out.scatter_reduce_(0, rows.long(), vals, "amin")
+    return out
+
+
 def gather_reduce_cores_plain(
-    payload, word, counts, word_hi=None, weights=None, *,
+    payload, word, counts, word_hi=None, weights=None, fetch=None, *,
     num_rows, vb, src_bits=16, kind="min", edge_op="none", identity=0.0,
 ):
-    """Plain PyTorch version: decode every slot, mask invalid slots and tiles
-    at or past ``counts``, gather, map, and scatter-reduce into (p, R*vb)."""
+    """Plain PyTorch version: decode every slot, mask invalid slots and the
+    tiles that do not run, gather, map, and scatter-reduce into (p, R*vb)."""
     p, r_blocks, t_tiles, eb = word.shape
     src, dstb, valid = _decode(word, word_hi, src_bits)
-    t_idx = torch.arange(t_tiles, device=word.device).view(1, 1, t_tiles, 1)
-    live = valid & (t_idx < counts.view(p, r_blocks, 1, 1))
+    live = valid & tiles_that_run(counts, fetch, t_tiles).unsqueeze(-1)
     rows = (
         dstb
         + vb * torch.arange(r_blocks, device=word.device).view(1, r_blocks, 1, 1)
         + num_rows * torch.arange(p, device=word.device).view(p, 1, 1, 1)
-    )
-    rows, src = rows[live], src[live].long()
-    vals = payload[src]
-    if edge_op == "add":
-        step = weights[live] if weights is not None else 1.0
-        vals = torch.where(vals >= identity, torch.full_like(vals, identity), vals + step)
-    if payload.dtype == torch.int32:  # uint32 bits: unsigned min in int64
-        out = torch.full((p * num_rows,), int(identity) & u32.U32_MAX,
-                         dtype=torch.int64, device=word.device)
-        out.scatter_reduce_(0, rows.long(), u32.widen(vals), "amin")
-        return u32.narrow(out).view(p, num_rows)
-    out = torch.full((p * num_rows,), identity, dtype=payload.dtype, device=word.device)
+    )[live]
+    vals = _mapped(payload, src[live], weights[live] if weights is not None else None,
+                   edge_op, identity)
     if kind == "min":
-        out.scatter_reduce_(0, rows.long(), vals, "amin")
-        return out.view(p, num_rows)
+        return _min_into(vals, rows, p * num_rows, identity).view(p, num_rows)
     # sum with the reference kernel's association: each tile's slots are
     # summed per row first, then the tile partials are added in tile order
     # (on the CPU index_add_ runs in index order)
+    out = torch.full((p * num_rows,), identity, dtype=payload.dtype, device=word.device)
+    t_idx = torch.arange(t_tiles, device=word.device).view(1, 1, t_tiles, 1)
     t_of = t_idx.expand_as(word)[live]
     key = ((rows // vb) * t_tiles + t_of) * vb + rows % vb
     uniq, inv = torch.unique(key, return_inverse=True)
@@ -110,25 +136,18 @@ def gather_reduce_cores_plain(
     return out.view(p, num_rows)
 
 
-def _check(payload, word, counts, word_hi, weights, num_rows, vb, src_bits, kind, edge_op):
+def check_stream(payload, word, counts, word_hi, weights, fetch, src_bits, kind, edge_op):
+    """Shape, type and device checks shared by the gather and scatter
+    wrappers: what their kernels take, and nothing else."""
     if word.dim() != 4:
-        raise ValueError(f"word must be (p, R, T, Eb), got {tuple(word.shape)}")
-    p, r_blocks, t_tiles, eb = word.shape
-    if r_blocks * vb != num_rows:
-        raise ValueError(f"R * vb = {r_blocks} * {vb} != num_rows = {num_rows}")
-    if vb > smem_limit_rows():
-        # the kernel keeps a block's vb-row accumulator in shared memory; the
-        # same limit holds on every device so a partition runs everywhere
-        raise ValueError(
-            f"vb={vb} rows do not fit one block's shared memory "
-            f"(at most {smem_limit_rows()}); partition with a smaller tile_vb"
-        )
-    if tuple(counts.shape) != (p, r_blocks):
-        raise ValueError(f"counts must be {(p, r_blocks)}, got {tuple(counts.shape)}")
+        raise ValueError(f"word must be (p, blocks, tiles, Eb), got {tuple(word.shape)}")
+    p, n_blocks, t_tiles, _ = word.shape
+    if tuple(counts.shape) != (p, n_blocks):
+        raise ValueError(f"counts must be {(p, n_blocks)}, got {tuple(counts.shape)}")
+    if fetch is not None and tuple(fetch.shape) != (p, n_blocks, t_tiles):
+        raise ValueError(f"fetch must be {(p, n_blocks, t_tiles)}, got {tuple(fetch.shape)}")
     if src_bits not in (16, 32) or (word_hi is not None) != (src_bits == 32):
         raise ValueError(f"src_bits={src_bits} needs word_hi exactly in the 32-bit regime")
-    if kind not in ("min", "sum"):
-        raise ValueError(f"kind must be 'min' or 'sum' in this slice, got {kind!r}")
     if edge_op not in ("none", "add"):
         raise ValueError(f"edge_op must be 'none' or 'add', got {edge_op!r}")
     if payload.dim() != 1:
@@ -138,7 +157,8 @@ def _check(payload, word, counts, word_hi, weights, num_rows, vb, src_bits, kind
     if payload.dtype == torch.int32 and (kind != "min" or edge_op != "none"):
         raise ValueError("uint32 payloads support kind='min', edge_op='none' only")
     for name, t, dt in (("word", word, torch.int32), ("counts", counts, torch.int32),
-                        ("word_hi", word_hi, torch.int32), ("weights", weights, torch.float32)):
+                        ("word_hi", word_hi, torch.int32), ("weights", weights, torch.float32),
+                        ("fetch", fetch, torch.int32)):
         if t is None:
             continue
         if t.dtype != dt:
@@ -147,35 +167,41 @@ def _check(payload, word, counts, word_hi, weights, num_rows, vb, src_bits, kind
             raise ValueError(f"{name} is on {t.device}, payload on {payload.device}")
         if name in ("word_hi", "weights") and t.shape != word.shape:
             raise ValueError(f"{name} must match word's shape {tuple(word.shape)}")
+    if payload.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {payload.device}")
 
 
-def _launch(payload, word, counts, word_hi, weights, num_rows, vb, kind, edge_op, identity):
+def identity_word(payload_dtype: torch.dtype, identity: float) -> int:
+    """The reduce identity as the 32-bit word the kernels compare."""
+    if payload_dtype == torch.float32:
+        return struct.unpack("<I", struct.pack("<f", identity))[0]
+    return int(identity) & u32.U32_MAX
+
+
+def pointers(*tensors):
+    """Device pointers for a C launcher (None for an absent operand)."""
+    for t in tensors:
+        if t is not None and not t.is_contiguous():
+            raise ValueError("kernel operands must be contiguous")
+    return [t.data_ptr() if t is not None else None for t in tensors]
+
+
+def _launch(payload, word, counts, word_hi, weights, fetch, num_rows, vb, kind, edge_op,
+            identity):
     from repro_torch.kernels.build import load_library
 
     lib, _ = load_library(SOURCE)
     fn = lib.gather_reduce_cores_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_uint32, ctypes.c_void_p]
-    tensors = {"payload": payload, "word": word, "counts": counts,
-               "word_hi": word_hi, "weights": weights}
-    for name, t in tensors.items():
-        if t is not None and not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_uint32, ctypes.c_void_p]
     p, r_blocks, t_tiles, eb = word.shape
-    is_f32 = payload.dtype == torch.float32
-    if is_f32:
-        ident = struct.unpack("<I", struct.pack("<f", identity))[0]
-    else:
-        ident = int(identity) & u32.U32_MAX
     out = torch.empty((p, num_rows), dtype=payload.dtype, device=payload.device)
     with torch.cuda.device(payload.device):  # the launch goes to the current device
         err = fn(
-            payload.data_ptr(), word.data_ptr(),
-            word_hi.data_ptr() if word_hi is not None else None,
-            weights.data_ptr() if weights is not None else None,
-            counts.data_ptr(), out.data_ptr(),
+            *pointers(payload, word, word_hi, weights, counts, fetch, out),
             p, r_blocks, t_tiles, eb, vb,
-            0 if kind == "min" else 1, int(is_f32), int(edge_op == "add"), ident,
+            0 if kind == "min" else 1, int(payload.dtype == torch.float32),
+            int(edge_op == "add"), identity_word(payload.dtype, identity),
             torch.cuda.current_stream(payload.device).cuda_stream,
         )
     if err != 0:
@@ -191,7 +217,7 @@ def gather_reduce_cores(
     counts: torch.Tensor,  # (p, R) int32 real edge tiles per (core, row block)
     word_hi: torch.Tensor | None = None,  # (p, R, T, Eb) int32, src_bits=32 only
     weights: torch.Tensor | None = None,  # (p, R, T, Eb) f32 (edge_op == 'add')
-    fetch: torch.Tensor | None = None,  # dynamic fetch map: not ported yet
+    fetch: torch.Tensor | None = None,  # (p, R, T) int32 dynamic fetch map
     *,
     num_rows: int,  # packed rows per core (= R * vb)
     vb: int,
@@ -203,17 +229,24 @@ def gather_reduce_cores(
     """All-cores accumulator over the compressed stream -> (p, num_rows).
 
     CUDA tensors launch the Hopper kernel (or raise); CPU tensors run the
-    plain version. Mirrors the reference's signature; ``fetch`` (the dynamic
-    tile skip) raises ``NotImplementedError`` in this slice."""
-    if fetch is not None:
-        raise NotImplementedError("the dynamic fetch map is not ported yet")
-    _check(payload, word, counts, word_hi, weights, num_rows, vb, src_bits, kind, edge_op)
+    plain version. Mirrors the reference's signature: ``fetch`` replaces
+    ``counts`` as the schedule when given."""
+    check_stream(payload, word, counts, word_hi, weights, fetch, src_bits, kind, edge_op)
+    if kind not in ("min", "sum"):
+        raise ValueError(f"kind must be 'min' or 'sum' in this slice, got {kind!r}")
+    if word.shape[1] * vb != num_rows:
+        raise ValueError(f"R * vb = {word.shape[1]} * {vb} != num_rows = {num_rows}")
+    if vb > smem_limit_rows():
+        # the kernel keeps a block's vb-row accumulator in shared memory; the
+        # same limit holds on every device so a partition runs everywhere
+        raise ValueError(
+            f"vb={vb} rows do not fit one block's shared memory "
+            f"(at most {smem_limit_rows()}); partition with a smaller tile_vb"
+        )
     if payload.device.type == "cuda":
-        return _launch(payload, word, counts, word_hi, weights, num_rows, vb,
+        return _launch(payload, word, counts, word_hi, weights, fetch, num_rows, vb,
                        kind, edge_op, identity)
-    if payload.device.type != "cpu":
-        raise ValueError(f"unsupported device {payload.device}")
     return gather_reduce_cores_plain(
-        payload, word, counts, word_hi, weights, num_rows=num_rows, vb=vb,
+        payload, word, counts, word_hi, weights, fetch, num_rows=num_rows, vb=vb,
         src_bits=src_bits, kind=kind, edge_op=edge_op, identity=identity,
     )

@@ -1,4 +1,9 @@
-"""Card-only checks of the port: the CUDA kernel against its plain version.
+"""Card-only checks of the port: the CUDA kernels against their plain versions.
+
+The gather kernel on its static and fetch-map arms, the scatter kernel on
+both push regimes and both arms (min bit-equal, sum within ``SUM_TOL``),
+and the engine with its default options (dynamic tile skip, 'auto'
+direction) and with forced push, on the card against the CPU run.
 
 Every test here needs an NVIDIA GPU (the kernel has no CPU mode) and skips
 without one. The file imports neither jax nor ``repro``, so it runs on a
@@ -15,9 +20,11 @@ import torch
 import repro_torch.core.graph as G
 from repro_torch.core import problems as P
 from repro_torch.core import u32
-from repro_torch.core.engine import run
+from repro_torch.core import frontier_words as F
+from repro_torch.core.engine import EngineOptions, run, run_frontier_trace
 from repro_torch.core.partition import PartitionConfig, partition_2d
 from repro_torch.kernels.csr_gather_reduce import kernel as K
+from repro_torch.kernels.csr_gather_reduce import scatter as S
 
 INF_U32 = 0xFFFFFFFF
 INF_F32 = float(np.finfo(np.float32).max)
@@ -120,3 +127,102 @@ def test_engine_on_card_matches_cpu(pname, cuda_device):
         np.testing.assert_array_equal(a, b)
     else:
         np.testing.assert_allclose(a, b, **SUM_TOL)
+
+
+def _fetch(counts, t_tiles, rng, share=0.3):
+    """A seeded fetch map that keeps about ``share`` of the real tiles."""
+    real = torch.arange(t_tiles).view(1, 1, -1) < counts.unsqueeze(-1)
+    return F.active_fetch_map(real & torch.from_numpy(rng.random(tuple(real.shape)) < share))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph", list(GRAPHS))
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_cuda_fetch_arm_matches_plain(graph, variant, cuda_device):
+    make, cfg = GRAPHS[graph]
+    pg = partition_2d(make(), PartitionConfig(**cfg))
+    kind, edge_op, identity = VARIANTS[variant]
+    rng = np.random.default_rng(14)
+    kw = dict(num_rows=pg.packed_rows_per_core, vb=pg.tile_vb, src_bits=pg.src_bits,
+              kind=kind, edge_op=edge_op, identity=identity)
+    for m in range(pg.l):
+        hi = pg.tile_word_hi[:, m] if pg.tile_word_hi is not None else None
+        w = pg.tile_weights[:, m] if edge_op == "add" and pg.tile_weights is not None else None
+        counts = torch.from_numpy(pg.tile_counts[:, m].copy())
+        args = [_payload(variant, pg.gathered_size, rng), torch.from_numpy(pg.tile_word[:, m].copy()),
+                counts, None if hi is None else torch.from_numpy(hi.copy()),
+                None if w is None else torch.from_numpy(w.copy()),
+                _fetch(counts, pg.tile_word.shape[3], rng)]
+        want = K.gather_reduce_cores(*args, **kw)
+        got = K.gather_reduce_cores(
+            *[a.to(cuda_device) if a is not None else None for a in args], **kw).cpu()
+        if kind == "sum":
+            torch.testing.assert_close(got, want, **SUM_TOL)
+        else:
+            assert torch.equal(got, want)
+
+
+PUSH_GRAPHS = {
+    "rmat10_16bit": (lambda: _with_weights(G.symmetrize(G.rmat(10, 8, seed=4)), 4),
+                     dict(p=2, l=2, lane=8, tile_vb=64, push_block=128)),
+    "rmat10_32bit": (lambda: _with_weights(G.symmetrize(G.rmat(10, 8, seed=5)), 5),
+                     dict(p=4, l=2, lane=8, tile_vb=16, pack_src_bits=32)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["static", "fetch"])
+@pytest.mark.parametrize("graph", list(PUSH_GRAPHS))
+@pytest.mark.parametrize("variant", ["min_u32", "min_f32_add"])
+def test_cuda_scatter_matches_plain(variant, graph, arm, cuda_device):
+    make, cfg = PUSH_GRAPHS[graph]
+    pg = partition_2d(make(), PartitionConfig(**cfg))
+    _, edge_op, identity = VARIANTS[variant]
+    rng = np.random.default_rng(15)
+    kw = dict(num_rows=pg.vertices_per_core, src_bits=pg.push_src_bits, kind="min",
+              edge_op=edge_op, identity=identity)
+    key = K.variant_name(torch.int32 if variant == "min_u32" else torch.float32, "min", edge_op)
+    for m in range(pg.l):
+        hi = pg.push_word_hi[:, m] if pg.push_word_hi is not None else None
+        w = pg.push_weights[:, m] if edge_op == "add" else None
+        counts = torch.from_numpy(pg.push_counts[:, m].copy())
+        args = [_payload(variant, pg.gathered_size, rng), torch.from_numpy(pg.push_word[:, m].copy()),
+                counts, None if hi is None else torch.from_numpy(hi.copy()),
+                None if w is None else torch.from_numpy(w.copy()),
+                _fetch(counts, pg.push_word.shape[3], rng) if arm == "fetch" else None]
+        want = S.scatter_reduce_cores(*args, **kw)
+        before = S.LAUNCHES.get(key, 0)
+        got = S.scatter_reduce_cores(
+            *[a.to(cuda_device) if a is not None else None for a in args], **kw).cpu()
+        assert S.LAUNCHES[key] == before + 1
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def _shuffled_path(n=256, seed=11):
+    perm = np.random.default_rng(seed).permutation(n).astype(np.uint32)
+    a, b = perm[:-1], perm[1:]
+    w = np.random.default_rng(seed).uniform(0.5, 2.0, 2 * (n - 1)).astype(np.float32)
+    return G.COOGraph(src=np.concatenate([a, b]), dst=np.concatenate([b, a]), num_vertices=n,
+                      weights=w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["auto", "push"])
+@pytest.mark.parametrize("pname", ["bfs", "wcc", "sssp"])
+def test_dynamic_engine_on_card_matches_cpu(pname, direction, cuda_device):
+    """The default options take both arms on a shuffled path (a thin
+    wavefront): the same labels, iterations and schedule as on the CPU."""
+    problem = {"bfs": P.bfs(0), "wcc": P.wcc(), "sssp": P.sssp(0)}[pname]
+    g = _shuffled_path()
+    pg = partition_2d(g, PartitionConfig(p=2, l=2, lane=8, tile_vb=32, tile_eb=32))
+    opts = EngineOptions(direction=direction)
+    S.reset_launch_counts()
+    got = run(problem, g, pg, opts, device=cuda_device)
+    assert sum(S.LAUNCHES.values()) > 0
+    want = run(problem, g, pg, opts, device="cpu")
+    assert got.iterations == want.iterations and got.converged
+    np.testing.assert_array_equal(got.labels["label"], want.labels["label"])
+    tg = run_frontier_trace(problem, g, pg, opts, device=cuda_device)
+    tc = run_frontier_trace(problem, g, pg, opts, device="cpu")
+    assert tg["direction"] == tc["direction"] and "push" in tg["direction"]
+    assert tg["dynamic_skipped_tile_fraction"] == tc["dynamic_skipped_tile_fraction"]

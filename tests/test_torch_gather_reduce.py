@@ -5,7 +5,8 @@ PyTorch version; it must agree with ``repro``'s
 ``gather_reduce_cores_pallas(..., interpret=True)`` on the same packed
 arrays: min exactly (uint32 BFS/WCC payloads, float32 SSSP payloads with the
 saturating weight add), sum within rtol=1e-6, atol=1e-9 — the reference's
-own Pallas-vs-XLA tolerance (tests/test_engine_fused.py). The CUDA kernel
+own Pallas-vs-XLA tolerance (tests/test_engine_fused.py), on the static tile
+counts and on seeded fetch maps (the dynamic tile skip). The CUDA kernel
 itself is checked against the plain version by tests/test_torch_cuda.py,
 which skips on machines without a card, and by ``chip_smoke.py``.
 """
@@ -16,6 +17,7 @@ import torch
 import jax.numpy as jnp
 
 import repro.core.graph as RG
+from repro.core import frontier_words as RF
 from repro.core.partition import PartitionConfig as RConfig
 from repro.core.partition import partition_2d as r_partition
 from repro.data.synthetic import skewed_graph
@@ -68,7 +70,7 @@ def _payload(variant, n, rng):
 
 
 def _to_port(a):
-    return u32.to_bits(a) if a.dtype == np.uint32 else torch.from_numpy(np.ascontiguousarray(a))
+    return u32.to_bits(a) if a.dtype == np.uint32 else torch.from_numpy(np.array(a))
 
 
 def _from_port(t):
@@ -101,6 +103,36 @@ def test_plain_matches_reference_kernel(graph, variant):
         got = K.gather_reduce_cores(
             _to_port(payload), _to_port(word), _to_port(counts),
             None if hi is None else _to_port(hi), None if w is None else _to_port(w), **kw)
+        got = _from_port(got)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        if kind == "sum":
+            np.testing.assert_allclose(got, want, **SUM_TOL)
+        else:
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("graph", list(GRAPHS))
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_fetch_arm_matches_reference_kernel(graph, variant):
+    """The dynamic arm: a tile runs iff fetch[c, r, t] == t, with a seeded
+    map that keeps about 30% of the real tiles."""
+    make, cfg = GRAPHS[graph]
+    pg = r_partition(make(), RConfig(**cfg))
+    kind, edge_op, identity = VARIANTS[variant]
+    rng = np.random.default_rng(12)
+    for m in range(pg.l):
+        word, counts, hi, w = _phase_args(pg, m, with_weights=edge_op == "add")
+        real = np.arange(word.shape[2])[None, None, :] < counts[..., None]
+        fetch = np.asarray(RF.active_fetch_map(jnp.asarray(real & (rng.random(real.shape) < 0.3))))
+        payload = _payload(variant, pg.gathered_size, rng)
+        kw = dict(num_rows=pg.packed_rows_per_core, vb=pg.tile_vb, src_bits=pg.src_bits,
+                  kind=kind, edge_op=edge_op, identity=identity)
+        want = np.asarray(gather_reduce_cores_pallas(
+            *(None if a is None else jnp.asarray(a) for a in (payload, word, counts, hi, w, fetch)),
+            interpret=True, **kw))
+        got = K.gather_reduce_cores(
+            *(None if a is None else _to_port(a) for a in (payload, word, counts, hi, w, fetch)),
+            **kw)
         got = _from_port(got)
         assert got.dtype == want.dtype and got.shape == want.shape
         if kind == "sum":
@@ -169,8 +201,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     word = torch.zeros((1, 1, 1, 4), dtype=torch.int32)
     counts = torch.zeros((1, 1), dtype=torch.int32)
     f32 = torch.zeros(4)
-    with pytest.raises(NotImplementedError):
-        K.gather_reduce_cores(f32, word, counts, fetch=torch.zeros((1, 1, 1), dtype=torch.int32),
+    with pytest.raises(ValueError, match="fetch"):
+        K.gather_reduce_cores(f32, word, counts, fetch=torch.zeros((1, 1, 2), dtype=torch.int32),
+                              num_rows=8, vb=8)
+    with pytest.raises(ValueError, match="fetch"):
+        K.gather_reduce_cores(f32, word, counts, fetch=torch.zeros((1, 1, 1), dtype=torch.int64),
                               num_rows=8, vb=8)
     big = K.smem_limit_rows() + 1
     with pytest.raises(ValueError, match="shared memory"):

@@ -148,3 +148,23 @@ def test_memory_report_matches_reference():
         t_partition(_port_graph(g), TConfig(**cfg)).memory_report()
         == r_partition(g, RConfig(**cfg)).memory_report()
     )
+
+
+@pytest.mark.parametrize("push_block", [None, 64, 1024])
+def test_push_footprint_counts_the_built_stream(push_block):
+    """``repro_torch.push_footprint`` sizes the push stream from the flat
+    bucket arrays alone; it must predict what the partitioner stacks."""
+    from repro_torch.push_footprint import push_footprint
+
+    g = TG.symmetrize(TG.rmat(10, 8, seed=6))
+    cfg = dict(p=4, l=2, tile_vb=64, tile_eb=32, push_block=push_block)
+    built = t_partition(g, TConfig(**cfg))
+    flat = t_partition(g, TConfig(**cfg, build_tiles=False))
+    got = push_footprint(flat, push_block, 32)
+    assert got["shape"] == list(built.push_word.shape)
+    assert got["block_sources"] == built.push_block
+    assert got["src_bits"] == built.push_src_bits
+    words = built.push_word.nbytes + (built.push_word_hi.nbytes if built.push_word_hi is not None else 0)
+    assert got["word_bytes"] == words
+    assert got["coverage_bytes"] == built.push_coverage.nbytes
+    assert got["real_tiles"] == int(built.push_counts.sum())
