@@ -51,7 +51,39 @@ Phases, one JSON line each (``{"phase": ..., "seconds": ...}``):
   reference  a small graph through the port on the card against the numpy
              oracles of ``repro_torch.core.reference``
 
-Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
+This slice's paths (multi-query lanes and graph serving, K = 16):
+
+  lanes_kernels  each lane arm against its plain version on phase 0 of the
+             partition, counts and a ~30% fetch map: gather 'or' at W=1 and
+             W=2 packed words (K=16, K=40), min_f32_add and sum_f32 at L=16,
+             min_f32_add at L=64 (two lane chunks at vb=1024); scatter 'or'
+             W=1 and min_f32_add L=16 on the real 32-bit push stream. Min and
+             OR bit-equal; sum within rtol=1e-5, atol=1e-9 and the same bits
+             on a second launch. Device time per launch over the l phases,
+             the byte bound with the L-wide payload and output, and the
+             laneless arm's time on the same streams
+  lanes_engine   bfs_multi, sssp_multi and ppr_multi (twice, tol 1e-4, the
+             router's) at K = 16 with the default options; launches counted
+             (forced-push runs added should 'auto' never push a variant):
+             they must equal sum(iterations) * l with every lane variant
+             run. Then (not counted) columns 0 and 1 against laneless
+             bfs/sssp runs, BFS/SSSP bit-equal to the oracle backend's
+             K-lane runs, PPR within 2e-5 of the oracle at 3 fixed
+             iterations, PPR bit-stable, and the schedule of each min/or run
+  serve      a GraphService over the built partition at K = 16: 128 queries of
+             mixed_query_workload(seed=0) with mix bfs 0.35, sssp 0.2, ppr
+             0.2, neighbors 0.25 and 512 weighted insertions from
+             edge_insertion_stream in 2 batches, each flushed mid-stream;
+             QPS, latency percentiles, batches, flushes, and
+             torch.cuda.memory_allocated() around each flush (the retired
+             partition's device copies must be freed); launches counted as
+             above. serve_equivalence: a cold partition_2d of the final
+             graph, every answer replayed on both partitions bit for bit,
+             BFS/WCC/SSSP labels and iterations equal
+
+Then a ``{"kernels": [...]}`` line (the laneless variants' launches from
+main_path, the lane variants' from lanes_engine) and, last, ``{"ok": true,
+"device": ...}``.
 Any failure raises and exits non-zero; it also exits non-zero, printing no
 result, when no CUDA device is present or the port's sources are missing.
 
@@ -62,6 +94,7 @@ the script's control flow without a card; it always exits 3.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -88,6 +121,29 @@ GATHER = dict(source="src/repro_torch/csrc/gather_reduce_cores.cu",
 SCATTER = dict(source="src/repro_torch/csrc/scatter_reduce_cores.cu",
                replaces="src/repro/kernels/csr_gather_reduce/kernel.py:373")
 FETCH_SHARE = 0.3  # share of real tiles a seeded fetch map keeps
+INF_F32 = 3.4028234663852886e38  # float32 max, the SSSP identity
+LANE_K = 16  # queries per multi-query batch (the serving width)
+# lane arm -> (kind, edge_op, identity, payload lanes, payload kind, laneless variant)
+LANE_ARMS = {
+    "or_w1": ("or", "none", 0.0, 1, "words", "min_u32"),  # K = 16: one reach word
+    "or_w2": ("or", "none", 0.0, 2, "words", "min_u32"),  # K = 40: two words
+    "min_f32_add_l16": ("min", "add", INF_F32, 16, "dist", "min_f32_add"),
+    "sum_f32_l16": ("sum", "none", 0.0, 16, "rank", "sum_f32"),
+    "min_f32_add_l64": ("min", "add", INF_F32, 64, "dist", "min_f32_add"),  # lane chunks
+}
+PUSH_LANE_ARMS = ("or_w1", "min_f32_add_l16")
+# lane variants the K = 16 paths launch, by kernel, and the arm that times each
+LANE_ENTRIES = {
+    "gather": (("or_u32_lanes", "or_w1"), ("min_f32_add_lanes", "min_f32_add_l16"),
+               ("sum_f32_lanes", "sum_f32_l16")),
+    "scatter": (("or_u32_lanes", "or_w1"), ("min_f32_add_lanes", "min_f32_add_l16")),
+}
+LANE_VARIANTS = {f"{k}_reduce_cores": tuple(v for v, _ in e) for k, e in LANE_ENTRIES.items()}
+PPR_RUN_TOL = 1e-4  # the serving router's PPR tolerance
+PPR_TOL = 2e-5  # sum problems: K-lane kernel vs the oracle backend
+PPR_FIXED_ITERS = 3
+SERVE_QUERIES = 128
+SERVE_INSERTS = 512
 
 
 def emit(phase: str, t0: float, **kw) -> None:
@@ -131,7 +187,10 @@ def main() -> int:
         make_iteration, phase_consts_at, prepare_labels, run, run_frontier_trace,
     )
     from repro_torch.core.partition import PartitionConfig, partition_2d
-    from repro_torch.core.problems import bfs, pagerank, sssp, wcc
+    from repro_torch.core.problems import (
+        bfs, bfs_multi, pagerank, ppr_multi, sssp, sssp_multi, wcc,
+    )
+    from repro_torch.data.synthetic import edge_insertion_stream, mixed_query_workload
     from repro_torch.kernels.build import build_library, load_library
     from repro_torch.kernels.csr_gather_reduce import kernel as K
     from repro_torch.kernels.csr_gather_reduce import scatter as S
@@ -191,8 +250,7 @@ def main() -> int:
          device_bytes_per_edge=rep["device_bytes_per_edge"],
          host_flat_total_bytes=rep["host_flat_total_bytes"])
 
-    # -- each kernel against its plain version --------------------------------
-    t0 = time.perf_counter()
+    # -- helpers shared by every path ------------------------------------------
     rng = np.random.default_rng(SEED + 1)
     problems = {"min_u32": bfs(0), "min_f32_add": sssp(0), "sum_f32": pagerank()}
     push_variants = ("min_u32", "min_f32_add")
@@ -244,58 +302,6 @@ def main() -> int:
         check(ok, f"{label} {variant}: kernel disagrees with plain version (max err {err})")
         return err
 
-    errs = {("gather", v): 0.0 for v in problems}
-    errs.update({("scatter", v): 0.0 for v in push_variants})
-
-    def compare(graph, label, gather=True):
-        for variant, problem in problems.items():
-            pull, push, gkw, skw = streams(graph, problem)
-            payload = payload_for(variant, graph.gathered_size)
-            cases = []
-            if gather:
-                word, counts, hi, wts = pull[0]
-                fetch = seeded_fetch(counts, word.shape[2], FETCH_SHARE)
-                cases += [("gather", (payload, word, counts, hi, wts), gkw),
-                          ("gather", (payload, word, counts, hi, wts, fetch), gkw)]
-            if variant in push_variants and push is not None:
-                word, counts, hi, wts = push[0]
-                fetch = seeded_fetch(counts, word.shape[2], FETCH_SHARE)
-                cases += [("scatter", (payload, word, counts, hi, wts), skw),
-                          ("scatter", (payload, word, counts, hi, wts, fetch), skw)]
-            for kern, args, kw in cases:
-                mod, plain = (K, K.gather_reduce_cores_plain) if kern == "gather" else \
-                    (S, S.scatter_reduce_cores_plain)
-                fn = mod.gather_reduce_cores if kern == "gather" else mod.scatter_reduce_cores
-                got = fn(*args, **kw)
-                want = plain(*args, **kw)
-                sync()
-                arm = "fetch" if len(args) == 6 else "static"
-                err = agree(got, want, variant, f"{label} {kern} {arm}")
-                errs[(kern, variant)] = max(errs[(kern, variant)], err)
-
-    compare(pg, "phase 0")
-    # the push dst field holds the full row: 32-bit words once Vl > 2^15
-    check(pg.push_src_bits == (32 if pg.vertices_per_core > 1 << 15 else 16),
-          f"push stream in the {pg.push_src_bits}-bit regime at Vl={pg.vertices_per_core}")
-    # unweighted, so SSSP's add runs on unit weights here (the main graph is weighted)
-    g32 = G.symmetrize(G.rmat(min(scale, 12), 16, seed=SEED + 2))
-    pg32 = partition_2d(g32, PartitionConfig(p=4, l=2, tile_vb=64, pack_src_bits=32,
-                                             build_push=False))
-    check(pg32.src_bits == 32, "32-bit regime graph did not pack 32-bit words")
-    compare(pg32, "32-bit")
-    w16 = np.random.default_rng(SEED + 2).random(g32.num_edges).astype(np.float32)
-    g16 = G.COOGraph(src=g32.src, dst=g32.dst, num_vertices=g32.num_vertices, weights=w16)
-    pg16 = partition_2d(g16, PartitionConfig(p=4, l=2, tile_vb=64, push_block=256))
-    check(pg16.push_src_bits == 16 and pg16.vertices_per_core <= 1 << 15,
-          "small push partition is not in the 16-bit regime")
-    compare(pg16, "16-bit push", gather=False)
-    emit("kernel", t0, max_abs_err={f"{k}[{v}]": e for (k, v), e in errs.items()},
-         gather_src_bits_checked=[pg.src_bits, pg32.src_bits],
-         push_src_bits_checked=[pg.push_src_bits, pg16.push_src_bits],
-         fetch_share=FETCH_SHARE, small_graph_edges=g32.num_edges)
-
-    # -- timing: kernels, plain versions, bounds, oracle per phase ------------
-    t0 = time.perf_counter()
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -341,274 +347,649 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
-    def bound(real_slots, streams_per_slot, extra_bytes):
+    def bound(real_slots, streams_per_slot, extra_bytes, lanes=1):
         """Least time for the work: each real slot's word (+ word_hi, +
         weight where streamed) read once, plus the other inputs read and the
-        output written once, over 3.35 TB/s; one op per real slot."""
+        output written once, over 3.35 TB/s; one op per real slot and lane."""
         nbytes = real_slots * 4 * streams_per_slot + extra_bytes
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = real_slots / F32_OPS_PER_S * 1e3
+        ops_ms = real_slots * lanes / F32_OPS_PER_S * 1e3
         return dict(bound_ms=max(bytes_ms, ops_ms), bound_bytes=nbytes,
                     bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
-    timing = {}
-    reps = 3 if rehearsal else 20
-    for variant, problem in problems.items():
-        pull, push, gkw, skw = streams(pg, problem)
-        payload = payload_for(variant, pg.gathered_size)
-        has_hi, has_w = pull[0][2] is not None, pull[0][3] is not None
+    def laneless_paths():
+        """The laneless paths of the earlier slices: returns the launch counts
+        of their main path, the kernel-vs-plain errors and the timings. Their
+        device tensors die with this frame, so that the serving phase can
+        see eviction free the partition's device copies."""
+        # -- each kernel against its plain version --------------------------------
+        t0 = time.perf_counter()
+        errs = {("gather", v): 0.0 for v in problems}
+        errs.update({("scatter", v): 0.0 for v in push_variants})
 
-        def launch_all(fn, phase_args, kw, payload=payload):
-            # one call = one launch per phase; the 16 phase streams exceed L2
-            for a in phase_args:
-                fn(payload, *a, **kw)
+        def compare(graph, label, gather=True):
+            for variant, problem in problems.items():
+                pull, push, gkw, skw = streams(graph, problem)
+                payload = payload_for(variant, graph.gathered_size)
+                cases = []
+                if gather:
+                    word, counts, hi, wts = pull[0]
+                    fetch = seeded_fetch(counts, word.shape[2], FETCH_SHARE)
+                    cases += [("gather", (payload, word, counts, hi, wts), gkw),
+                              ("gather", (payload, word, counts, hi, wts, fetch), gkw)]
+                if variant in push_variants and push is not None:
+                    word, counts, hi, wts = push[0]
+                    fetch = seeded_fetch(counts, word.shape[2], FETCH_SHARE)
+                    cases += [("scatter", (payload, word, counts, hi, wts), skw),
+                              ("scatter", (payload, word, counts, hi, wts, fetch), skw)]
+                for kern, args, kw in cases:
+                    mod, plain = (K, K.gather_reduce_cores_plain) if kern == "gather" else \
+                        (S, S.scatter_reduce_cores_plain)
+                    fn = mod.gather_reduce_cores if kern == "gather" else mod.scatter_reduce_cores
+                    got = fn(*args, **kw)
+                    want = plain(*args, **kw)
+                    sync()
+                    arm = "fetch" if len(args) == 6 else "static"
+                    err = agree(got, want, variant, f"{label} {kern} {arm}")
+                    errs[(kern, variant)] = max(errs[(kern, variant)], err)
 
-        def time_arm(fn, plain, phase_args, kw, name):
-            k_ms = device_ms(lambda: launch_all(fn, phase_args, kw), reps, pg.l, name=name)
-            p_ms = device_ms(lambda: launch_all(plain, phase_args, kw), max(1, reps // 4), pg.l)
-            return k_ms, p_ms
+        compare(pg, "phase 0")
+        # the push dst field holds the full row: 32-bit words once Vl > 2^15
+        check(pg.push_src_bits == (32 if pg.vertices_per_core > 1 << 15 else 16),
+              f"push stream in the {pg.push_src_bits}-bit regime at Vl={pg.vertices_per_core}")
+        # unweighted, so SSSP's add runs on unit weights here (the main graph is weighted)
+        g32 = G.symmetrize(G.rmat(min(scale, 12), 16, seed=SEED + 2))
+        pg32 = partition_2d(g32, PartitionConfig(p=4, l=2, tile_vb=64, pack_src_bits=32,
+                                                 build_push=False))
+        check(pg32.src_bits == 32, "32-bit regime graph did not pack 32-bit words")
+        compare(pg32, "32-bit")
+        w16 = np.random.default_rng(SEED + 2).random(g32.num_edges).astype(np.float32)
+        g16 = G.COOGraph(src=g32.src, dst=g32.dst, num_vertices=g32.num_vertices, weights=w16)
+        pg16 = partition_2d(g16, PartitionConfig(p=4, l=2, tile_vb=64, push_block=256))
+        check(pg16.push_src_bits == 16 and pg16.vertices_per_core <= 1 << 15,
+              "small push partition is not in the 16-bit regime")
+        compare(pg16, "16-bit push", gather=False)
+        emit("kernel", t0, max_abs_err={f"{k}[{v}]": e for (k, v), e in errs.items()},
+             gather_src_bits_checked=[pg.src_bits, pg32.src_bits],
+             push_src_bits_checked=[pg.push_src_bits, pg16.push_src_bits],
+             fetch_share=FETCH_SHARE, small_graph_edges=g32.num_edges)
 
-        out_bytes = pg.p * pg.packed_rows_per_core * 4
-        real_slots = float(pg.tile_counts.sum()) * pg.tile_word.shape[4] / pg.l
-        common = pg.tile_counts[:, 0].nbytes + pg.gathered_size * 4 + out_bytes
-        row = dict(word_hi=has_hi, weights=has_w, real_slots_per_phase=real_slots)
-        fn, plain, name = K.gather_reduce_cores, K.gather_reduce_cores_plain, \
-            "gather_reduce_cores_kernel"
-        row["static_ms"], row["static_plain_ms"] = time_arm(fn, plain, pull, gkw, name)
-        row["launch_wall_ms"] = wall_ms(lambda: launch_all(fn, pull, gkw), reps) / pg.l
-        if variant == "sum_f32":  # PageRank stays on the static schedule
-            row["ms"], row["plain_ms"] = row["static_ms"], row["static_plain_ms"]
-            row.update(bound(real_slots, 1 + has_hi + has_w, common))
-        else:  # the main path's arm: the fetch map, also read once
-            fetch_bytes = pg.tile_counts[:, 0].size * pg.tile_word.shape[3] * 4
-            all_real = [a + (seeded_fetch(a[1], a[0].shape[2], 1.0),) for a in pull]
-            part = [a + (seeded_fetch(a[1], a[0].shape[2], FETCH_SHARE),) for a in pull]
-            row["ms"], row["plain_ms"] = time_arm(fn, plain, all_real, gkw, name)
-            row.update(bound(real_slots, 1 + has_hi + has_w, common + fetch_bytes))
-            row["fetch30_ms"], row["fetch30_plain_ms"] = time_arm(fn, plain, part, gkw, name)
-            run_slots = float(sum(int((f[-1] == torch.arange(f[0].shape[2], device=dev)).sum())
-                                  for f in part)) * pg.tile_word.shape[4] / pg.l
-            row["fetch30_bound_ms"] = bound(run_slots, 1 + has_hi + has_w,
-                                            common + fetch_bytes)["bound_ms"]
-        oracle_consts = _edge_constants(problem, pg, EngineOptions(backend="oracle"), dev)
-        o_phases = [phase_consts_at(oracle_consts, m) for m in range(pg.l)]
+        # -- timing: kernels, plain versions, bounds, oracle per phase ------------
+        t0 = time.perf_counter()
+        timing = {}
+        reps = 3 if rehearsal else 20
+        for variant, problem in problems.items():
+            pull, push, gkw, skw = streams(pg, problem)
+            payload = payload_for(variant, pg.gathered_size)
+            has_hi, has_w = pull[0][2] is not None, pull[0][3] is not None
 
-        def oracle_all(problem=problem, o_phases=o_phases, payload=payload):
-            for cm in o_phases:
-                channel_phase_reduce_oracle(problem, pg, payload, cm)
+            def launch_all(fn, phase_args, kw, payload=payload):
+                # one call = one launch per phase; the 16 phase streams exceed L2
+                for a in phase_args:
+                    fn(payload, *a, **kw)
 
-        row["oracle_phase_ms"] = device_ms(oracle_all, max(1, reps // 4), pg.l)
-        timing[("gather", variant)] = row
-        if variant in push_variants:
-            peb = pg.push_word.shape[4]
-            p_slots = float(pg.push_counts.sum()) * peb / pg.l
+            def time_arm(fn, plain, phase_args, kw, name):
+                k_ms = device_ms(lambda: launch_all(fn, phase_args, kw), reps, pg.l, name=name)
+                p_ms = device_ms(lambda: launch_all(plain, phase_args, kw), max(1, reps // 4), pg.l)
+                return k_ms, p_ms
+
+            out_bytes = pg.p * pg.packed_rows_per_core * 4
+            real_slots = float(pg.tile_counts.sum()) * pg.tile_word.shape[4] / pg.l
+            common = pg.tile_counts[:, 0].nbytes + pg.gathered_size * 4 + out_bytes
+            row = dict(word_hi=has_hi, weights=has_w, real_slots_per_phase=real_slots)
+            fn, plain, name = K.gather_reduce_cores, K.gather_reduce_cores_plain, \
+                "gather_reduce_cores_kernel"
+            row["static_ms"], row["static_plain_ms"] = time_arm(fn, plain, pull, gkw, name)
+            row["launch_wall_ms"] = wall_ms(lambda: launch_all(fn, pull, gkw), reps) / pg.l
+            if variant == "sum_f32":  # PageRank stays on the static schedule
+                row["ms"], row["plain_ms"] = row["static_ms"], row["static_plain_ms"]
+                row.update(bound(real_slots, 1 + has_hi + has_w, common))
+            else:  # the main path's arm: the fetch map, also read once
+                fetch_bytes = pg.tile_counts[:, 0].size * pg.tile_word.shape[3] * 4
+                all_real = [a + (seeded_fetch(a[1], a[0].shape[2], 1.0),) for a in pull]
+                part = [a + (seeded_fetch(a[1], a[0].shape[2], FETCH_SHARE),) for a in pull]
+                row["ms"], row["plain_ms"] = time_arm(fn, plain, all_real, gkw, name)
+                row.update(bound(real_slots, 1 + has_hi + has_w, common + fetch_bytes))
+                row["fetch30_ms"], row["fetch30_plain_ms"] = time_arm(fn, plain, part, gkw, name)
+                run_slots = float(sum(int((f[-1] == torch.arange(f[0].shape[2], device=dev)).sum())
+                                      for f in part)) * pg.tile_word.shape[4] / pg.l
+                row["fetch30_bound_ms"] = bound(run_slots, 1 + has_hi + has_w,
+                                                common + fetch_bytes)["bound_ms"]
+            oracle_consts = _edge_constants(problem, pg, EngineOptions(backend="oracle"), dev)
+            o_phases = [phase_consts_at(oracle_consts, m) for m in range(pg.l)]
+
+            def oracle_all(problem=problem, o_phases=o_phases, payload=payload):
+                for cm in o_phases:
+                    channel_phase_reduce_oracle(problem, pg, payload, cm)
+
+            row["oracle_phase_ms"] = device_ms(oracle_all, max(1, reps // 4), pg.l)
+            timing[("gather", variant)] = row
+            if variant in push_variants:
+                peb = pg.push_word.shape[4]
+                p_slots = float(pg.push_counts.sum()) * peb / pg.l
+                p_hi, p_w = push[0][2] is not None, push[0][3] is not None
+                fetch_bytes = pg.push_counts[:, 0].size * pg.push_word.shape[3] * 4
+                common = (pg.push_counts[:, 0].nbytes + pg.gathered_size * 4
+                          + pg.p * pg.vertices_per_core * 4)
+                fn, plain = S.scatter_reduce_cores, S.scatter_reduce_cores_plain
+                srow = dict(word_hi=p_hi, weights=p_w, real_slots_per_phase=p_slots)
+                all_real = [a + (seeded_fetch(a[1], a[0].shape[2], 1.0),) for a in push]
+                srow["ms"], srow["plain_ms"] = time_arm(fn, plain, all_real, skw, "scatter_reduce")
+                srow.update(bound(p_slots, 1 + p_hi + p_w, common + fetch_bytes))
+                srow["static_ms"], srow["static_plain_ms"] = time_arm(fn, plain, push, skw,
+                                                                      "scatter_reduce")
+                srow["launch_wall_ms"] = wall_ms(lambda: launch_all(fn, all_real, skw), reps) / pg.l
+                timing[("scatter", variant)] = srow
+        emit("timing", t0, per_launch={f"{k}[{v}]": r for (k, v), r in timing.items()},
+             note="ms, plain_ms, *_ms: device time per launch (profiler, the kernel's own "
+                  "kernels only), averaged over the l phase streams; ms is the arm the main "
+                  "path takes (the fetch map with every real tile active for the min variants, "
+                  "the static counts for sum_f32); fetch30: a seeded map keeping ~30% of real "
+                  "tiles, bounded by the slots it runs; launch_wall_ms: CUDA-event time per "
+                  "launch with host launch gaps; no single PyTorch call computes either "
+                  "function (library_ms null)")
+
+        # -- main path: the port's engine, default options -------------------------
+        runs = [("bfs", bfs(0)), ("wcc", wcc()), ("sssp", sssp(0)),
+                ("pagerank", pagerank()), ("pagerank_repeat", pagerank())]
+        for _, problem in runs:  # upload each problem's edge tensors (set-up)
+            make_iteration(problem, pg, EngineOptions(), device=dev)
+        make_iteration(sssp(0), pg, EngineOptions(direction="push"), device=dev)
+        sync()
+        K.reset_launch_counts()
+        S.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = {}
+
+        def main_run(name, problem, opts):
+            t = time.perf_counter()
+            labels = prepare_labels(problem, g, pg, device=dev)  # host init (set-up)
+            sync()
+            init_sec = time.perf_counter() - t
+            t1 = time.perf_counter()
+            res = run(problem, g, pg, opts, labels=labels, device=dev)
+            sync()
+            sec = time.perf_counter() - t1
+            results[name] = res
+            lab = res.labels["label"]
+            check(lab.shape == (g.num_vertices,), f"{name}: label shape {lab.shape}")
+            check(res.converged, f"{name}: did not converge in {res.iterations} iterations")
+            if lab.dtype == np.float32:
+                check(bool(np.isfinite(lab).all()), f"{name}: non-finite labels")
+            emit("main_path_run", t, problem=name, options=opts.direction,
+                 iterations=res.iterations, init_seconds=init_sec, run_seconds=sec,
+                 mteps=n_edges / sec / 1e6, edges=n_edges)
+
+        for name, problem in runs:
+            main_run(name, problem, EngineOptions())
+        # should 'auto' never pick push for a variant, force it, so that every
+        # scatter variant still lies on a path this run drives
+        forced = [(v, name, prob) for v, name, prob in (("min_u32", "bfs", bfs(0)),
+                                                       ("min_f32_add", "sssp", sssp(0)))
+                  if S.LAUNCHES.get(v, 0) == 0]
+        for _, name, problem in forced:
+            main_run(f"{name}_push", problem, EngineOptions(direction="push"))
+        launches = {"gather_reduce_cores": dict(K.LAUNCHES), "scatter_reduce_cores": dict(S.LAUNCHES)}
+        expect = sum(r.iterations for r in results.values()) * pg.l
+        total = sum(K.LAUNCHES.values()) + sum(S.LAUNCHES.values())
+        emit("main_path", t0, launches=launches, total_launches=total, expected_launches=expect,
+             forced_push=[f"{n}_push" for _, n, _ in forced])
+        if not rehearsal:
+            check(total == expect, f"kernel launches {launches} != sum(iterations) * l = {expect}")
+            for variant in problems:
+                check(K.LAUNCHES.get(variant, 0) > 0, f"gather variant {variant} was never launched")
+            for variant in push_variants:
+                check(S.LAUNCHES.get(variant, 0) > 0, f"scatter variant {variant} was never launched")
+        for _, name, _ in forced:  # a forced direction changes the schedule, not the result
+            a, b = results[name], results[f"{name}_push"]
+            check(a.iterations == b.iterations and np.array_equal(a.labels["label"], b.labels["label"]),
+                  f"{name}: forced push differs from the 'auto' run")
+        # the static schedule on the same card, for comparison (not counted)
+        for name, problem in runs[:3]:
+            labels = prepare_labels(problem, g, pg, device=dev)
+            sync()
+            t = time.perf_counter()
+            res = run(problem, g, pg, EngineOptions(dynamic_tile_skip=False), labels=labels,
+                      device=dev)
+            sync()
+            sec = time.perf_counter() - t
+            check(res.iterations == results[name].iterations
+                  and np.array_equal(res.labels["label"], results[name].labels["label"]),
+                  f"{name}: the default run differs from the static schedule")
+            emit("static_path_run", t, problem=name, iterations=res.iterations, run_seconds=sec,
+                 mteps=n_edges / sec / 1e6)
+
+        # -- the schedule of each min problem, iteration by iteration -------------
+        t0 = time.perf_counter()
+        schedule = {}
+        for name, problem in runs[:3]:
+            tr = run_frontier_trace(problem, g, pg, device=dev)
+            check(tr["iterations"] == results[name].iterations
+                  and np.array_equal(tr["labels"]["label"], results[name].labels["label"]),
+                  f"{name}: run_frontier_trace differs from run")
+            schedule[name] = {k: tr[k] for k in ("iterations", "direction", "push_iterations",
+                                                  "dense_iterations", "dynamic_skipped_tile_fraction")}
+        emit("schedule", t0, per_problem=schedule,
+             static_skipped_tile_fraction=pg.skipped_tile_fraction,
+             push_static_skipped_tile_fraction=1.0 - float(pg.push_counts.sum())
+             / pg.push_counts.size / pg.push_word.shape[3])
+
+        # -- where one iteration's time goes (after the counts were read) ---------
+        t0 = time.perf_counter()
+
+        def breakdown(step):
+            step()  # warm
+            sync()
+            wall_us, evs = profiled(step)
+            dev_us = sum(event_us(e) for e in evs)
+            kern_us = sum(event_us(e) for e in evs if "reduce_cores" in e.key)
+            top = sorted(evs, key=event_us, reverse=True)[:8]
+            return dict(
+                iteration_wall_us=wall_us, device_busy_us=dev_us, kernel_us=kern_us,
+                device_idle_share=1.0 - dev_us / wall_us if wall_us else None,
+                device_launches=sum(e.count for e in evs),
+                top_device_us={e.key[:80]: [event_us(e), e.count] for e in top},
+            )
+
+        static = {}
+        for name, problem in runs[:4]:
+            labels = prepare_labels(problem, g, pg, device=dev)
+            iteration = make_iteration(problem, pg, EngineOptions(dynamic_tile_skip=False),
+                                       device=dev)
+            static[name] = breakdown(lambda: iteration(labels))
+        # BFS under 'auto': keep each iteration's input state; the dense pull is
+        # iteration 0, the dynamic pull and the push run on the last nonempty
+        # frontier (the narrowest), so their times compare on the same input
+        step = make_iteration(bfs(0), pg, EngineOptions(), device=dev)
+        labels = prepare_labels(bfs(0), g, pg, device=dev)
+        fw = F.full_frontier_words(pg.l, pg.sub_size, lead=(pg.p,), device=dev)
+        pop, prev, states = pg.p * pg.l * pg.sub_size, False, []
+        while pop > 0:
+            states.append((labels, fw, pop))
+            labels, fw, prev = step(labels, fw, prev, pop=pop)
+            pop = int(F.frontier_popcount(fw))
+        by_direction = {}
+        for label, state, opts in (
+            ("dense_pull", states[0], EngineOptions(direction="pull")),
+            ("dynamic_pull", states[-1], EngineOptions(direction="pull", dynamic_skip_density=2.0)),
+            ("push", states[-1], EngineOptions(direction="push")),
+        ):
+            lab, front, pc = state
+            it_fn = make_iteration(bfs(0), pg, opts, device=dev, with_stats=True)
+            stats = it_fn(lab, front, pop=pc)[-1]
+            by_direction[label] = dict(breakdown(lambda: it_fn(lab, front, pop=pc)), popcount=pc,
+                                       active_tiles=int(stats["active_tiles"]),
+                                       use_dense=stats["use_dense"])
+        emit("profile", t0, static_iteration=static, bfs_by_direction=by_direction,
+             bfs_iterations_recorded=len(states),
+             note="torch.profiler over one warm iteration (l phases); device events only; "
+                  "the profiler's own host overhead inflates iteration_wall_us; kernel_us "
+                  "sums both kernels' events")
+
+        # -- oracle backend on the card, kernel PR bit-stability -------------------
+        t0 = time.perf_counter()
+        agree_o = {}
+        for name, problem in runs[:4]:
+            labels = prepare_labels(problem, g, pg, device=dev)
+            sync()
+            t = time.perf_counter()
+            ref = run(problem, g, pg, EngineOptions(backend="oracle"), labels=labels, device=dev)
+            sync()
+            sec = time.perf_counter() - t
+            for got_name in [name] + [f"{n}_push" for _, n, _ in forced if n == name]:
+                got = results[got_name]
+                check(ref.iterations == got.iterations,
+                      f"{got_name}: iterations kernel {got.iterations} vs oracle {ref.iterations}")
+                a, b = got.labels["label"], ref.labels["label"]
+                if problem.reduce_kind == "min":
+                    check(a.dtype == b.dtype and np.array_equal(a, b),
+                          f"{got_name}: labels differ from oracle")
+                    err = 0.0
+                else:
+                    err = float(np.max(np.abs(a - b)))
+                    check(bool(np.allclose(a, b, **SUM_TOL)),
+                          f"{got_name}: labels differ from oracle by {err}")
+            agree_o[name] = dict(iterations=ref.iterations, oracle_seconds=sec,
+                                 oracle_mteps=n_edges / sec / 1e6, max_abs_diff=err)
+        pr_a = results["pagerank"].labels["label"]
+        pr_b = results["pagerank_repeat"].labels["label"]
+        check(pr_a.tobytes() == pr_b.tobytes(), "pagerank: two kernel runs gave different bits")
+        emit("oracle", t0, agree=agree_o, pagerank_bit_stable=True)
+
+        # -- small graph against the numpy oracles --------------------------------
+        t0 = time.perf_counter()
+        gs0 = G.symmetrize(G.rmat(10, 8, seed=SEED + 3))
+        ws = np.random.default_rng(SEED + 3).random(gs0.num_edges).astype(np.float32)
+        gs = G.COOGraph(src=gs0.src, dst=gs0.dst, num_vertices=gs0.num_vertices, weights=ws)
+        pgs = partition_2d(gs, PartitionConfig(p=2, l=2, lane=8, tile_vb=64))
+        for opts in (EngineOptions(), EngineOptions(direction="push")):
+            check(np.array_equal(run(bfs(0), gs, pgs, opts, device=dev).labels["label"],
+                                 reference.bfs_reference(gs, 0)), "small bfs != numpy oracle")
+            check(np.array_equal(run(wcc(), gs, pgs, opts, device=dev).labels["label"],
+                                 reference.wcc_reference(gs)), "small wcc != numpy oracle")
+            check(np.allclose(run(sssp(0), gs, pgs, opts, device=dev).labels["label"],
+                              reference.sssp_reference(gs, 0), rtol=1e-6),
+                  "small sssp != numpy oracle")
+        check(np.allclose(run(pagerank(), gs, pgs, device=dev).labels["label"],
+                          reference.pagerank_reference(gs), atol=1e-4),
+              "small pagerank != numpy oracle")
+        emit("reference", t0, edges=gs.num_edges)
+        return launches, errs, timing
+
+    launches, errs, timing = laneless_paths()
+
+    # -- the lane arms of both kernels against their plain versions -----------
+    lrng = np.random.default_rng(SEED + 5)
+
+    def lane_kernel_phase():
+        """Each lane arm against its plain version on phase 0, and its device
+        time over the l phase streams. Returns (timing, errors)."""
+        t0 = time.perf_counter()
+        reps = 3 if rehearsal else 20
+
+        def lane_payload(pkind: str, n: int, lanes: int) -> torch.Tensor:
+            if pkind == "words":  # packed reach words of K = 16 (W=1) or K = 40 (W=2)
+                k = 16 if lanes == 1 else 40
+                bits = lrng.random((n, 32 * lanes)) < 0.15
+                bits[:, k:] = False
+                words = (bits.reshape(n, lanes, 32).astype(np.uint64)
+                         << np.arange(32, dtype=np.uint64)).sum(axis=-1).astype(np.uint32)
+                return u32.to_bits(words).to(dev)
+            if pkind == "dist":
+                v = (lrng.random((n, lanes)) * 100).astype(np.float32)
+                v[lrng.random((n, lanes)) < 0.1] = np.finfo(np.float32).max
+                return torch.from_numpy(v).to(dev)
+            return torch.from_numpy((lrng.random((n, lanes)) / n).astype(np.float32)).to(dev)
+
+        def lane_agree(got, want, kind, label):
+            check(got.shape == want.shape and got.dtype == want.dtype,
+                  f"{label}: shape/dtype {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
+            if kind == "sum":
+                err = float((got - want).abs().max())
+                check(torch.allclose(got, want, **SUM_TOL), f"{label}: kernel disagrees (max err {err})")
+                return err
+            a = u32.widen(got) if got.dtype == torch.int32 else got.double()
+            b = u32.widen(want) if want.dtype == torch.int32 else want.double()
+            check(torch.equal(got, want), f"{label}: kernel disagrees with plain version "
+                                          f"(max err {float((a - b).abs().max())})")
+            return 0.0
+
+        lane_timing, lane_errs = {}, {}
+        for arm, (kind, edge_op, identity, lanes, pkind, laneless) in LANE_ARMS.items():
+            problem = {"or": bfs(0), "sum": pagerank()}.get(kind, sssp(0))
+            pull, push, gkw, skw = streams(pg, problem)
+            gkw = dict(gkw, kind=kind, edge_op=edge_op, identity=identity)
+            skw = dict(skw, kind=kind, edge_op=edge_op, identity=identity) if skw else None
+            payload = lane_payload(pkind, pg.gathered_size, lanes)
+            err = 0.0
+            word, counts, hi, wts = pull[0]
+            for arm_name, extra in (("counts", ()), ("fetch", (seeded_fetch(counts, word.shape[2],
+                                                                             FETCH_SHARE),))):
+                args = (payload, word, counts, hi, wts) + extra
+                got = K.gather_reduce_cores(*args, **gkw)
+                want = K.gather_reduce_cores_plain(*args, **gkw)
+                sync()
+                err = max(err, lane_agree(got, want, kind, f"phase 0 gather {arm} {arm_name}"))
+                if kind == "sum":  # lane-ordered, warp-ordered partials: the same bits again
+                    again = K.gather_reduce_cores(*args, **gkw)
+                    check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+                          f"gather {arm} {arm_name}: two launches gave different bits")
+            lane_errs[("gather", arm)] = err
+            # timing over the l phase streams: the main path's arm (the fetch map
+            # of all real tiles for min/or, the static counts for sum)
+            has_hi, has_w = pull[0][2] is not None, pull[0][3] is not None
+            real_slots = float(pg.tile_counts.sum()) * pg.tile_word.shape[4] / pg.l
+            lane_bytes = pg.gathered_size * lanes * 4 + pg.p * pg.packed_rows_per_core * lanes * 4
+            common = pg.tile_counts[:, 0].nbytes + lane_bytes
+            if kind == "sum":
+                phase_args = pull
+            else:
+                phase_args = [a + (seeded_fetch(a[1], a[0].shape[2], 1.0),) for a in pull]
+                common += pg.tile_counts[:, 0].size * pg.tile_word.shape[3] * 4
+
+            def launch_all(fn, args_list, kw, payload=payload):
+                for a in args_list:
+                    fn(payload, *a, **kw)
+
+            row = dict(lanes=lanes, lane_chunk=K.lane_chunk(pg.tile_vb, lanes, kind),
+                       real_slots_per_phase=real_slots, laneless_variant=laneless,
+                       laneless_ms=timing[("gather", laneless)]["ms"])
+            row["chunks"] = -(-lanes // row["lane_chunk"])
+            row["ms"] = device_ms(lambda: launch_all(K.gather_reduce_cores, phase_args, gkw),
+                                  reps, pg.l, name="gather_reduce_cores")
+            row["plain_ms"] = device_ms(lambda: launch_all(K.gather_reduce_cores_plain, phase_args,
+                                                           gkw), max(1, reps // 4), pg.l)
+            row.update(bound(real_slots, 1 + has_hi + has_w, common, lanes))
+            lane_timing[("gather", arm)] = row
+            if arm not in PUSH_LANE_ARMS:
+                continue
+            word, counts, hi, wts = push[0]
+            err = 0.0
+            for arm_name, extra in (("counts", ()), ("fetch", (seeded_fetch(counts, word.shape[2],
+                                                                             FETCH_SHARE),))):
+                args = (payload, word, counts, hi, wts) + extra
+                got = S.scatter_reduce_cores(*args, **skw)
+                want = S.scatter_reduce_cores_plain(*args, **skw)
+                sync()
+                err = max(err, lane_agree(got, want, kind, f"phase 0 scatter {arm} {arm_name}"))
+            lane_errs[("scatter", arm)] = err
             p_hi, p_w = push[0][2] is not None, push[0][3] is not None
-            fetch_bytes = pg.push_counts[:, 0].size * pg.push_word.shape[3] * 4
-            common = (pg.push_counts[:, 0].nbytes + pg.gathered_size * 4
-                      + pg.p * pg.vertices_per_core * 4)
-            fn, plain = S.scatter_reduce_cores, S.scatter_reduce_cores_plain
-            srow = dict(word_hi=p_hi, weights=p_w, real_slots_per_phase=p_slots)
+            p_slots = float(pg.push_counts.sum()) * pg.push_word.shape[4] / pg.l
             all_real = [a + (seeded_fetch(a[1], a[0].shape[2], 1.0),) for a in push]
-            srow["ms"], srow["plain_ms"] = time_arm(fn, plain, all_real, skw, "scatter_reduce")
-            srow.update(bound(p_slots, 1 + p_hi + p_w, common + fetch_bytes))
-            srow["static_ms"], srow["static_plain_ms"] = time_arm(fn, plain, push, skw,
-                                                                  "scatter_reduce")
-            srow["launch_wall_ms"] = wall_ms(lambda: launch_all(fn, all_real, skw), reps) / pg.l
-            timing[("scatter", variant)] = srow
-    emit("timing", t0, per_launch={f"{k}[{v}]": r for (k, v), r in timing.items()},
-         note="ms, plain_ms, *_ms: device time per launch (profiler, the kernel's own "
-              "kernels only), averaged over the l phase streams; ms is the arm the main "
-              "path takes (the fetch map with every real tile active for the min variants, "
-              "the static counts for sum_f32); fetch30: a seeded map keeping ~30% of real "
-              "tiles, bounded by the slots it runs; launch_wall_ms: CUDA-event time per "
-              "launch with host launch gaps; no single PyTorch call computes either "
-              "function (library_ms null)")
+            srow = dict(lanes=lanes, real_slots_per_phase=p_slots, laneless_variant=laneless,
+                        laneless_ms=timing[("scatter", laneless)]["ms"])
+            srow["ms"] = device_ms(lambda: launch_all(S.scatter_reduce_cores, all_real, skw),
+                                   reps, pg.l, name="scatter_reduce")
+            srow["plain_ms"] = device_ms(lambda: launch_all(S.scatter_reduce_cores_plain, all_real,
+                                                            skw), max(1, reps // 4), pg.l)
+            s_common = (pg.push_counts[:, 0].nbytes + pg.push_counts[:, 0].size
+                        * pg.push_word.shape[3] * 4 + pg.gathered_size * lanes * 4
+                        + pg.p * pg.vertices_per_core * lanes * 4)
+            srow.update(bound(p_slots, 1 + p_hi + p_w, s_common, lanes))
+            lane_timing[("scatter", arm)] = srow
+        emit("lanes_kernels", t0, max_abs_err={f"{k}[{a}]": e for (k, a), e in lane_errs.items()},
+             per_launch={f"{k}[{a}]": r for (k, a), r in lane_timing.items()},
+             arms={a: dict(kind=v[0], edge_op=v[1], lanes=v[3]) for a, v in LANE_ARMS.items()},
+             note="ms, plain_ms: device time per launch (profiler, the kernel's own kernels), "
+                  "averaged over the l phase streams, on the arm the main path takes (fetch map of "
+                  "all real tiles for min/or, static counts for sum); bound_ms counts each real "
+                  "slot's word (+ word_hi, + weight) once plus the L-wide payload and output; "
+                  "chunks > 1: each lane chunk re-reads its tiles' words; laneless_ms: the laneless "
+                  "arm's ms on the same streams (timing phase)")
+        return lane_timing, lane_errs
 
-    # -- main path: the port's engine, default options -------------------------
-    runs = [("bfs", bfs(0)), ("wcc", wcc()), ("sssp", sssp(0)),
-            ("pagerank", pagerank()), ("pagerank_repeat", pagerank())]
-    for _, problem in runs:  # upload each problem's edge tensors (set-up)
-        make_iteration(problem, pg, EngineOptions(), device=dev)
-    make_iteration(sssp(0), pg, EngineOptions(direction="push"), device=dev)
+    lane_timing, lane_errs = lane_kernel_phase()
+
+    # -- main path of this slice: K-lane engine runs, default options ---------
+    def lane_engine_phase():
+        """bfs_multi, sssp_multi and ppr_multi (twice) at K = LANE_K with the
+        default options, launches counted; then the checks against
+        independent runs. Returns the launch counts."""
+        roots = lrng.integers(0, g.num_vertices, LANE_K)
+        lane_runs = [("bfs_multi", bfs_multi(roots)), ("sssp_multi", sssp_multi(roots)),
+                     ("ppr_multi", ppr_multi(roots, tol=PPR_RUN_TOL)),
+                     ("ppr_multi_repeat", ppr_multi(roots, tol=PPR_RUN_TOL))]
+        for _, problem in lane_runs[:3]:  # upload each problem's edge tensors (set-up)
+            make_iteration(problem, pg, EngineOptions(), device=dev)
+        sync()
+        K.reset_launch_counts()
+        S.reset_launch_counts()
+        t0 = time.perf_counter()
+        lane_results = {}
+
+        def lane_run(name, problem, opts):
+            labels = prepare_labels(problem, g, pg, device=dev)  # host init (set-up)
+            sync()
+            t = time.perf_counter()
+            res = run(problem, g, pg, opts, labels=labels, device=dev)
+            sync()
+            sec = time.perf_counter() - t
+            lane_results[name] = res
+            check(res.converged, f"{name}: did not converge in {res.iterations} iterations")
+            for key, v in res.labels.items():
+                if v.ndim == 2:  # packed reach words: one per 32 lanes
+                    lanes = -(-LANE_K // 32) if key == "reach" else LANE_K
+                    check(v.shape == (g.num_vertices, lanes), f"{name}: {key} shape {v.shape}")
+                if v.dtype == np.float32:
+                    check(bool(np.isfinite(v).all()), f"{name}: non-finite {key}")
+            emit("lanes_engine_run", t, problem=name, options=opts.direction, lanes=LANE_K,
+                 iterations=res.iterations, run_seconds=sec,
+                 query_edges_per_s=LANE_K * n_edges / sec, edges=n_edges)
+
+        for name, problem in lane_runs:
+            lane_run(name, problem, EngineOptions(lanes=LANE_K))
+        lane_push = [("or_u32_lanes", "bfs_multi", bfs_multi(roots)),
+                     ("min_f32_add_lanes", "sssp_multi", sssp_multi(roots))]
+        forced = [(n, prob) for v, n, prob in lane_push if S.LAUNCHES.get(v, 0) == 0]
+        for name, problem in forced:  # 'auto' never pushed: drive the scatter lane arm anyway
+            lane_run(f"{name}_push", problem, EngineOptions(lanes=LANE_K, direction="push"))
+        lane_launches = {"gather_reduce_cores": {k: v for k, v in K.LAUNCHES.items()},
+                         "scatter_reduce_cores": {k: v for k, v in S.LAUNCHES.items()}}
+        expect = sum(r.iterations for r in lane_results.values()) * pg.l
+        total = sum(K.LAUNCHES.values()) + sum(S.LAUNCHES.values())
+        emit("lanes_engine", t0, launches=lane_launches, total_launches=total,
+             expected_launches=expect, forced_push=[f"{n}_push" for n, _ in forced],
+             roots=roots.tolist())
+        if not rehearsal:
+            check(total == expect, f"lane launches {lane_launches} != sum(iterations) * l = {expect}")
+            for kern, variants in LANE_VARIANTS.items():
+                for v in variants:
+                    check(lane_launches[kern].get(v, 0) > 0, f"{kern} lane variant {v} never ran")
+        for name, _ in forced:
+            a, b = lane_results[name], lane_results[f"{name}_push"]
+            check(a.iterations == b.iterations and all(np.array_equal(a.labels[k], b.labels[k])
+                                                       for k in a.labels),
+                  f"{name}: forced push differs from the 'auto' run")
+        a = lane_results["ppr_multi"].labels["label"]
+        check(a.tobytes() == lane_results["ppr_multi_repeat"].labels["label"].tobytes(),
+              "ppr_multi: two kernel runs gave different bits")
+        # checks against independent runs (not counted): laneless columns, the
+        # oracle backend's K-lane runs, the schedule of each min/or problem
+        t0 = time.perf_counter()
+        for k in range(2):
+            r = int(roots[k])
+            check(np.array_equal(lane_results["bfs_multi"].labels["dist"][:, k],
+                                 run(bfs(r), g, pg, device=dev).labels["label"]),
+                  f"bfs_multi column {k} != bfs({r})")
+            check(np.array_equal(lane_results["sssp_multi"].labels["label"][:, k],
+                                 run(sssp(r), g, pg, device=dev).labels["label"]),
+                  f"sssp_multi column {k} != sssp({r})")
+        oracle = {}
+        for name, problem in lane_runs[:2]:
+            t = time.perf_counter()
+            ref = run(problem, g, pg, EngineOptions(backend="oracle"), device=dev)
+            sec = time.perf_counter() - t
+            got = lane_results[name]
+            check(ref.iterations == got.iterations,
+                  f"{name}: iterations kernel {got.iterations} vs oracle {ref.iterations}")
+            for key in ref.labels:
+                check(np.array_equal(got.labels[key], ref.labels[key]),
+                      f"{name}: {key} differs from the oracle backend")
+            oracle[name] = dict(iterations=ref.iterations, oracle_seconds=sec)
+        # PPR at a fixed iteration count: the oracle's float64 K-lane index_add
+        # is too slow on this graph to run to convergence inside the time limit
+        fixed = EngineOptions(max_iters=PPR_FIXED_ITERS)
+        pk = run(ppr_multi(roots, tol=0.0), g, pg, fixed, device=dev).labels["label"]
+        po = run(ppr_multi(roots, tol=0.0), g, pg, dataclasses.replace(fixed, backend="oracle"),
+                 device=dev).labels["label"]
+        ppr_err = float(np.max(np.abs(pk - po)))
+        check(ppr_err <= PPR_TOL, f"ppr_multi: kernel vs oracle max |diff| {ppr_err} > {PPR_TOL}")
+        oracle["ppr_multi"] = dict(iterations=PPR_FIXED_ITERS, max_abs_diff=ppr_err)
+        schedule = {}
+        for name, problem in lane_runs[:2]:
+            tr = run_frontier_trace(problem, g, pg, EngineOptions(lanes=LANE_K), device=dev)
+            check(tr["iterations"] == lane_results[name].iterations
+                  and all(np.array_equal(tr["labels"][k], lane_results[name].labels[k])
+                          for k in tr["labels"]), f"{name}: run_frontier_trace differs from run")
+            schedule[name] = {k: tr[k] for k in ("iterations", "direction", "push_iterations",
+                                                  "dense_iterations", "dynamic_skipped_tile_fraction")}
+        emit("lanes_engine_checks", t0, columns_checked=2, oracle=oracle, schedule=schedule,
+             ppr_bit_stable=True, ppr_iterations=lane_results["ppr_multi"].iterations,
+             ppr_note="ppr iterations have no direction: sum problems stay pull")
+        return lane_launches
+
+    lane_launches = lane_engine_phase()
+
+    # -- the serving path: GraphService over the built partition --------------
+    t0 = time.perf_counter()
+    import gc
+
+    from repro_torch.launch.serve import SERVE_MIX, _serve_events, check_replay_equivalence
+    from repro_torch.serve import GraphService, LoopConfig, RequestLoop
+
+    workload = mixed_query_workload(SERVE_QUERIES, g.num_vertices, mix=SERVE_MIX, seed=SEED)
+    deltas = edge_insertion_stream(SERVE_INSERTS, g.num_vertices, num_batches=2, weighted=True,
+                                   seed=SEED + 1)
+    service = GraphService(g, pg, lanes=LANE_K, device=dev)
+    del pg  # the service owns the partition now: a flush retires it
+    flush_memory = []
+    service_flush = service.flush
+
+    def measured_flush():
+        """The service's flush, with the device memory before and after and
+        the bytes of the retired partition's device copies."""
+        gc.collect()
+        sync()
+        cached = sum(t.untyped_storage().nbytes() for t in service.pg.device_cache.values()
+                     if t is not None and t.device.type == "cuda")
+        before = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        rec = service_flush()
+        gc.collect()
+        sync()
+        after = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        flush_memory.append(dict(memory_allocated_before=before, memory_allocated_after=after,
+                                 retired_device_cache_bytes=cached, wall_s=rec.wall_s))
+        print(f"flush {len(flush_memory)}: torch.cuda.memory_allocated() {before} -> {after} "
+              f"(retired device copies {cached} B)", flush=True)
+        return rec
+
+    service.flush = measured_flush
+    loop = RequestLoop(service, LoopConfig(max_wait_ms=20.0, host_batch=LANE_K))
     sync()
     K.reset_launch_counts()
     S.reset_launch_counts()
-    t0 = time.perf_counter()
-    results = {}
-
-    def main_run(name, problem, opts):
-        t = time.perf_counter()
-        labels = prepare_labels(problem, g, pg, device=dev)  # host init (set-up)
-        sync()
-        init_sec = time.perf_counter() - t
-        t1 = time.perf_counter()
-        res = run(problem, g, pg, opts, labels=labels, device=dev)
-        sync()
-        sec = time.perf_counter() - t1
-        results[name] = res
-        lab = res.labels["label"]
-        check(lab.shape == (g.num_vertices,), f"{name}: label shape {lab.shape}")
-        check(res.converged, f"{name}: did not converge in {res.iterations} iterations")
-        if lab.dtype == np.float32:
-            check(bool(np.isfinite(lab).all()), f"{name}: non-finite labels")
-        emit("main_path_run", t, problem=name, options=opts.direction,
-             iterations=res.iterations, init_seconds=init_sec, run_seconds=sec,
-             mteps=n_edges / sec / 1e6, edges=n_edges)
-
-    for name, problem in runs:
-        main_run(name, problem, EngineOptions())
-    # should 'auto' never pick push for a variant, force it, so that every
-    # scatter variant still lies on a path this run drives
-    forced = [(v, name, prob) for v, name, prob in (("min_u32", "bfs", bfs(0)),
-                                                   ("min_f32_add", "sssp", sssp(0)))
-              if S.LAUNCHES.get(v, 0) == 0]
-    for _, name, problem in forced:
-        main_run(f"{name}_push", problem, EngineOptions(direction="push"))
-    launches = {"gather_reduce_cores": dict(K.LAUNCHES), "scatter_reduce_cores": dict(S.LAUNCHES)}
-    expect = sum(r.iterations for r in results.values()) * pg.l
+    completions = loop.run(_serve_events(workload, deltas))
+    sync()
+    serve_launches = {"gather_reduce_cores": dict(K.LAUNCHES),
+                      "scatter_reduce_cores": dict(S.LAUNCHES)}
+    summ = loop.metrics.summary()
+    trav = [b for b in loop.metrics.batches if b.iterations > 0]
+    expect = sum(b.iterations for b in trav) * service.pg.l
     total = sum(K.LAUNCHES.values()) + sum(S.LAUNCHES.values())
-    emit("main_path", t0, launches=launches, total_launches=total, expected_launches=expect,
-         forced_push=[f"{n}_push" for _, n, _ in forced])
+    emit("serve", t0, lanes=LANE_K, queries=summ["queries"], rejected=summ["rejected"],
+         wall_s=summ["wall_s"], qps=summ["qps"], latency=summ["latency"],
+         per_kind=summ["per_kind"], batches=summ["batches"], cold_batches=summ["cold_batches"],
+         steady_batch_ms=summ["steady_batch_ms"], amortized_mteps=summ["amortized_mteps"],
+         flushes=summ["flushes"], flush_memory=flush_memory, launches=serve_launches,
+         total_launches=total, expected_launches=expect, mix=SERVE_MIX,
+         inserted_edges=SERVE_INSERTS,
+         batch_log=[dict(kind=b.kind, served=b.served, wall_ms=b.wall_s * 1e3,
+                         iterations=b.iterations, cold=b.cold) for b in loop.metrics.batches])
+    check(len(completions) == SERVE_QUERIES, f"{len(completions)} answers for {SERVE_QUERIES}")
+    check(len(summ["flushes"]) == 2, f"{len(summ['flushes'])} flushes, expected 2")
+    check(service.g.num_edges == n_edges + SERVE_INSERTS, "the served graph lost insertions")
     if not rehearsal:
-        check(total == expect, f"kernel launches {launches} != sum(iterations) * l = {expect}")
-        for variant in problems:
-            check(K.LAUNCHES.get(variant, 0) > 0, f"gather variant {variant} was never launched")
-        for variant in push_variants:
-            check(S.LAUNCHES.get(variant, 0) > 0, f"scatter variant {variant} was never launched")
-    for _, name, _ in forced:  # a forced direction changes the schedule, not the result
-        a, b = results[name], results[f"{name}_push"]
-        check(a.iterations == b.iterations and np.array_equal(a.labels["label"], b.labels["label"]),
-              f"{name}: forced push differs from the 'auto' run")
-    # the static schedule on the same card, for comparison (not counted)
-    for name, problem in runs[:3]:
-        labels = prepare_labels(problem, g, pg, device=dev)
-        sync()
-        t = time.perf_counter()
-        res = run(problem, g, pg, EngineOptions(dynamic_tile_skip=False), labels=labels,
-                  device=dev)
-        sync()
-        sec = time.perf_counter() - t
-        check(res.iterations == results[name].iterations
-              and np.array_equal(res.labels["label"], results[name].labels["label"]),
-              f"{name}: the default run differs from the static schedule")
-        emit("static_path_run", t, problem=name, iterations=res.iterations, run_seconds=sec,
-             mteps=n_edges / sec / 1e6)
+        check(total == expect, f"serve launches {serve_launches} != sum(iterations) * l = {expect}")
+        for v in LANE_VARIANTS["gather_reduce_cores"]:
+            check(serve_launches["gather_reduce_cores"].get(v, 0) > 0,
+                  f"serve: gather lane variant {v} never ran")
+        for rec in flush_memory:
+            freed = rec["memory_allocated_before"] - rec["memory_allocated_after"]
+            check(rec["retired_device_cache_bytes"] > 0
+                  and freed >= rec["retired_device_cache_bytes"],
+                  f"evict_from_cache freed {freed} B of {rec['retired_device_cache_bytes']} B")
 
-    # -- the schedule of each min problem, iteration by iteration -------------
+    # the smoke's equivalence: a cold partition of the final graph, every
+    # answer replayed on both partitions, BFS/WCC/SSSP labels and iterations
     t0 = time.perf_counter()
-    schedule = {}
-    for name, problem in runs[:3]:
-        tr = run_frontier_trace(problem, g, pg, device=dev)
-        check(tr["iterations"] == results[name].iterations
-              and np.array_equal(tr["labels"]["label"], results[name].labels["label"]),
-              f"{name}: run_frontier_trace differs from run")
-        schedule[name] = {k: tr[k] for k in ("iterations", "direction", "push_iterations",
-                                              "dense_iterations", "dynamic_skipped_tile_fraction")}
-    emit("schedule", t0, per_problem=schedule,
-         static_skipped_tile_fraction=pg.skipped_tile_fraction,
-         push_static_skipped_tile_fraction=1.0 - float(pg.push_counts.sum())
-         / pg.push_counts.size / pg.push_word.shape[3])
-
-    # -- where one iteration's time goes (after the counts were read) ---------
-    t0 = time.perf_counter()
-
-    def breakdown(step):
-        step()  # warm
-        sync()
-        wall_us, evs = profiled(step)
-        dev_us = sum(event_us(e) for e in evs)
-        kern_us = sum(event_us(e) for e in evs if "reduce_cores" in e.key)
-        top = sorted(evs, key=event_us, reverse=True)[:8]
-        return dict(
-            iteration_wall_us=wall_us, device_busy_us=dev_us, kernel_us=kern_us,
-            device_idle_share=1.0 - dev_us / wall_us if wall_us else None,
-            device_launches=sum(e.count for e in evs),
-            top_device_us={e.key[:80]: [event_us(e), e.count] for e in top},
-        )
-
-    static = {}
-    for name, problem in runs[:4]:
-        labels = prepare_labels(problem, g, pg, device=dev)
-        iteration = make_iteration(problem, pg, EngineOptions(dynamic_tile_skip=False),
-                                   device=dev)
-        static[name] = breakdown(lambda: iteration(labels))
-    # BFS under 'auto': keep each iteration's input state; the dense pull is
-    # iteration 0, the dynamic pull and the push run on the last nonempty
-    # frontier (the narrowest), so their times compare on the same input
-    step = make_iteration(bfs(0), pg, EngineOptions(), device=dev)
-    labels = prepare_labels(bfs(0), g, pg, device=dev)
-    fw = F.full_frontier_words(pg.l, pg.sub_size, lead=(pg.p,), device=dev)
-    pop, prev, states = pg.p * pg.l * pg.sub_size, False, []
-    while pop > 0:
-        states.append((labels, fw, pop))
-        labels, fw, prev = step(labels, fw, prev, pop=pop)
-        pop = int(F.frontier_popcount(fw))
-    by_direction = {}
-    for label, state, opts in (
-        ("dense_pull", states[0], EngineOptions(direction="pull")),
-        ("dynamic_pull", states[-1], EngineOptions(direction="pull", dynamic_skip_density=2.0)),
-        ("push", states[-1], EngineOptions(direction="push")),
-    ):
-        lab, front, pc = state
-        it_fn = make_iteration(bfs(0), pg, opts, device=dev, with_stats=True)
-        stats = it_fn(lab, front, pop=pc)[-1]
-        by_direction[label] = dict(breakdown(lambda: it_fn(lab, front, pop=pc)), popcount=pc,
-                                   active_tiles=int(stats["active_tiles"]),
-                                   use_dense=stats["use_dense"])
-    emit("profile", t0, static_iteration=static, bfs_by_direction=by_direction,
-         bfs_iterations_recorded=len(states),
-         note="torch.profiler over one warm iteration (l phases); device events only; "
-              "the profiler's own host overhead inflates iteration_wall_us; kernel_us "
-              "sums both kernels' events")
-
-    # -- oracle backend on the card, kernel PR bit-stability -------------------
-    t0 = time.perf_counter()
-    agree_o = {}
-    for name, problem in runs[:4]:
-        labels = prepare_labels(problem, g, pg, device=dev)
-        sync()
-        t = time.perf_counter()
-        ref = run(problem, g, pg, EngineOptions(backend="oracle"), labels=labels, device=dev)
-        sync()
-        sec = time.perf_counter() - t
-        for got_name in [name] + [f"{n}_push" for _, n, _ in forced if n == name]:
-            got = results[got_name]
-            check(ref.iterations == got.iterations,
-                  f"{got_name}: iterations kernel {got.iterations} vs oracle {ref.iterations}")
-            a, b = got.labels["label"], ref.labels["label"]
-            if problem.reduce_kind == "min":
-                check(a.dtype == b.dtype and np.array_equal(a, b),
-                      f"{got_name}: labels differ from oracle")
-                err = 0.0
-            else:
-                err = float(np.max(np.abs(a - b)))
-                check(bool(np.allclose(a, b, **SUM_TOL)),
-                      f"{got_name}: labels differ from oracle by {err}")
-        agree_o[name] = dict(iterations=ref.iterations, oracle_seconds=sec,
-                             oracle_mteps=n_edges / sec / 1e6, max_abs_diff=err)
-    pr_a = results["pagerank"].labels["label"]
-    pr_b = results["pagerank_repeat"].labels["label"]
-    check(pr_a.tobytes() == pr_b.tobytes(), "pagerank: two kernel runs gave different bits")
-    emit("oracle", t0, agree=agree_o, pagerank_bit_stable=True)
-
-    # -- small graph against the numpy oracles --------------------------------
-    t0 = time.perf_counter()
-    gs0 = G.symmetrize(G.rmat(10, 8, seed=SEED + 3))
-    ws = np.random.default_rng(SEED + 3).random(gs0.num_edges).astype(np.float32)
-    gs = G.COOGraph(src=gs0.src, dst=gs0.dst, num_vertices=gs0.num_vertices, weights=ws)
-    pgs = partition_2d(gs, PartitionConfig(p=2, l=2, lane=8, tile_vb=64))
-    for opts in (EngineOptions(), EngineOptions(direction="push")):
-        check(np.array_equal(run(bfs(0), gs, pgs, opts, device=dev).labels["label"],
-                             reference.bfs_reference(gs, 0)), "small bfs != numpy oracle")
-        check(np.array_equal(run(wcc(), gs, pgs, opts, device=dev).labels["label"],
-                             reference.wcc_reference(gs)), "small wcc != numpy oracle")
-        check(np.allclose(run(sssp(0), gs, pgs, opts, device=dev).labels["label"],
-                          reference.sssp_reference(gs, 0), rtol=1e-6),
-              "small sssp != numpy oracle")
-    check(np.allclose(run(pagerank(), gs, pgs, device=dev).labels["label"],
-                      reference.pagerank_reference(gs), atol=1e-4),
-          "small pagerank != numpy oracle")
-    emit("reference", t0, edges=gs.num_edges)
+    g_final, pg_res = service.g, service.pg
+    del service, loop, completions
+    t = time.perf_counter()
+    pg_cold = partition_2d(g_final, PartitionConfig(**CFG))
+    cold_build_s = time.perf_counter() - t
+    n_answers = check_replay_equivalence(g_final, pg_res, pg_cold, workload, LANE_K, dev)
+    emit("serve_equivalence", t0, cold_build_seconds=cold_build_s, answers_replayed=n_answers,
+         labels_checked=["bfs", "wcc", "sssp"], bit_identical=True)
 
     kernels = [
         dict(name=f"{kern}_reduce_cores[{v}]", route="cuda", **meta,
@@ -618,6 +999,15 @@ def main() -> int:
              library_ms=None)
         for kern, meta, variants in (("gather", GATHER, problems), ("scatter", SCATTER, push_variants))
         for v in variants
+    ] + [
+        dict(name=f"{kern}_reduce_cores[{v}]", route="cuda", **meta,
+             launches=lane_launches[f"{kern}_reduce_cores"].get(v, 0),
+             max_abs_err=lane_errs[(kern, arm)], ms=lane_timing[(kern, arm)]["ms"],
+             plain_ms=lane_timing[(kern, arm)]["plain_ms"],
+             bound_ms=lane_timing[(kern, arm)]["bound_ms"],
+             bound_by=lane_timing[(kern, arm)]["bound_by"], library_ms=None)
+        for kern, meta in (("gather", GATHER), ("scatter", SCATTER))
+        for v, arm in LANE_ENTRIES[kern]
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     if rehearsal:

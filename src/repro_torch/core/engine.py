@@ -51,6 +51,17 @@ The reference skips a phase with no live source outright; here such a
 phase's fetch map is all inactive, so the launch does nothing, the merge is
 a no-op and the result is identical, without a per-phase host read.
 
+Multi-query lanes (``Problem.lanes = K > 0``): the payload and the merged
+labels carry a trailing lane axis, packed reach words of ``bfs_multi``
+(reduce 'or') or a (..., K) block of ``sssp_multi``/``ppr_multi``, and each
+phase is still one kernel launch that decodes every tile word once for all
+K lanes. 'or' problems always take the synchronous schedule (their
+``finalize`` recovers hop levels from a per-iteration counter) and stay
+eligible for the dynamic tile skip and push (OR is monotone like min). The
+frontier words are the union over lanes, and the direction thresholds are
+scaled by 1/K, since a push pass scatters each changed vertex's whole lane
+row. ``EngineOptions.lanes`` pins the batch width a caller expects.
+
 Host reads: the frontier's popcount is the one scalar read back per
 iteration. It is the convergence test, and the next iteration's density and
 direction switches are taken from it on the host, so no phase waits for the
@@ -72,7 +83,7 @@ from repro_torch.core import u32
 from repro_torch.core.partition import PartitionedGraph
 from repro_torch.core.problems import Problem
 from repro_torch.device import resolve_device
-from repro_torch.kernels.csr_gather_reduce.kernel import gather_reduce_cores
+from repro_torch.kernels.csr_gather_reduce.kernel import _min_into, _or_into, gather_reduce_cores
 from repro_torch.kernels.csr_gather_reduce.ops import combine_split_rows
 from repro_torch.kernels.csr_gather_reduce.scatter import scatter_reduce_cores
 
@@ -91,6 +102,7 @@ __all__ = [
     "channel_phase_reduce_oracle",
     "run",
     "run_frontier_trace",
+    "evict_from_cache",
 ]
 
 _BACKENDS = ("kernel", "oracle")
@@ -115,10 +127,16 @@ class EngineOptions:
     direction: str = "auto"
     direction_alpha: float = 0.02
     direction_beta: float = 0.1
+    # multi-query batch width K: None accepts whatever the problem declares
+    # (laneless included); an int pins it, and a problem of another width
+    # raises (the serving loop's admission check on its batches)
+    lanes: int | None = None
 
     def __post_init__(self):
         if self.backend not in _BACKENDS:
             raise ValueError(f"backend must be one of {_BACKENDS}, got {self.backend!r}")
+        if self.lanes is not None and self.lanes < 0:
+            raise ValueError(f"lanes must be None or >= 0, got {self.lanes}")
         if self.direction not in ("auto", "push", "pull"):
             raise ValueError(
                 f"direction must be 'auto', 'push' or 'pull', got {self.direction!r}"
@@ -131,20 +149,21 @@ class EngineOptions:
 
 
 def dynamic_skip_enabled(problem: Problem, pg: PartitionedGraph, opts: EngineOptions) -> bool:
-    """Frontier skipping is sound only for monotone reduces (a skipped tile's
-    sources re-contribute values already merged); sum problems need every
-    contribution every iteration. It also needs the kernel backend and the
-    partition-time coverage words."""
+    """Frontier skipping is sound only for monotone reduces, min and the word
+    OR of packed multi-source BFS (a skipped tile's sources re-contribute
+    values already merged); sum problems need every contribution every
+    iteration. It also needs the kernel backend and the partition-time
+    coverage words."""
     return bool(
         opts.dynamic_tile_skip
         and opts.backend == "kernel"
-        and problem.reduce_kind == "min"
+        and problem.reduce_kind in ("min", "or")
         and pg.tile_coverage is not None
     )
 
 
 def push_enabled(problem: Problem, pg: PartitionedGraph, opts: EngineOptions) -> bool:
-    """The push direction is admissible: a min problem, the kernel backend, a
+    """The push direction is admissible: a min/or problem, the kernel backend, a
     partition-time push stream, and the dynamic skip (its frontier carry is
     what the switch and the push fetch map read). ``direction='pull'`` opts
     out."""
@@ -170,19 +189,21 @@ def _to_tensor(v: np.ndarray, device) -> torch.Tensor:
 
 def prepare_labels(problem: Problem, g, pg: PartitionedGraph, device="cuda"):
     """Init labels on host, apply the stride permutation, reshape to (p, Vl)
-    and move to ``device`` (uint32 fields as int32 bits)."""
+    and move to ``device`` (uint32 fields as int32 bits). A lane-batched
+    field (padded, L) becomes (p, Vl, L): the permutation moves rows and the
+    lane axis rides along."""
     dev = resolve_device(device)
     padded = pg.padded_vertices
     out = {}
     for k, v in problem.init_labels(g, padded).items():
         v = np.asarray(v)
-        if v.ndim == 1 and v.shape[0] == padded:
+        if v.ndim in (1, 2) and v.shape[0] == padded:
             if pg.perm is not None:
                 # perm is a bijection on [0, V); slots >= V keep their init
                 moved = v.copy()
                 moved[pg.perm[: pg.num_vertices]] = v[: pg.num_vertices]
                 v = moved
-            v = v.reshape(pg.p, pg.vertices_per_core)
+            v = v.reshape(pg.p, pg.vertices_per_core, *v.shape[1:])
         out[k] = _to_tensor(v, dev)
     return out
 
@@ -196,12 +217,12 @@ def labels_from_numpy(tree: Dict[str, np.ndarray], device="cuda"):
 
 def unpad_labels(labels, pg: PartitionedGraph, u32_fields=()) -> Dict[str, np.ndarray]:
     """Back to original vertex ids (undo stride permutation + padding) as
-    numpy; ``u32_fields`` come back as uint32."""
+    numpy; ``u32_fields`` come back as uint32. A trailing lane axis stays."""
     out = {}
     for k, v in labels.items():
         v = u32.from_bits(v) if k in u32_fields else v.detach().cpu().numpy()
-        if v.ndim == 2 and v.shape == (pg.p, pg.vertices_per_core):
-            flat = v.reshape(pg.padded_vertices)
+        if v.ndim in (2, 3) and v.shape[:2] == (pg.p, pg.vertices_per_core):
+            flat = v.reshape(pg.padded_vertices, *v.shape[2:])
             v = flat[pg.perm[: pg.num_vertices]] if pg.perm is not None else flat[: pg.num_vertices]
         out[k] = v
     return out
@@ -264,7 +285,7 @@ def channel_phase_reduce(problem: Problem, pg: PartitionedGraph, gathered, cm, a
     ``gather_reduce_cores`` launch, then the level-2 split-row fold or the
     row-packing undo. ``active`` ((p, R, T) bool, already ANDed with the
     real-tile mask) is the dynamic schedule, passed to the kernel as its
-    fetch map; None is the static schedule. Returns (p, Vl)."""
+    fetch map; None is the static schedule. Returns (p, Vl[, L])."""
     reduced = gather_reduce_cores(
         gathered, cm["word"], cm["counts"], cm["word_hi"], cm["w"],
         fwords.active_fetch_map(active) if active is not None else None,
@@ -276,7 +297,10 @@ def channel_phase_reduce(problem: Problem, pg: PartitionedGraph, gathered, cm, a
             reduced, cm["split_map"], kind=problem.reduce_kind, identity=problem.identity
         )
     if cm["row_pos"] is not None:
-        return torch.gather(reduced, 1, cm["row_pos"])
+        pos = cm["row_pos"]
+        if reduced.dim() == 3:  # lane axis: one row index for every lane
+            pos = pos.unsqueeze(-1).expand(*pos.shape, reduced.shape[-1])
+        return torch.gather(reduced, 1, pos)
     return reduced
 
 
@@ -286,7 +310,7 @@ def channel_phase_scatter(problem: Problem, pg: PartitionedGraph, gathered, cm, 
     phase (``cm`` keyed like the pull constants). ``active`` is the
     frontier-ANDed (p, B, Tp) mask over the push stream's own coverage
     words. The output rows are natural rows, so there is no fold. Returns
-    (p, Vl)."""
+    (p, Vl[, L])."""
     return scatter_reduce_cores(
         gathered, cm["word"], cm["counts"], cm["word_hi"], cm["w"],
         fwords.active_fetch_map(active) if active is not None else None,
@@ -295,47 +319,48 @@ def channel_phase_scatter(problem: Problem, pg: PartitionedGraph, gathered, cm, 
     )
 
 
-def _segment_reduce(kind, contrib, dst, num_segments, identity, is_u32):
-    """Per-core segment reduce of (n, E) contributions at rows ``dst``. Empty
-    segments hold ``identity`` (what the reference's segment ops fill; 0 for
-    sums)."""
-    n = contrib.shape[0]
+def _segment_reduce(kind, contrib, dst, num_segments, identity):
+    """Per-core segment reduce of (n, E[, L]) contributions at rows ``dst``
+    (int32 contributions are uint32 bits). Empty segments hold ``identity``
+    (what the reference's segment ops fill; 0 for sums and ORs). 'or' is
+    the reference's bit-plane form: a 0/1 max per bit."""
+    n, e = contrib.shape[:2]
+    lane_shape = tuple(contrib.shape[2:])
     idx = (dst + num_segments * torch.arange(n, device=dst.device).view(n, 1)).reshape(-1)
-    if is_u32:
-        out = torch.full((n * num_segments,), int(identity) & u32.U32_MAX,
-                         dtype=torch.int64, device=contrib.device)
-        out.scatter_reduce_(0, idx, u32.widen(contrib).reshape(-1), "amin")
-        return u32.narrow(out).view(n, num_segments)
+    flat = contrib.reshape(n * e, *lane_shape)
+    size = n * num_segments
+    if kind == "or":
+        return _or_into(flat, idx, size).view(n, num_segments, *lane_shape)
     if kind == "min":
-        out = torch.full((n * num_segments,), identity, dtype=contrib.dtype, device=contrib.device)
-        out.scatter_reduce_(0, idx, contrib.reshape(-1), "amin")
-        return out.view(n, num_segments)
+        return _min_into(flat, idx, size, identity).view(n, num_segments, *lane_shape)
     # sums accumulate in float64: on the card index_add_ adds in no fixed
     # order, and a hub row's float32 rounding would then rival the
     # reassociation differences the oracle is meant to bound
-    out = torch.zeros(n * num_segments, dtype=torch.float64, device=contrib.device)
-    out.index_add_(0, idx, contrib.reshape(-1).to(torch.float64))
-    return out.to(contrib.dtype).view(n, num_segments)
+    out = torch.zeros((size,) + lane_shape, dtype=torch.float64, device=contrib.device)
+    out.index_add_(0, idx, flat.to(torch.float64))
+    return out.to(contrib.dtype).view(n, num_segments, *lane_shape)
 
 
 def channel_phase_reduce_oracle(problem: Problem, pg: PartitionedGraph, gathered, cm):
     """Oracle form of the phase reduce (the reference's
-    ``channel_phase_reduce_xla``): materialize (p, E_pad) contributions from
-    the flat bucket arrays, then segment-reduce. Returns (p, Vl)."""
-    contrib = problem.edge_map(gathered[cm["src"]], cm["w"])
-    contrib = torch.where(cm["valid"], contrib, problem.stored_identity)
-    return _segment_reduce(
-        problem.reduce_kind, contrib, cm["dst"], pg.vertices_per_core,
-        problem.identity, problem.payload_u32,
-    )
+    ``channel_phase_reduce_xla``): materialize (p, E_pad[, L]) contributions
+    from the flat bucket arrays, then segment-reduce. Returns (p, Vl[, L])."""
+    contrib = problem.edge_map(gathered[cm["src"]], cm["w"])  # (p, E_pad[, L])
+    valid = cm["valid"]
+    if contrib.dim() > valid.dim():  # the lane axis broadcasts
+        valid = valid.unsqueeze(-1)
+    contrib = torch.where(valid, contrib, problem.stored_identity)
+    return _segment_reduce(problem.reduce_kind, contrib, cm["dst"], pg.vertices_per_core,
+                           problem.identity)
 
 
 def _gather_local(problem: Problem, pg: PartitionedGraph, labels, m: int):
     """Single-process crossbar: every core's phase-m sub-interval is a slice
-    of the (p, Vl) payload; concatenating them IS the gathered block (G,)."""
+    of the (p, Vl[, L]) payload; concatenating them IS the gathered block
+    ((G,), or (G, L) with a lane axis)."""
     payload = problem.src_transform(labels)
     sub = payload[:, m * pg.sub_size : (m + 1) * pg.sub_size]
-    return sub.reshape(pg.gathered_size)
+    return sub.reshape(pg.gathered_size, *payload.shape[2:])
 
 
 def make_iteration(
@@ -365,17 +390,28 @@ def make_iteration(
     ``pop`` is the host popcount of ``frontier`` (the caller read it as the
     convergence test); when None it is read here. ``with_stats=True``
     appends ``{"active_tiles": device int64 scalar, "use_dense": int[,
-    "direction": int, "popcount": int]}`` to a dynamic call's return."""
+    "direction": int, "popcount": int]}`` to a dynamic call's return.
+
+    'or' problems (packed multi-source BFS) always take the synchronous
+    schedule, whatever ``immediate_updates`` says: their ``finalize``
+    recovers hop levels from a per-iteration counter, which async multi-hop
+    propagation would corrupt."""
+    if opts.lanes is not None and opts.lanes != problem.lanes:
+        raise ValueError(
+            f"EngineOptions.lanes={opts.lanes} but problem {problem.name!r} "
+            f"declares lanes={problem.lanes}"
+        )
     dev = resolve_device(device)
     mf = problem.merge_field
     is_min = problem.reduce_kind == "min"
+    is_or = problem.reduce_kind == "or"
     minimum = u32.minimum if problem.payload_u32 else torch.minimum
     dyn = dynamic_skip_enabled(problem, pg, opts)
     push_on = push_enabled(problem, pg, opts)
     forced_push = opts.direction == "push"
     if forced_push and not push_on:
         raise ValueError(
-            "direction='push' requires an admissible push path: a min "
+            "direction='push' requires an admissible push path: a min/or "
             "problem, the kernel backend, a partition built with "
             "build_push=True, and dynamic scheduling (dynamic_skip_enabled)"
         )
@@ -411,11 +447,17 @@ def make_iteration(
 
     total_bits = pg.p * pg.l * pg.sub_size
     dense_thr = int(total_bits * opts.dynamic_skip_density)
-    alpha_thr = int(total_bits * opts.direction_alpha)
-    beta_thr = int(total_bits * opts.direction_beta)
+    # Beamer thresholds scaled by 1/K for a K-lane batch: a push pass
+    # scatters each changed vertex's whole lane row, so the crossover moves
+    # down K-fold (one switch per batch, on the union popcount)
+    lane_k = max(problem.lanes, 1)
+    alpha_thr = int(total_bits * opts.direction_alpha / lane_k)
+    beta_thr = int(total_bits * opts.direction_beta / lane_k)
 
     def words_of(old, new):
-        return fwords.frontier_words_from_labels(old, new, pg.l, pg.sub_size)
+        # lane-batched labels: the frontier is the union over lanes
+        return fwords.frontier_words_from_labels(old, new, pg.l, pg.sub_size,
+                                                 lanes=problem.lanes > 0)
 
     def gathered_words(fw, m):
         return fw[:, m].reshape(-1)
@@ -445,6 +487,8 @@ def make_iteration(
         lab = labels[mf]
         if is_min:
             acc = torch.full_like(lab, problem.stored_identity)
+        elif is_or:
+            acc = torch.zeros_like(lab)
         else:
             acc = torch.full(lab.shape, problem.identity, dtype=torch.float32, device=lab.device)
         n_act = torch.zeros((), dtype=torch.int64, device=lab.device)
@@ -455,7 +499,10 @@ def make_iteration(
                 active = active_m(m, gathered_words(frontier, m))
                 n_act = count(n_act, active)
                 reduced = reduce_m(m, labels, active)
-            acc = minimum(acc, reduced) if is_min else acc + reduced
+            if is_min:
+                acc = minimum(acc, reduced)
+            else:
+                acc = acc | reduced if is_or else acc + reduced
         return acc, n_act
 
     def static(labels):
@@ -505,9 +552,12 @@ def make_iteration(
             new, nf, n_act = async_sweep(labels, frontier, reduce_m, active_m)
         else:
             acc, n_act = sync_sweep(labels, frontier, reduce_m, active_m)
-            new = dict(labels)
-            new[mf] = minimum(labels[mf], acc)
-            # monotone min: the words of (labels in vs out) are the frontier
+            if is_min:
+                new = dict(labels)
+                new[mf] = minimum(labels[mf], acc)
+            else:  # 'or': the new reach words and their hop levels
+                new = problem.finalize(labels, acc)
+            # monotone: the words of (labels in vs out) are the frontier
             nf = words_of(labels[mf], new[mf])
         out = (new, nf)
         if prev_push is not None:
@@ -616,3 +666,19 @@ def run_frontier_trace(
         "direction": directions,
         "push_iterations": directions.count("push"),
     }
+
+
+def evict_from_cache(pg: PartitionedGraph) -> bool:
+    """Drop a retired partition's device copies (typically the pre-flush
+    ``PartitionedGraph`` after ``partition.apply_edge_deltas``).
+
+    The port has no trace cache; what a retired partition pins is its
+    ``device_cache``, the edge tensors every run on it uploaded (about 8.8 GB
+    at RMAT scale 20 with the push stream). A flush returns a NEW partition
+    with an empty cache, so the old copies can never serve the updated
+    graph; clearing them frees that device memory once no caller holds the
+    tensors. The serving loop calls this on every flush. Returns True if
+    anything was dropped."""
+    had = bool(pg.device_cache)
+    pg.device_cache.clear()
+    return had

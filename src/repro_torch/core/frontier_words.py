@@ -31,6 +31,7 @@ __all__ = [
     "frontier_words_from_labels",
     "full_frontier_words",
     "frontier_popcount",
+    "lane_popcounts",
     "frontier_active_tiles",
     "active_fetch_map",
 ]
@@ -67,12 +68,15 @@ def frontier_words_from_labels(
 ) -> torch.Tensor:
     """Label diff -> frontier words: (..., Vl) pair -> (..., l, Ws) int32.
 
-    The run is converged iff every word is zero. ``lanes=True`` (a trailing
-    lane axis, the union over lanes) belongs to multi-query batching, which
-    is not ported yet."""
-    if lanes:
-        raise NotImplementedError("multi-query lanes are not ported yet")
+    The run is converged iff every word is zero. ``lanes=True`` (multi-query
+    batches): the labels carry a trailing lane axis (..., Vl, L), K vector
+    lanes or packed reach words, and a vertex is in the frontier iff ANY of
+    its lanes changed. The words are the UNION of the per-lane frontiers: a
+    tile streams while any live query needs it, and a converged lane adds
+    nothing."""
     changed = old != new
+    if lanes:
+        changed = changed.any(dim=-1)
     *lead, vl = changed.shape
     if vl != l * sub_size:
         raise ValueError(f"labels hold {vl} rows, expected l * sub_size = {l * sub_size}")
@@ -107,6 +111,14 @@ def frontier_popcount(frontier: torch.Tensor) -> torch.Tensor:
     """Total set bits (int64 scalar tensor on the frontier's device): the
     density switch, the direction switch and the convergence test read it."""
     return _popcount32(frontier).sum()
+
+
+def lane_popcounts(changed_lanes: torch.Tensor) -> torch.Tensor:
+    """Per-lane frontier sizes: (..., K) bool change mask -> (K,) int64
+    changed-vertex counts summed over all leading axes (multi-query
+    observability; ``problem.not_converged_lanes`` is its boolean form)."""
+    k = changed_lanes.shape[-1]
+    return changed_lanes.reshape(-1, k).sum(dim=0)
 
 
 def frontier_active_tiles(

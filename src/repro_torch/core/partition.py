@@ -1,9 +1,11 @@
 """Two-dimensional graph partitioning (paper §III-C) + stride mapping.
 
-Counterpart of ``repro.core.partition`` (in-memory build only; the
-streaming build and delta ingest come in a later slice). Host numpy, a copy
-of the reference, so every array is byte-identical to ``repro``'s for the
-same graph and config.
+Counterpart of ``repro.core.partition``: the in-memory build and the
+delta ingest of streamed edge insertions (``apply_edge_deltas``, which
+re-tiles only the dirty (core, phase) buckets); the streaming out-of-core
+build is not ported yet. Host numpy, a copy of the reference, so every
+array is byte-identical to ``repro``'s for the same graph, config and
+insertions.
 
 Dimension 1: the (padded) vertex set is split into ``p`` equal intervals
 ``I_q`` — one per graph core; core ``q`` owns all edges whose *destination*
@@ -52,6 +54,9 @@ __all__ = [
     "stride_permutation",
     "apply_permutation",
     "partition_2d",
+    "DeltaFlushReport",
+    "bucket_coords",
+    "apply_edge_deltas",
 ]
 
 
@@ -164,8 +169,11 @@ class PartitionedGraph:
     config: Optional[PartitionConfig] = None
     # device copies of the arrays above, filled on first use by
     # ``device_array`` and shared by every engine run on this graph
+    # (not an init field: every new object, ``dataclasses.replace`` included,
+    # starts with an empty cache, so a delta-flushed partition never sees the
+    # device copies of the arrays it replaced)
     device_cache: dict = dataclasses.field(
-        default_factory=dict, compare=False, repr=False
+        default_factory=dict, init=False, compare=False, repr=False
     )
 
     @classmethod
@@ -374,6 +382,31 @@ class PartitionedGraph:
         if self.tile_word is None or self.t_max_unsplit <= 0:
             return 1.0
         return float(self.tile_word.shape[3]) / float(self.t_max_unsplit)
+
+    def in_neighbors(self, v: int) -> np.ndarray:
+        """Decode vertex ``v``'s in-neighbors straight from the resident flat
+        bucket layout (host-side, no engine run) — the serving router's
+        "neighbors-of" path. All of v's in-edges live in core ``v // vpc``
+        (dim-1 ownership), one slice per phase; the gathered index is
+        inverted back to a global source id and the stride permutation is
+        undone. Order is the bucket stream order (phase-major, then the
+        bucket's dst-sorted order), which is deterministic for a given
+        partition — and bit-identical between an incrementally flushed
+        partition and a cold repartition of the same final edge list."""
+        if not 0 <= int(v) < self.num_vertices:
+            raise ValueError(f"vertex {v} out of range [0, {self.num_vertices})")
+        vv = int(self.perm[int(v)]) if self.perm is not None else int(v)
+        vpc, sub = self.vertices_per_core, self.sub_size
+        i, lidx = vv // vpc, vv % vpc
+        out = []
+        for m in range(self.l):
+            sel = self.valid[i, m] & (self.dst_lidx[i, m] == lidx)
+            g = self.src_gidx[i, m][sel].astype(np.int64)
+            out.append((g // sub) * vpc + m * sub + (g % sub))
+        srcs = np.concatenate(out) if out else np.zeros(0, np.int64)
+        if self.inv_perm is not None:
+            srcs = self.inv_perm[srcs]
+        return srcs.astype(np.int64)
 
     def memory_report(self) -> dict:
         """Byte accounting of the resident layout, field by field.
@@ -717,3 +750,475 @@ def _build_tile_layouts(p, l, vpc, src_gidx, dst_lidx, valid, weights, cfg, sub_
         t_max_unsplit=t_max_unsplit,
         **push,
     )
+
+
+# ---------------------------------------------------------------------------
+# Delta ingestion: streaming edge insertions re-tile ONLY dirty buckets.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DeltaFlushReport:
+    """What one incremental flush actually rebuilt — the O(B) contract.
+
+    ``tile_bytes_repacked`` counts only the packed stream bytes that were
+    regenerated from scratch (dirty buckets' edge words + coverage words +
+    push words); ``tile_bytes_total`` is the whole partition's packed stream.
+    A flush touching B of the p*l buckets must keep the repacked fraction
+    ~B / (p*l) — asserted in tests/test_torch_delta_ingest.py."""
+
+    dirty: tuple  # ((core, phase), ...) buckets that received edges, sorted
+    buckets_retiled: int
+    total_buckets: int
+    edges_added: int
+    tile_bytes_repacked: int
+    tile_bytes_total: int
+    grew_edge_pad: bool  # per-bucket flat arrays grew past the old E_pad
+    grew_tiles: bool  # stacked R/T/Tp grew (clean slices padded, not rebuilt)
+    mode_changed: bool  # row-map mode flipped (row_pos -> split map)
+
+    @property
+    def repacked_fraction(self) -> float:
+        return self.tile_bytes_repacked / max(self.tile_bytes_total, 1)
+
+
+def bucket_coords(
+    pg: PartitionedGraph, src: np.ndarray, dst: np.ndarray
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Bin delta edges exactly the way ``partition_2d`` bins the full edge
+    list: apply the stride permutation, then compute (core, phase, gidx,
+    lidx) per edge. Endpoints must be existing vertex ids — vertex-set
+    growth changes sub_size and with it every bucket, so it is a full
+    repartition, not a delta."""
+    src = np.asarray(src, dtype=np.int64)
+    dst = np.asarray(dst, dtype=np.int64)
+    if src.size:
+        lo = min(int(src.min()), int(dst.min()))
+        hi = max(int(src.max()), int(dst.max()))
+        if lo < 0 or hi >= pg.num_vertices:
+            raise ValueError(
+                f"delta edge endpoints must be existing vertex ids in "
+                f"[0, {pg.num_vertices}); got range [{lo}, {hi}]"
+            )
+    if pg.perm is not None:
+        src = pg.perm[src]
+        dst = pg.perm[dst]
+    vpc, sub = pg.vertices_per_core, pg.sub_size
+    core = dst // vpc
+    phase = (src % vpc) // sub
+    gidx = (src // vpc) * sub + (src % sub)
+    lidx = dst % vpc
+    return core, phase, gidx, lidx
+
+
+def _tile_bytes_total(pg: PartitionedGraph) -> int:
+    """Packed-stream bytes of a partition (edge words + weights + coverage,
+    pull and push) — the denominator of the O(B) repack-fraction metric."""
+    total = 0
+    for a in (
+        pg.tile_word, pg.tile_word_hi, pg.tile_weights, pg.tile_coverage,
+        pg.push_word, pg.push_word_hi, pg.push_weights, pg.push_coverage,
+    ):
+        if a is not None:
+            total += a.nbytes
+    return total
+
+
+def apply_edge_deltas(
+    pg: PartitionedGraph,
+    src: np.ndarray,
+    dst: np.ndarray,
+    weights: Optional[np.ndarray] = None,
+) -> tuple[PartitionedGraph, DeltaFlushReport]:
+    """Flush streamed edge insertions into a resident partition by re-tiling
+    ONLY the dirty (core, phase) buckets.
+
+    The incremental path reproduces ``partition_2d`` output bit-for-bit (see
+    docs/serving.md §3 / docs/tile_layout.md §10): a bucket's flat slice is
+    its old dst-sorted edges plus the delta edges in insertion order, stably
+    re-sorted by local dst — exactly the tie order a cold repartition of
+    (original edges ++ inserted edges) produces. Dirty buckets then re-run
+    ``prepare_tiles`` / ``pack_edge_words`` / ``tile_coverage_words`` /
+    ``prepare_push_tiles`` under the SAME config rules (per-bucket 'auto'
+    split threshold recomputed with the new bucket size); clean buckets keep
+    their packed arrays untouched — if the stacked R/T/Tp must grow, clean
+    slices are only zero-padded (counts stay authoritative; padded tiles are
+    dead under the kernel's early-out and carry all-zero coverage).
+
+    Returns ``(new_pg, report)``. A NEW PartitionedGraph object is always
+    returned — the engine's jit cache is keyed by object identity with edge
+    constants baked into traces, so mutating the resident arrays in place
+    would silently serve stale edges. The caller should drop the retired
+    object's device copies (``engine.evict_from_cache``)."""
+    cfg = pg.config
+    if cfg is None:
+        raise ValueError(
+            "partition carries no PartitionConfig (hand-built?); "
+            "delta ingest needs partition_2d provenance to re-tile"
+        )
+    if (pg.weights is not None) != (weights is not None):
+        raise ValueError(
+            "delta weights must match the partition: "
+            f"partition weighted={pg.weights is not None}, "
+            f"delta weighted={weights is not None}"
+        )
+    src = np.atleast_1d(np.asarray(src))
+    dst = np.atleast_1d(np.asarray(dst))
+    if src.shape != dst.shape or src.ndim != 1:
+        raise ValueError(f"src/dst must be equal-length 1-D: {src.shape} vs {dst.shape}")
+    p, l, vpc, sub = pg.p, pg.l, pg.vertices_per_core, pg.sub_size
+    n_add = int(src.shape[0])
+    if n_add == 0:
+        return pg, DeltaFlushReport(
+            dirty=(), buckets_retiled=0, total_buckets=p * l, edges_added=0,
+            tile_bytes_repacked=0, tile_bytes_total=_tile_bytes_total(pg),
+            grew_edge_pad=False, grew_tiles=False, mode_changed=False,
+        )
+    core, phase, gidx, lidx = bucket_coords(pg, src, dst)
+    w = np.asarray(weights, dtype=np.float32) if weights is not None else None
+
+    # group delta edges by bucket, preserving insertion order within a bucket
+    # (the stable tie order a cold repartition of the appended edge list sees)
+    b_id = core * l + phase
+    order = np.argsort(b_id, kind="stable")
+    b_s, g_s, l_s = b_id[order], gidx[order], lidx[order]
+    w_s = w[order] if w is not None else None
+    add = np.bincount(b_s, minlength=p * l).reshape(p, l)
+    dirty = sorted((int(b) // l, int(b) % l) for b in np.unique(b_s))
+    new_sizes = pg.bucket_sizes + add
+
+    # -- flat (p, l, E_pad) bucket arrays: grow E_pad by the same rounding
+    # rule partition_2d uses, then merge each dirty bucket's slice
+    e_pad_old = pg.edge_pad
+    e_pad = max(_round_up(int(new_sizes.max()), cfg.edge_pad), cfg.edge_pad)
+    grew_epad = e_pad > e_pad_old
+
+    def _grow_flat(a, fill):
+        out = np.full((p, l, e_pad), fill, dtype=a.dtype)
+        out[:, :, :e_pad_old] = a
+        return out
+
+    src_gidx = _grow_flat(pg.src_gidx, 0)
+    dst_lidx = _grow_flat(pg.dst_lidx, vpc - 1)  # padding keeps dst sorted
+    valid = _grow_flat(pg.valid, False)
+    wts_flat = _grow_flat(pg.weights, 0.0) if pg.weights is not None else None
+
+    starts = np.zeros(p * l + 1, dtype=np.int64)
+    np.cumsum(add.ravel(), out=starts[1:])
+    for (i, m) in dirty:
+        b = i * l + m
+        s, e = int(starts[b]), int(starts[b + 1])
+        n_old, n = int(pg.bucket_sizes[i, m]), int(new_sizes[i, m])
+        ga = np.concatenate([src_gidx[i, m, :n_old], g_s[s:e].astype(np.int32)])
+        la = np.concatenate([dst_lidx[i, m, :n_old], l_s[s:e].astype(np.int32)])
+        oo = np.argsort(la, kind="stable")  # old edges first on lidx ties
+        src_gidx[i, m, :n] = ga[oo]
+        dst_lidx[i, m, :n] = la[oo]
+        valid[i, m, :n] = True
+        if wts_flat is not None:
+            wa = np.concatenate([wts_flat[i, m, :n_old], w_s[s:e]])
+            wts_flat[i, m, :n] = wa[oo]
+
+    updates = dict(
+        num_edges=pg.num_edges + n_add,
+        src_gidx=src_gidx,
+        dst_lidx=dst_lidx,
+        valid=valid,
+        weights=wts_flat,
+        bucket_sizes=new_sizes,
+    )
+    rep_bytes = 0
+    grew_tiles = False
+    mode_changed = False
+
+    if pg.tile_word is not None:
+        from repro_torch.kernels.csr_gather_reduce.ops import (
+            _lpt_max_load,
+            pack_edge_words,
+            prepare_push_tiles,
+            prepare_tiles,
+            split_map_from_row_orig,
+            tile_coverage_words,
+        )
+
+        # -- pull stream: re-tile dirty buckets only
+        vb = pg.tile_vb
+        eb = int(pg.tile_word.shape[4])
+        r_old, t_old = int(pg.tile_word.shape[2]), int(pg.tile_word.shape[3])
+        r_base = vpc // vb
+        layouts = {
+            (i, m): prepare_tiles(
+                src_gidx[i, m], dst_lidx[i, m], valid[i, m],
+                num_rows=vpc, vb=vb, eb=eb,
+                weights=wts_flat[i, m] if wts_flat is not None else None,
+                balance_rows=cfg.degree_aware_tiles,
+                split_threshold=_bucket_split_threshold(
+                    cfg, int(new_sizes[i, m]), vpc // vb
+                ),
+            )
+            for (i, m) in dirty
+        }
+        # Per-bucket layout shape + split metadata. The stacked shape is the
+        # GLOBAL max over buckets — it can also SHRINK: a dirty bucket that
+        # dictated the old R/T/S_max re-tiles under a larger 'auto' split
+        # threshold (it grows with the bucket's edge count) and may need
+        # less. Clean buckets' contributions are derived without touching
+        # their packed bytes: T from the valid sign bits (a real tile always
+        # holds >= 1 valid edge, and tiles fill a row block in order), R and
+        # S from the row maps, and the unsplit-T metric from the flat dst
+        # column — metadata reads, not stream rebuilds.
+        vword = pg.tile_word_hi if pg.tile_word_hi is not None else pg.tile_word
+        tile_has_edge = (vword < 0).any(axis=(2, 4))  # (p, l, T)
+        r_b = np.full((p, l), r_base, dtype=np.int64)
+        t_b = np.ones((p, l), dtype=np.int64)
+        s_b = np.ones((p, l), dtype=np.int64)  # split-map width per bucket
+        split_b = np.zeros((p, l), dtype=np.int64)  # split natural rows
+        tu_b = np.ones((p, l), dtype=np.int64)  # per-bucket unsplit T
+        for i in range(p):
+            for m in range(l):
+                if (i, m) in layouts:
+                    continue
+                nz = np.nonzero(tile_has_edge[i, m])[0]
+                if nz.size:
+                    t_b[i, m] = int(nz[-1]) + 1
+                if pg.tile_split_map is not None:
+                    width = (pg.tile_split_map[i, m] >= 0).sum(axis=1)
+                    s_b[i, m] = max(int(width.max()), 1)
+                    split_b[i, m] = int((width > 1).sum())
+                    pos = np.nonzero(pg.tile_row_orig[i, m] >= 0)[0]
+                    if pos.size:
+                        r_b[i, m] = max(r_base, int(pos[-1]) // vb + 1)
+                n_old = int(pg.bucket_sizes[i, m])
+                rc = np.bincount(pg.dst_lidx[i, m, :n_old], minlength=vpc)
+                if cfg.degree_aware_tiles:
+                    load = _lpt_max_load(rc, r_base, vb)
+                else:
+                    load = int(rc.reshape(r_base, vb).sum(axis=1).max())
+                tu_b[i, m] = max(1, -(-int(load) // eb))
+        for (i, m), t in layouts.items():
+            r_b[i, m], t_b[i, m] = t.src.shape[0], t.src.shape[1]
+            tu_b[i, m] = t.t_tiles_unsplit
+            split_b[i, m] = t.num_split_rows
+        r_new, t_new = int(r_b.max()), int(t_b.max())
+        grew_tiles = (r_new, t_new) != (r_old, t_old)
+        ro_n, to_n = min(r_old, r_new), min(t_old, t_new)
+
+        def _restack(a, fill=0):
+            out = np.full((p, l, r_new, t_new) + a.shape[4:], fill, dtype=a.dtype)
+            out[:, :, :ro_n, :to_n] = a[:, :, :ro_n, :to_n]
+            return out
+
+        tile_word = _restack(pg.tile_word)
+        tile_word_hi = (
+            _restack(pg.tile_word_hi)
+            if pg.tile_word_hi is not None else None
+        )
+        tile_counts = np.zeros((p, l, r_new), np.int32)
+        tile_counts[:, :, :ro_n] = pg.tile_counts[:, :, :ro_n]
+        tile_weights = (
+            _restack(pg.tile_weights)
+            if pg.tile_weights is not None else None
+        )
+        tile_coverage = (
+            _restack(pg.tile_coverage)
+            if pg.tile_coverage is not None else None
+        )
+        for (i, m), t in layouts.items():
+            rr, tt = t.src.shape[0], t.src.shape[1]
+            w0, w1 = pack_edge_words(t.src, t.dstb, t.valid, src_bits=pg.src_bits)
+            tile_word[i, m] = 0
+            tile_word[i, m, :rr, :tt] = w0
+            rep_bytes += w0.nbytes
+            if tile_word_hi is not None:
+                tile_word_hi[i, m] = 0
+                tile_word_hi[i, m, :rr, :tt] = w1
+                rep_bytes += w1.nbytes
+            tile_counts[i, m] = 0
+            tile_counts[i, m, :rr] = t.tile_counts
+            if tile_weights is not None:
+                tile_weights[i, m] = 0.0
+                if t.weights is not None:
+                    tile_weights[i, m, :rr, :tt] = t.weights
+                    rep_bytes += t.weights.nbytes
+            if tile_coverage is not None:
+                cov = tile_coverage_words(
+                    tile_word[i, m], tile_word_hi[i, m] if tile_word_hi is not None else None,
+                    src_bits=pg.src_bits, p=p, sub_size=sub,
+                )
+                tile_coverage[i, m] = cov
+                rep_bytes += cov.nbytes
+
+        # -- row maps: dirty buckets bring fresh maps; clean buckets keep
+        # (or mechanically re-derive — metadata, not packed stream) theirs.
+        # The MODE is a global property: a partition is in split mode iff ANY
+        # bucket still has a split row, so it can flip in either direction —
+        # pos->split when a dirty bucket crosses its threshold, split->pos
+        # when the only split bucket un-splits under its grown threshold.
+        any_split_old = pg.tile_split_map is not None
+        any_split_new = bool((split_b > 0).any())
+        mode_changed = any_split_old != any_split_new
+        tile_row_pos = tile_row_orig = tile_split_map = None
+        split_rows = 0
+        if not any_split_new:
+            # no virtual rows anywhere: R stays Vl / vb in this mode, and the
+            # pos map exists iff the LPT packer ran (cold-path rule)
+            if cfg.degree_aware_tiles and r_base > 1:
+                tile_row_pos = np.tile(np.arange(vpc, dtype=np.int32), (p, l, 1))
+                for i in range(p):
+                    for m in range(l):
+                        if (i, m) in layouts:
+                            t = layouts[(i, m)]
+                            if t.row_pos is not None:
+                                tile_row_pos[i, m] = t.row_pos
+                        elif pg.tile_row_pos is not None:
+                            tile_row_pos[i, m] = pg.tile_row_pos[i, m]
+                        elif pg.tile_row_orig is not None:
+                            # split->pos flip: invert the clean bucket's
+                            # packed-position map (it has no split rows, so
+                            # the inverse is exactly the row_pos the cold
+                            # LPT pass reproduces on unchanged row counts)
+                            pos = np.nonzero(pg.tile_row_orig[i, m] >= 0)[0]
+                            tile_row_pos[
+                                i, m, pg.tile_row_orig[i, m, pos]
+                            ] = pos.astype(np.int32)
+        else:
+            packed_old, packed_new = r_old * vb, r_new * vb
+            po_n = min(packed_old, packed_new)
+            tile_row_orig = np.full((p, l, packed_new), -1, dtype=np.int32)
+            if pg.tile_row_orig is not None:
+                tile_row_orig[:, :, :po_n] = pg.tile_row_orig[:, :, :po_n]
+            elif pg.tile_row_pos is not None:
+                for i in range(p):
+                    for m in range(l):
+                        tile_row_orig[i, m, pg.tile_row_pos[i, m]] = np.arange(
+                            vpc, dtype=np.int32
+                        )
+            else:
+                tile_row_orig[:, :, :vpc] = np.arange(vpc, dtype=np.int32)
+            for (i, m), t in layouts.items():
+                ro = np.full(packed_new, -1, dtype=np.int32)
+                if t.row_orig is not None:
+                    ro[: t.row_orig.shape[0]] = t.row_orig
+                elif t.row_pos is not None:
+                    ro[t.row_pos] = np.arange(vpc, dtype=np.int32)
+                else:
+                    ro[:vpc] = np.arange(vpc, dtype=np.int32)
+                tile_row_orig[i, m] = ro
+            # gather-form split maps: rebuild dirty buckets (and every bucket
+            # on a pos->split mode flip, where no old map exists)
+            maps = {}
+            for i in range(p):
+                for m in range(l):
+                    if (i, m) in layouts or not any_split_old:
+                        maps[(i, m)] = split_map_from_row_orig(
+                            tile_row_orig[i, m], vpc
+                        )
+                        s_b[i, m] = maps[(i, m)].shape[1]
+            s_max = int(s_b.max())
+            tile_split_map = np.full((p, l, vpc, s_max), -1, dtype=np.int32)
+            if any_split_old:
+                so_n = min(pg.tile_split_map.shape[3], s_max)
+                tile_split_map[:, :, :, :so_n] = pg.tile_split_map[:, :, :, :so_n]
+            for (i, m), sm in maps.items():
+                tile_split_map[i, m] = -1
+                tile_split_map[i, m, :, : sm.shape[1]] = sm
+            split_rows = int(split_b.sum())
+        updates.update(
+            tile_word=tile_word,
+            tile_word_hi=tile_word_hi,
+            tile_counts=tile_counts,
+            tile_weights=tile_weights,
+            tile_coverage=tile_coverage,
+            tile_row_pos=tile_row_pos,
+            tile_row_orig=tile_row_orig,
+            tile_split_map=tile_split_map,
+            split_rows=split_rows,
+            t_max_unsplit=int(tu_b.max()),
+        )
+
+        # -- push (scatter) stream: same dirty buckets, same block sizing
+        if pg.push_word is not None:
+            peb = int(pg.push_word.shape[4])
+            tp_old = int(pg.push_word.shape[3])
+            push_layouts = {
+                (i, m): prepare_push_tiles(
+                    src_gidx[i, m], dst_lidx[i, m], valid[i, m],
+                    gathered_size=pg.gathered_size,
+                    block_sources=pg.push_block,
+                    num_rows=vpc, eb=peb,
+                    weights=wts_flat[i, m] if wts_flat is not None else None,
+                )
+                for (i, m) in dirty
+            }
+            tp_new = max([tp_old] + [t.src.shape[1] for t in push_layouts.values()])
+            grew_tiles = grew_tiles or tp_new > tp_old
+            b_blocks = int(pg.push_word.shape[2])
+
+            def _pad_push(a, fill=0):
+                out = np.full(
+                    (p, l, b_blocks, tp_new) + a.shape[4:], fill, dtype=a.dtype
+                )
+                out[:, :, :, :tp_old] = a
+                return out
+
+            push_word = _pad_push(pg.push_word)
+            push_word_hi = (
+                _pad_push(pg.push_word_hi) if pg.push_word_hi is not None else None
+            )
+            push_counts = pg.push_counts.copy()
+            push_weights = (
+                _pad_push(pg.push_weights) if pg.push_weights is not None else None
+            )
+            push_coverage = (
+                _pad_push(pg.push_coverage) if pg.push_coverage is not None else None
+            )
+            for (i, m), t in push_layouts.items():
+                bb, tt = t.src.shape[0], t.src.shape[1]
+                assert bb == b_blocks, (bb, b_blocks)
+                w0, w1 = pack_edge_words(
+                    t.src, t.dst, t.valid, src_bits=pg.push_src_bits
+                )
+                push_word[i, m] = 0
+                push_word[i, m, :, :tt] = w0
+                rep_bytes += w0.nbytes
+                if push_word_hi is not None:
+                    push_word_hi[i, m] = 0
+                    push_word_hi[i, m, :, :tt] = w1
+                    rep_bytes += w1.nbytes
+                push_counts[i, m] = t.tile_counts
+                if push_weights is not None:
+                    push_weights[i, m] = 0.0
+                    if t.weights is not None:
+                        push_weights[i, m, :, :tt] = t.weights
+                        rep_bytes += t.weights.nbytes
+                if push_coverage is not None:
+                    cov = tile_coverage_words(
+                        push_word[i, m],
+                        push_word_hi[i, m] if push_word_hi is not None else None,
+                        src_bits=pg.push_src_bits, p=p, sub_size=sub,
+                    )
+                    push_coverage[i, m] = cov
+                    rep_bytes += cov.nbytes
+            updates.update(
+                push_word=push_word,
+                push_word_hi=push_word_hi,
+                push_counts=push_counts,
+                push_weights=push_weights,
+                push_coverage=push_coverage,
+            )
+
+    # a NEW partition: its device_cache is a fresh field (init=False), so
+    # no device copy of the old packed arrays can reach the new graph
+    new_pg = dataclasses.replace(pg, **updates)
+    report = DeltaFlushReport(
+        dirty=tuple(dirty),
+        buckets_retiled=len(dirty),
+        total_buckets=p * l,
+        edges_added=n_add,
+        tile_bytes_repacked=rep_bytes,
+        tile_bytes_total=_tile_bytes_total(new_pg),
+        grew_edge_pad=grew_epad,
+        grew_tiles=grew_tiles,
+        mode_changed=mode_changed,
+    )
+    return new_pg, report

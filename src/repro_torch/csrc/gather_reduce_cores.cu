@@ -1,12 +1,13 @@
 // Graph-core accumulator over the compressed edge stream, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/csr_gather_reduce/kernel.py
-// ::gather_reduce_cores_pallas (its pallas_call at kernel.py:354): laneless
-// payload, min over uint32 or float32, sum over float32, and the optional
-// saturating weight add of SSSP, on either schedule: the static per-(core,
-// row block) tile counts, or the dynamic fetch map of the frontier-aware
-// tile skip (a tile t runs iff fetch[c, r, t] == t). Both packed-word
-// regimes are decoded:
+// ::gather_reduce_cores_pallas (its pallas_call at kernel.py:354): min over
+// uint32 or float32, sum over float32, the optional saturating weight add of
+// SSSP, and, on a payload with a trailing lane axis (multi-query batches),
+// the word OR of packed multi-source BFS, on either schedule: the static
+// per-(core, row block) tile counts, or the dynamic fetch map of the
+// frontier-aware tile skip (a tile t runs iff fetch[c, r, t] == t). Both
+// packed-word regimes are decoded:
 //   16-bit: word = valid<<31 | dstb<<16 | src
 //   32-bit: word = src, word_hi = valid<<31 | dstb
 //
@@ -40,6 +41,27 @@
 //     add is therefore fixed by the slot order alone.
 //   * Rows no edge reaches keep the identity, which is what the level-2
 //     split-row fold relies on for spare virtual rows.
+//
+// The lane arm (gather_reduce_cores_lanes_kernel) takes a (G, L) payload and
+// writes (p, R * vb, L): L query lanes of vector min/sum (SSSP/PPR batches)
+// or L packed reach words reduced by OR (BFS batches). The point of lanes is
+// bandwidth, so each thread decodes its slot's word (and reads its weight)
+// ONCE and then updates all of the block's lanes: the word stream is read
+// once per launch whatever L is. min and OR are one shared-memory atomic per
+// slot and lane: folding each same-row group in shared memory first ran
+// 1.4x faster at L = 16 but 2.4x slower on one packed word and 1.25x slower
+// at 32 lanes a chunk (H100 SXM, RMAT scale 20), and moved no engine run. The
+// accumulator is vb x Lc words of shared memory (sum also stages 256 x Lc
+// lane values). Where that does not fit one block (at vb = 1024 from L = 45
+// on for sum, L = 57 for min/or), the lanes are split into chunks of Lc over
+// a third grid dimension; each chunk re-reads its tiles' words, so a launch
+// reads the word stream ceil(L / Lc) times (the wrapper reports the chunk
+// count).
+// Sum stays deterministic per lane: the __match_any_sync peer groups are
+// the same for every lane, a group's members split its lanes and each adds
+// its lane over the peers in lane order, and the per-warp partials are
+// added to the accumulator in warp order, one warp's leaders (distinct
+// rows) at a time.
 // The wrapper (kernel.py) checks shapes, types and the shared-memory size
 // before it calls the launcher; the launcher returns cudaGetLastError().
 
@@ -52,6 +74,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMin = 0;
 constexpr int kSum = 1;
+constexpr int kOr = 2;
 
 __device__ __forceinline__ uint32_t f32_key(uint32_t bits) {
   // order-preserving map float -> uint32 (negative floats reversed)
@@ -181,6 +204,145 @@ __global__ void __launch_bounds__(kThreads) gather_reduce_cores_kernel(
   }
 }
 
+__global__ void __launch_bounds__(kThreads) gather_reduce_cores_lanes_kernel(
+    const uint32_t* __restrict__ payload,  // (G, L) uint32 or float32 bits
+    const int32_t* __restrict__ word,      // (p, R, T, Eb)
+    const int32_t* __restrict__ word_hi,   // (p, R, T, Eb) or null (16-bit)
+    const float* __restrict__ weights,     // (p, R, T, Eb) or null
+    const int32_t* __restrict__ counts,    // (p, R) real tiles per row block
+    const int32_t* __restrict__ fetch,     // (p, R, T) fetch map or null
+    uint32_t* __restrict__ out,            // (p, R * vb, L)
+    int r_blocks, int t_tiles, int eb, int vb, int lanes, int lane_chunk,
+    int kind, int is_f32, int add, uint32_t identity) {
+  extern __shared__ uint32_t smem[];
+  const int l0 = blockIdx.z * lane_chunk;
+  const int nl = min(lane_chunk, lanes - l0);  // lanes of this block's chunk
+  uint32_t* acc = smem;                                      // vb x nl
+  int* tiles = reinterpret_cast<int*>(smem + (size_t)vb * lane_chunk);  // kThreads
+  int* warp_n = tiles + kThreads;                            // kWarps
+  int* st_row = warp_n + kWarps;                             // kThreads (sum)
+  float* st_val = reinterpret_cast<float*>(st_row + kThreads);  // kThreads x nl (sum)
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long blk = (long long)blockIdx.y * r_blocks + blockIdx.x;
+  const bool min_f32 = (kind == kMin) && is_f32;
+
+  const uint32_t init = min_f32 ? f32_key(identity) : identity;
+  for (int j = tid; j < vb * nl; j += kThreads) acc[j] = init;
+  __syncthreads();
+
+  const long long base = blk * (long long)t_tiles * eb;
+  const float ident_f = __uint_as_float(identity);
+  const int32_t* fetch_blk = fetch != nullptr ? fetch + blk * t_tiles : nullptr;
+  const int n_cand = fetch != nullptr ? t_tiles : counts[blk];
+
+  for (int t0 = 0; t0 < n_cand; t0 += kThreads) {
+    const int tc = t0 + tid;
+    const bool runs = tc < n_cand && (fetch_blk == nullptr || __ldg(fetch_blk + tc) == tc);
+    const unsigned ballot = __ballot_sync(0xFFFFFFFFu, runs);
+    if (lane == 0) warp_n[warp] = __popc(ballot);
+    __syncthreads();
+    int before = 0, n_run = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      before += w < warp ? warp_n[w] : 0;
+      n_run += warp_n[w];
+    }
+    if (runs) tiles[before + __popc(ballot & ((1u << lane) - 1u))] = tc;
+    __syncthreads();
+
+    const int n_slots = n_run * eb;
+    for (int s0 = 0; s0 < n_slots; s0 += kThreads) {
+      const int s = s0 + tid;
+      bool valid = false;
+      int row = 0;
+      float step = 1.0f;
+      const uint32_t* prow = payload;
+      if (s < n_slots) {  // decode the slot once, for every lane
+        const long long at = base + (long long)tiles[s / eb] * eb + s % eb;
+        const int32_t w0 = __ldg(word + at);
+        int src;
+        if (word_hi != nullptr) {
+          const int32_t hi = __ldg(word_hi + at);
+          valid = hi < 0;
+          row = hi & 0x7FFFFFFF;
+          src = w0;
+        } else {
+          valid = w0 < 0;
+          row = (w0 >> 16) & 0x7FFF;
+          src = w0 & 0xFFFF;
+        }
+        if (valid) {
+          prow = payload + (long long)src * lanes + l0;
+          if (add && weights != nullptr) step = __ldg(weights + at);
+        }
+      }
+      if (kind != kSum) {
+        if (!valid) continue;
+        uint32_t* cell = acc + row * nl;
+        for (int l = 0; l < nl; ++l) {
+          uint32_t v = __ldg(prow + l);
+          if (kind == kOr) {
+            if (v != 0u) atomicOr(cell + l, v);
+            continue;
+          }
+          if (add) {  // saturating min-plus map; the slot's weight on every lane
+            const float x = __uint_as_float(v);
+            v = __float_as_uint(x >= ident_f ? ident_f : x + step);
+          }
+          atomicMin(cell + l, min_f32 ? f32_key(v) : v);
+        }
+        continue;
+      }
+      // deterministic sum: the peer groups (same row) are those of every
+      // lane. The group's members split its lanes (member of rank r takes
+      // lanes r, r + size, ...) and each adds its lane over the peers in
+      // lane order, leaving the partial in the leader's slot: a lane of
+      // the leader's slot is read and written by one member only.
+      if (valid) {
+        float* mine = st_val + tid * nl;
+        for (int l = 0; l < nl; ++l) mine[l] = __uint_as_float(__ldg(prow + l));
+      }
+      const unsigned peers = __match_any_sync(0xFFFFFFFFu, valid ? row : -1 - lane);
+      __syncwarp();
+      const int first = __ffs(peers) - 1;
+      const int size = __popc(peers);
+      const int rank = __popc(peers & ((1u << lane) - 1u));
+      const bool leader = valid && lane == first;
+      if (valid) {
+        float* lead = st_val + ((warp << 5) + first) * nl;
+        for (int l = rank; l < nl; l += size) {
+          float part = 0.0f;  // the leader is the lowest lane: it is read first
+          for (unsigned m = peers; m != 0; m &= m - 1) {
+            part += st_val[((warp << 5) + __ffs(m) - 1) * nl + l];
+          }
+          lead[l] = part;
+        }
+      }
+      st_row[tid] = leader ? row : -1;
+      __syncthreads();
+      float* accf = reinterpret_cast<float*>(acc);
+      for (int w = 0; w < kWarps; ++w) {
+        // one warp's leaders own distinct rows: no two items share a cell
+        for (int i = tid; i < 32 * nl; i += kThreads) {
+          const int sl = (w << 5) + i / nl;
+          const int rr = st_row[sl];
+          if (rr >= 0) accf[rr * nl + i % nl] += st_val[sl * nl + i % nl];
+        }
+        __syncthreads();
+      }
+    }
+    __syncthreads();  // the tile list and warp counts are rewritten next chunk
+  }
+  __syncthreads();
+
+  for (int j = tid; j < vb * nl; j += kThreads) {
+    const long long row = blk * vb + j / nl;
+    out[row * lanes + l0 + j % nl] = min_f32 ? key_f32(acc[j]) : acc[j];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -209,6 +371,38 @@ int gather_reduce_cores_launch(const void* payload, const void* word,
       (const float*)weights, (const int32_t*)counts, (const int32_t*)fetch,
       (uint32_t*)out, r_blocks,
       t_tiles, eb, vb, kind, is_f32, add, identity);
+  return (int)cudaGetLastError();
+}
+
+// Shared memory the lane kernel needs for vb rows and a chunk of lc lanes:
+// the accumulator, the tile list and the warp counts; sum adds the leader
+// rows and the staged lane values of every thread.
+size_t gather_reduce_cores_lanes_smem_bytes(int vb, int lc, int kind) {
+  size_t words = (size_t)vb * lc + kThreads + kWarps;
+  if (kind == kSum) words += kThreads + (size_t)kThreads * lc;
+  return sizeof(uint32_t) * words;
+}
+
+int gather_reduce_cores_lanes_launch(const void* payload, const void* word,
+                                     const void* word_hi, const void* weights,
+                                     const void* counts, const void* fetch,
+                                     void* out, int p, int r_blocks,
+                                     int t_tiles, int eb, int vb, int lanes,
+                                     int lane_chunk, int kind, int is_f32,
+                                     int add, uint32_t identity, void* stream) {
+  const size_t smem = gather_reduce_cores_lanes_smem_bytes(vb, lane_chunk, kind);
+  cudaError_t err = cudaFuncSetAttribute(
+      gather_reduce_cores_lanes_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (p == 0 || r_blocks == 0 || lanes == 0) return 0;
+  const int chunks = (lanes + lane_chunk - 1) / lane_chunk;
+  gather_reduce_cores_lanes_kernel<<<dim3(r_blocks, p, chunks), kThreads, smem,
+                                     (cudaStream_t)stream>>>(
+      (const uint32_t*)payload, (const int32_t*)word, (const int32_t*)word_hi,
+      (const float*)weights, (const int32_t*)counts, (const int32_t*)fetch,
+      (uint32_t*)out, r_blocks, t_tiles, eb, vb, lanes, lane_chunk, kind,
+      is_f32, add, identity);
   return (int)cudaGetLastError();
 }
 

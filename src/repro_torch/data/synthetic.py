@@ -1,0 +1,154 @@
+"""Synthetic serving traffic: query streams and edge-insertion streams.
+
+Counterpart of the serving generators of ``repro.data.synthetic``: the same
+numpy RNG calls in the same order, so the same seed gives the same stream in
+both packages. Everything here is host numpy.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = [
+    "QUERY_KINDS",
+    "DEFAULT_QUERY_MIX",
+    "query_workload",
+    "mixed_query_workload",
+    "edge_insertion_stream",
+    "admission_batches",
+]
+
+QUERY_KINDS = ("bfs", "sssp", "ppr", "recommend", "neighbors")
+DEFAULT_QUERY_MIX = {"bfs": 0.35, "sssp": 0.2, "ppr": 0.2, "recommend": 0.25}
+
+
+def query_workload(
+    num_queries: int,
+    num_vertices: int,
+    *,
+    zipf_a: float = 1.2,
+    hot_fraction: float = 0.1,
+    seed: int = 0,
+) -> np.ndarray:
+    """Multi-root query stream for the lane-batched traversal path: root ids
+    for ``num_queries`` point queries (BFS roots / SSSP sources / PPR seeds)
+    with SKEWED root popularity — real query traffic concentrates on hub
+    entities, so admission batches contain duplicate roots and the packed
+    lane layout must stay correct under them (the bit-OR init regression).
+
+    A random ``hot_fraction`` of the vertex set forms the popularity-ranked
+    head; each query picks rank ``r ~ Zipf(zipf_a)`` (clamped into the head)
+    with probability ~rank^-a, so a handful of hot roots dominate while the
+    tail keeps full-vertex-range coverage. Deterministic in ``seed``;
+    returns (num_queries,) int64.
+    """
+    if num_vertices < 1 or num_queries < 1:
+        raise ValueError((num_queries, num_vertices))
+    rng = np.random.default_rng(
+        np.random.SeedSequence([seed, num_queries, num_vertices])
+    )
+    head = max(1, int(num_vertices * hot_fraction))
+    # popularity rank -> vertex id: a seeded permutation, so hot roots are
+    # scattered over the id space (and over graph cores / phases)
+    by_rank = rng.permutation(num_vertices)
+    ranks = np.minimum(rng.zipf(zipf_a, size=num_queries) - 1, head - 1)
+    return by_rank[ranks].astype(np.int64)
+
+
+def mixed_query_workload(
+    num_queries: int,
+    num_vertices: int,
+    *,
+    mix: dict | None = None,
+    zipf_a: float = 1.2,
+    hot_fraction: float = 0.1,
+    seed: int = 0,
+) -> list:
+    """Mixed-op query stream for the always-on serving loop (repro_torch.serve):
+    each query is a dict ``{"kind", "root", "target"}`` with ``kind`` drawn
+    from ``mix`` (default ``DEFAULT_QUERY_MIX`` over bfs/sssp/ppr/recommend;
+    weights are normalized) and zipf-skewed roots shared across kinds — hot
+    entities are hot for EVERY traffic class, so same-kind admission
+    coalescing sees duplicate roots inside one batch. ``target`` (the
+    distance-to endpoint for bfs/sssp; ignored by other kinds) is drawn from
+    the same skewed popularity head. Deterministic in ``seed``."""
+    mix = dict(DEFAULT_QUERY_MIX) if mix is None else dict(mix)
+    bad = sorted(set(mix) - set(QUERY_KINDS))
+    if bad:
+        raise ValueError(f"unknown query kinds {bad}; supported: {QUERY_KINDS}")
+    total = float(sum(mix.values()))
+    if total <= 0:
+        raise ValueError(f"mix weights must sum > 0: {mix}")
+    kinds = sorted(mix)
+    probs = np.asarray([mix[k] / total for k in kinds], dtype=np.float64)
+    rng = np.random.default_rng(
+        np.random.SeedSequence([seed, 11, num_queries, num_vertices])
+    )
+    roots = query_workload(
+        num_queries, num_vertices, zipf_a=zipf_a,
+        hot_fraction=hot_fraction, seed=seed,
+    )
+    targets = query_workload(
+        num_queries, num_vertices, zipf_a=zipf_a,
+        hot_fraction=hot_fraction, seed=seed + 1,
+    )
+    picks = rng.choice(len(kinds), size=num_queries, p=probs)
+    return [
+        {"kind": kinds[picks[i]], "root": int(roots[i]), "target": int(targets[i])}
+        for i in range(num_queries)
+    ]
+
+
+def edge_insertion_stream(
+    num_edges: int,
+    num_vertices: int,
+    *,
+    num_batches: int = 1,
+    hub_fraction: float = 0.05,
+    hub_bias: float = 0.5,
+    weighted: bool = False,
+    seed: int = 0,
+) -> list:
+    """Streaming edge-insertion batches for delta ingest (repro_torch.serve.delta):
+    returns ``num_batches`` tuples ``(src, dst, weights-or-None)`` covering
+    ``num_edges`` total insertions. Destinations are biased so ``hub_bias``
+    of the edges land on a ``hub_fraction`` head of the vertex set —
+    sustained ingest concentrates on few (core, phase) buckets (the dirty-
+    row-block regime) and keeps growing heavy rows, eventually driving them
+    over the hub-split threshold. Deterministic in ``seed``."""
+    if num_edges < 0 or num_batches < 1 or num_vertices < 1:
+        raise ValueError((num_edges, num_batches, num_vertices))
+    rng = np.random.default_rng(
+        np.random.SeedSequence([seed, 13, num_edges, num_vertices])
+    )
+    head = max(1, int(num_vertices * hub_fraction))
+    hubs = rng.permutation(num_vertices)[:head]
+    src = rng.integers(0, num_vertices, num_edges).astype(np.int64)
+    dst = rng.integers(0, num_vertices, num_edges).astype(np.int64)
+    to_hub = rng.random(num_edges) < hub_bias
+    dst[to_hub] = hubs[rng.integers(0, head, int(to_hub.sum()))]
+    w = (rng.random(num_edges) + 0.1).astype(np.float32) if weighted else None
+    bounds = np.linspace(0, num_edges, num_batches + 1).astype(np.int64)
+    return [
+        (src[a:b], dst[a:b], w[a:b] if w is not None else None)
+        for a, b in zip(bounds[:-1], bounds[1:])
+    ]
+
+
+def admission_batches(roots: np.ndarray, lanes: int) -> list:
+    """Chunk a query stream into K-lane admission batches for the serving
+    loop; the final partial batch is padded by repeating its last root
+    (duplicate lanes are cheap — same packed word — and keep every batch at
+    one width)."""
+    if lanes < 1:
+        raise ValueError(f"lanes must be >= 1, got {lanes}")
+    roots = np.asarray(roots)
+    out = []
+    for i in range(0, len(roots), lanes):
+        chunk = roots[i : i + lanes]
+        served = len(chunk)
+        if served < lanes:
+            chunk = np.concatenate(
+                [chunk, np.repeat(chunk[-1:], lanes - served)]
+            )
+        out.append((chunk, served))
+    return out

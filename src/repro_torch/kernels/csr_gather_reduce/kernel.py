@@ -2,8 +2,8 @@
 
 Counterpart of ``repro.kernels.csr_gather_reduce.kernel.gather_reduce_cores_pallas``.
 ``gather_reduce_cores`` computes, for every core ``c`` and row block ``r``
-of one phase, the reduce (min or sum) of the mapped payloads of the block's
-edges into ``vb`` output rows that start at the reduce identity:
+of one phase, the reduce (min, sum or word OR) of the mapped payloads of the
+block's edges into ``vb`` output rows that start at the reduce identity:
 
   for each tile t that runs and slot e of word[c, r, t]:
       16-bit regime: src = w & 0xFFFF, dstb = (w >> 16) & 0x7FFF, valid = w < 0
@@ -15,14 +15,18 @@ A tile runs iff ``t < counts[c, r]`` (the static schedule) or, given the
 dynamic fetch map of the frontier-aware tile skip, iff ``fetch[c, r, t] ==
 t`` (``core.frontier_words.active_fetch_map``).
 
+A payload with a trailing lane axis (G, L) is a multi-query batch and gives
+an output (p, num_rows, L): L vector lanes reduced independently by min or
+sum (SSSP/PPR batches; the SSSP add puts a slot's one weight on every lane),
+or L packed reach words reduced by bitwise OR (``kind='or'``, multi-source
+BFS; identity 0). A slot is decoded once for all its lanes.
+
 On a CUDA tensor it launches the hand-written Hopper kernel in
 ``csrc/gather_reduce_cores.cu`` (built by ``nvcc`` at first use) or raises;
 on a CPU tensor it runs ``gather_reduce_cores_plain``, the plain PyTorch
 version of the same function, which is also what the kernel is checked
 against on the card. An int32 payload holds uint32 bit patterns
-(``core.u32``) and reduces with the unsigned min.
-
-A trailing lane axis and the 'or' reduce come with multi-query lanes.
+(``core.u32``) and reduces with the unsigned min or the word OR.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ __all__ = [
     "reset_launch_counts",
     "variant_name",
     "smem_limit_rows",
+    "lane_chunk",
 ]
 
 SOURCE = "gather_reduce_cores.cu"
@@ -55,16 +60,35 @@ def reset_launch_counts() -> None:
     LAUNCHES.clear()
 
 
-def variant_name(payload_dtype: torch.dtype, kind: str, edge_op: str) -> str:
-    """'min_u32' (BFS/WCC), 'min_f32_add' (SSSP), 'sum_f32' (PageRank), ..."""
+def variant_name(payload_dtype: torch.dtype, kind: str, edge_op: str,
+                 lanes: bool = False) -> str:
+    """'min_u32' (BFS/WCC), 'min_f32_add' (SSSP), 'sum_f32' (PageRank), and
+    with a lane axis 'or_u32_lanes' (BFS batches), 'min_f32_add_lanes' (SSSP
+    batches), 'sum_f32_lanes' (PPR batches), ..."""
     ty = "u32" if payload_dtype == torch.int32 else "f32"
-    return f"{kind}_{ty}" + ("_add" if edge_op == "add" else "")
+    return f"{kind}_{ty}" + ("_add" if edge_op == "add" else "") + ("_lanes" if lanes else "")
 
 
 def smem_limit_rows() -> int:
     """Largest vb whose accumulator (plus the sum staging and the active-tile
     list) fits one block."""
     return SMEM_LIMIT // 4 - 4 * _THREADS - _THREADS // 32
+
+
+def lane_chunk(vb: int, lanes: int, kind: str) -> int:
+    """Lanes one block of the lane kernel accumulates: all ``lanes`` when
+    the (vb, lanes) accumulator (for sum also the threads' staged (256,
+    lanes) values) fits one block's shared memory, else the even split of
+    the lanes into the fewest chunks that fit (each chunk is a block of its
+    own and re-reads its tiles' words). The byte count is
+    ``gather_reduce_cores_lanes_smem_bytes`` of the .cu file."""
+    fixed = 4 * (_THREADS + _THREADS // 32 + (_THREADS if kind == "sum" else 0))
+    per_lane = 4 * (vb + (_THREADS if kind == "sum" else 0))
+    most = (SMEM_LIMIT - fixed) // per_lane
+    if most < 1:
+        raise ValueError(f"vb={vb} rows of one lane do not fit one block's shared memory")
+    chunks = -(-lanes // most)
+    return -(-lanes // chunks)
 
 
 def _decode(word, word_hi, src_bits):
@@ -83,25 +107,48 @@ def tiles_that_run(counts, fetch, t_tiles: int) -> torch.Tensor:
 
 
 def _mapped(payload, src, weights, edge_op, identity):
-    """Gather the source payloads of the live slots and apply the map UDF."""
+    """Gather the source payloads (rows of L lanes, if any) of the live
+    slots and apply the map UDF; a slot's weight applies to all its lanes."""
     vals = payload[src.long()]
     if edge_op == "add":  # saturating min-plus; no weights = unit weights
-        step = weights if weights is not None else 1.0
+        step = 1.0
+        if weights is not None:
+            step = weights.view(-1, *([1] * (vals.dim() - 1)))
         vals = torch.where(vals >= identity, torch.full_like(vals, identity), vals + step)
     return vals
 
 
+def _at_rows(rows, vals):
+    """The scatter index of ``vals`` (n[, L]): its row, on every lane."""
+    return rows.long().view(-1, *([1] * (vals.dim() - 1))).expand_as(vals)
+
+
 def _min_into(vals, rows, size, identity):
-    """Min-reduce ``vals`` at ``rows`` into ``size`` slots holding the
+    """Min-reduce ``vals`` (n[, L]) at ``rows`` into ``size`` rows holding the
     identity; int32 values are uint32 bits (unsigned min in int64)."""
+    shape = (size,) + tuple(vals.shape[1:])
+    idx = _at_rows(rows, vals)
     if vals.dtype == torch.int32:
-        out = torch.full((size,), int(identity) & u32.U32_MAX, dtype=torch.int64,
+        out = torch.full(shape, int(identity) & u32.U32_MAX, dtype=torch.int64,
                          device=vals.device)
-        out.scatter_reduce_(0, rows.long(), u32.widen(vals), "amin")
+        out.scatter_reduce_(0, idx, u32.widen(vals), "amin")
         return u32.narrow(out)
-    out = torch.full((size,), identity, dtype=vals.dtype, device=vals.device)
-    out.scatter_reduce_(0, rows.long(), vals, "amin")
+    out = torch.full(shape, identity, dtype=vals.dtype, device=vals.device)
+    out.scatter_reduce_(0, idx, vals, "amin")
     return out
+
+
+def _or_into(vals, rows, size):
+    """Word-OR ``vals`` (int32 bits, (n[, L])) at ``rows`` into ``size`` rows
+    holding 0. torch has no OR reduce: each bit plane is a 0/1 max, as the
+    reference's oracle does it."""
+    idx = _at_rows(rows, vals)
+    wide = u32.widen(vals)
+    out = torch.zeros((size,) + tuple(vals.shape[1:]), dtype=torch.int64, device=vals.device)
+    for b in range(32):
+        plane = torch.zeros_like(out).scatter_reduce_(0, idx, (wide >> b) & 1, "amax")
+        out |= plane << b
+    return u32.narrow(out)
 
 
 def gather_reduce_cores_plain(
@@ -109,8 +156,10 @@ def gather_reduce_cores_plain(
     num_rows, vb, src_bits=16, kind="min", edge_op="none", identity=0.0,
 ):
     """Plain PyTorch version: decode every slot, mask invalid slots and the
-    tiles that do not run, gather, map, and scatter-reduce into (p, R*vb)."""
+    tiles that do not run, gather, map, and scatter-reduce into (p, R*vb[,
+    L])."""
     p, r_blocks, t_tiles, eb = word.shape
+    lane_shape = tuple(payload.shape[1:])
     src, dstb, valid = _decode(word, word_hi, src_bits)
     live = valid & tiles_that_run(counts, fetch, t_tiles).unsqueeze(-1)
     rows = (
@@ -121,19 +170,22 @@ def gather_reduce_cores_plain(
     vals = _mapped(payload, src[live], weights[live] if weights is not None else None,
                    edge_op, identity)
     if kind == "min":
-        return _min_into(vals, rows, p * num_rows, identity).view(p, num_rows)
+        return _min_into(vals, rows, p * num_rows, identity).view(p, num_rows, *lane_shape)
+    if kind == "or":
+        return _or_into(vals, rows, p * num_rows).view(p, num_rows, *lane_shape)
     # sum with the reference kernel's association: each tile's slots are
     # summed per row first, then the tile partials are added in tile order
-    # (on the CPU index_add_ runs in index order)
-    out = torch.full((p * num_rows,), identity, dtype=payload.dtype, device=word.device)
+    # (on the CPU index_add_ runs in index order); lanes sum independently
+    out = torch.full((p * num_rows,) + lane_shape, identity, dtype=payload.dtype,
+                     device=word.device)
     t_idx = torch.arange(t_tiles, device=word.device).view(1, 1, t_tiles, 1)
     t_of = t_idx.expand_as(word)[live]
     key = ((rows // vb) * t_tiles + t_of) * vb + rows % vb
     uniq, inv = torch.unique(key, return_inverse=True)
-    part = torch.zeros(uniq.shape[0], dtype=vals.dtype, device=word.device)
+    part = torch.zeros((uniq.shape[0],) + lane_shape, dtype=vals.dtype, device=word.device)
     part.index_add_(0, inv, vals)
     out.index_add_(0, (uniq // (t_tiles * vb)) * vb + uniq % vb, part)
-    return out.view(p, num_rows)
+    return out.view(p, num_rows, *lane_shape)
 
 
 def check_stream(payload, word, counts, word_hi, weights, fetch, src_bits, kind, edge_op):
@@ -150,12 +202,16 @@ def check_stream(payload, word, counts, word_hi, weights, fetch, src_bits, kind,
         raise ValueError(f"src_bits={src_bits} needs word_hi exactly in the 32-bit regime")
     if edge_op not in ("none", "add"):
         raise ValueError(f"edge_op must be 'none' or 'add', got {edge_op!r}")
-    if payload.dim() != 1:
-        raise ValueError("a lane axis on the payload is not ported yet")
+    if payload.dim() not in (1, 2) or (payload.dim() == 2 and payload.shape[1] == 0):
+        raise ValueError(f"payload must be (G,) or (G, lanes >= 1), got {tuple(payload.shape)}")
     if payload.dtype not in (torch.int32, torch.float32):
         raise ValueError(f"payload must be int32 (uint32 bits) or float32, got {payload.dtype}")
-    if payload.dtype == torch.int32 and (kind != "min" or edge_op != "none"):
-        raise ValueError("uint32 payloads support kind='min', edge_op='none' only")
+    if payload.dtype == torch.int32 and (kind not in ("min", "or") or edge_op != "none"):
+        raise ValueError("uint32 payloads support kind='min' or 'or', edge_op='none' only")
+    if kind == "or" and (payload.dtype != torch.int32 or payload.dim() != 2):
+        # the reference asserts a packed lane-word axis for 'or'
+        raise ValueError("kind='or' reduces packed uint32 reach words (G, W); "
+                         "float32 payloads take kind='min'")
     for name, t, dt in (("word", word, torch.int32), ("counts", counts, torch.int32),
                         ("word_hi", word_hi, torch.int32), ("weights", weights, torch.float32),
                         ("fetch", fetch, torch.int32)):
@@ -186,33 +242,44 @@ def pointers(*tensors):
     return [t.data_ptr() if t is not None else None for t in tensors]
 
 
+_KIND_CODES = {"min": 0, "sum": 1, "or": 2}  # kMin, kSum, kOr in the .cu file
+
+
 def _launch(payload, word, counts, word_hi, weights, fetch, num_rows, vb, kind, edge_op,
             identity):
     from repro_torch.kernels.build import load_library
 
     lib, _ = load_library(SOURCE)
-    fn = lib.gather_reduce_cores_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_uint32, ctypes.c_void_p]
     p, r_blocks, t_tiles, eb = word.shape
-    out = torch.empty((p, num_rows), dtype=payload.dtype, device=payload.device)
+    lanes = payload.shape[1] if payload.dim() == 2 else 0
+    out = torch.empty((p, num_rows) + tuple(payload.shape[1:]), dtype=payload.dtype,
+                      device=payload.device)
+    head = [*pointers(payload, word, word_hi, weights, counts, fetch, out),
+            p, r_blocks, t_tiles, eb, vb]
+    tail = [_KIND_CODES[kind], int(payload.dtype == torch.float32), int(edge_op == "add"),
+            identity_word(payload.dtype, identity)]
+    if lanes:
+        fn = lib.gather_reduce_cores_lanes_launch
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_uint32,
+                                                                      ctypes.c_void_p]
+        args = head + [lanes, lane_chunk(vb, lanes, kind)] + tail
+    else:
+        fn = lib.gather_reduce_cores_launch
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_uint32,
+                                                                     ctypes.c_void_p]
+        args = head + tail
+    fn.restype = ctypes.c_int
     with torch.cuda.device(payload.device):  # the launch goes to the current device
-        err = fn(
-            *pointers(payload, word, word_hi, weights, counts, fetch, out),
-            p, r_blocks, t_tiles, eb, vb,
-            0 if kind == "min" else 1, int(payload.dtype == torch.float32),
-            int(edge_op == "add"), identity_word(payload.dtype, identity),
-            torch.cuda.current_stream(payload.device).cuda_stream,
-        )
+        err = fn(*args, torch.cuda.current_stream(payload.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gather_reduce_cores launch failed: CUDA error {err}")
-    key = variant_name(payload.dtype, kind, edge_op)
+    key = variant_name(payload.dtype, kind, edge_op, lanes=bool(lanes))
     LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
     return out
 
 
 def gather_reduce_cores(
-    payload: torch.Tensor,  # (G,) phase-gathered block; int32 = uint32 bits
+    payload: torch.Tensor,  # (G[, L]) phase-gathered block; int32 = uint32 bits
     word: torch.Tensor,  # (p, R, T, Eb) int32 packed edge words
     counts: torch.Tensor,  # (p, R) int32 real edge tiles per (core, row block)
     word_hi: torch.Tensor | None = None,  # (p, R, T, Eb) int32, src_bits=32 only
@@ -226,14 +293,14 @@ def gather_reduce_cores(
     edge_op: str = "none",
     identity: float = 0.0,
 ) -> torch.Tensor:
-    """All-cores accumulator over the compressed stream -> (p, num_rows).
+    """All-cores accumulator over the compressed stream -> (p, num_rows[, L]).
 
     CUDA tensors launch the Hopper kernel (or raise); CPU tensors run the
     plain version. Mirrors the reference's signature: ``fetch`` replaces
     ``counts`` as the schedule when given."""
     check_stream(payload, word, counts, word_hi, weights, fetch, src_bits, kind, edge_op)
-    if kind not in ("min", "sum"):
-        raise ValueError(f"kind must be 'min' or 'sum' in this slice, got {kind!r}")
+    if kind not in _KIND_CODES:
+        raise ValueError(f"kind must be 'min', 'sum' or 'or', got {kind!r}")
     if word.shape[1] * vb != num_rows:
         raise ValueError(f"R * vb = {word.shape[1]} * {vb} != num_rows = {num_rows}")
     if vb > smem_limit_rows():

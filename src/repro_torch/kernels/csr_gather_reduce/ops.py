@@ -608,11 +608,11 @@ def split_map_from_row_orig(row_orig: np.ndarray, num_rows: int) -> np.ndarray:
 
 
 def combine_split_rows(
-    reduced: torch.Tensor,  # (..., P) level-1 kernel output, packed rows
+    reduced: torch.Tensor,  # (..., P[, L]) level-1 kernel output, packed rows
     split_map: torch.Tensor,  # (..., num_rows, S) int64 packed positions, -1 = pad
     *,
-    kind: str,  # 'min' | 'sum' — the problem's reduce UDF
-    identity: float,  # the SAME problem's identity (INF for min, 0 for sum)
+    kind: str,  # 'min' | 'sum' | 'or' — the problem's reduce UDF
+    identity: float,  # the SAME problem's identity (INF for min, 0 for sum/or)
 ) -> torch.Tensor:
     """Level-2 reduce: fold virtual-row partials into natural rows.
 
@@ -621,18 +621,36 @@ def combine_split_rows(
     problem sees exactly 0.0. Gather-based, so min problems stay
     bit-identical to the oracle: min over partial mins == total min. An
     int32 ``reduced`` holds uint32 bit patterns (``core.u32``) and is folded
-    with the unsigned min.
+    with the unsigned min or the word OR.
+
+    A lane-batched ``reduced`` (..., P, L) has one more axis than
+    ``split_map``: the fold is over the packed-row axis, and one gather of
+    the row index serves all L lanes.
     """
     *lead, v, s = split_map.shape
+    lanes = reduced.dim() == split_map.dim()
     idx = split_map.clamp(min=0).reshape(*lead, v * s)
-    vals = torch.gather(reduced, -1, idx).reshape(split_map.shape)
+    pad = split_map >= 0
+    if lanes:
+        k = reduced.shape[-1]
+        idx = idx.unsqueeze(-1).expand(*lead, v * s, k)
+        vals = torch.gather(reduced, -2, idx).reshape(*lead, v, s, k)
+        pad = pad.unsqueeze(-1)
+    else:
+        vals = torch.gather(reduced, -1, idx).reshape(split_map.shape)
+    fold = -2 if lanes else -1
     if reduced.dtype == torch.int32:
+        if kind == "or":
+            out = torch.zeros_like(vals.select(fold, 0))
+            for j in range(s):  # S_max is small: an unrolled word-OR fold
+                out = out | torch.where(pad.select(fold, j), vals.select(fold, j), 0)
+            return out
         if kind != "min":
-            raise ValueError(f"uint32 payloads reduce with 'min' only, got {kind!r}")
+            raise ValueError(f"uint32 payloads reduce with 'min' or 'or', got {kind!r}")
         ident = int(identity) & u32.U32_MAX
-        wide = torch.where(split_map >= 0, u32.widen(vals), ident)
-        return u32.narrow(wide.amin(dim=-1))
-    vals = torch.where(split_map >= 0, vals, identity)
+        wide = torch.where(pad, u32.widen(vals), ident)
+        return u32.narrow(wide.amin(dim=fold))
+    vals = torch.where(pad, vals, identity)
     if kind == "min":
-        return vals.amin(dim=-1)
-    return vals.sum(dim=-1)
+        return vals.amin(dim=fold)
+    return vals.sum(dim=fold)

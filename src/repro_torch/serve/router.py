@@ -1,0 +1,212 @@
+"""Mixed-op routing over ONE resident ``PartitionedGraph``.
+
+Counterpart of ``repro.serve.router``. The traffic classes share the same
+resident partition:
+
+  neighbors-of   host-side decode of the flat bucket layout
+                 (``PartitionedGraph.in_neighbors``, no engine run)
+  distance-to    BFS / SSSP lane batches: K same-kind queries answered by one
+                 engine run of ``bfs_multi`` / ``sssp_multi`` on the device,
+                 then ``dist[target, lane]`` is read per query. PPR rides the
+                 same path (``ppr_multi``), answering the top-k vertices per
+                 seed.
+  recommend-for  DIN retrieval scoring. Not ported yet: it needs the DIN
+                 model and the crossbar embedding lookup. A service built
+                 without a scorer (the only kind the port builds) refuses
+                 recommend queries with the reference's own message.
+
+``GraphService`` owns the resident state: the COO view, the partition, the
+engine options and the delta buffer. Ingest + flush swap in a NEW partition
+(``apply_edge_deltas``), bump the generation (the next batch per kind is
+marked cold: it uploads the new partition's edge tensors to the device), and
+free the retired partition's device copies (``engine.evict_from_cache``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+
+from repro_torch.core.engine import EngineOptions, evict_from_cache, run
+from repro_torch.core.graph import COOGraph
+from repro_torch.core.partition import PartitionConfig, PartitionedGraph, partition_2d
+from repro_torch.core.problems import INF_U32, bfs_multi, ppr_multi, sssp_multi
+from repro_torch.device import resolve_device
+from repro_torch.serve.delta import DeltaBuffer
+from repro_torch.serve.metrics import FlushRecord
+
+__all__ = ["Query", "BatchResult", "GraphService", "TRAVERSAL_KINDS", "KINDS"]
+
+TRAVERSAL_KINDS = ("bfs", "sssp", "ppr")
+KINDS = ("neighbors",) + TRAVERSAL_KINDS + ("recommend",)
+
+
+@dataclasses.dataclass(frozen=True)
+class Query:
+    """One request. ``target`` is the distance-to endpoint (bfs/sssp only);
+    ``qid`` is the caller's correlation id."""
+
+    kind: str
+    root: int
+    target: int = 0
+    qid: int = -1
+
+
+@dataclasses.dataclass
+class BatchResult:
+    """One executed same-kind batch: ``answers[i]`` answers ``queries[i]``."""
+
+    kind: str
+    answers: list
+    served: int
+    lanes: int
+    wall_s: float
+    iterations: int
+    cold: bool
+
+
+class GraphService:
+    """The always-on resident graph service: answers neighbors-of and the
+    traversal kinds from one ``PartitionedGraph`` on ``device`` (the card
+    unless the caller asks for ``"cpu"``), accepts streamed edge insertions,
+    and re-tiles dirty buckets on flush."""
+
+    def __init__(
+        self,
+        g: COOGraph,
+        partition,  # PartitionConfig (partitions here) or a built PartitionedGraph
+        *,
+        lanes: int = 16,
+        opts: Optional[EngineOptions] = None,
+        scorer=None,
+        ppr_tol: float = 1e-4,
+        ppr_topk: int = 8,
+        auto_flush_edges: Optional[int] = None,
+        device="cuda",
+    ):
+        if scorer is not None:
+            raise NotImplementedError(
+                "recommend-for is not ported yet (it needs the DIN model and the "
+                "crossbar embedding lookup); build the service with scorer=None"
+            )
+        if isinstance(partition, PartitionConfig):
+            pg = partition_2d(g, partition)
+        elif isinstance(partition, PartitionedGraph):
+            pg = partition
+        else:
+            raise TypeError(
+                f"partition must be PartitionConfig or PartitionedGraph, got {type(partition)}"
+            )
+        self.device = resolve_device(device)
+        self.g = g
+        self.pg = pg
+        self.lanes = int(lanes)
+        self.opts = opts if opts is not None else EngineOptions(lanes=lanes)
+        if self.opts.lanes != self.lanes:
+            raise ValueError(f"opts.lanes={self.opts.lanes} must match service lanes={lanes}")
+        self.ppr_tol = ppr_tol
+        self.ppr_topk = ppr_topk
+        self.generation = 0
+        self.delta = DeltaBuffer(pg, auto_flush_edges=auto_flush_edges)
+        self._makers = {
+            "bfs": bfs_multi,
+            "sssp": sssp_multi,
+            "ppr": lambda roots: ppr_multi(roots, tol=ppr_tol),
+        }
+        self._warm: set = set()  # (kind, generation) pairs whose first batch ran
+
+    # -- delta ingest ------------------------------------------------------
+    def ingest(self, src, dst, weights=None) -> int:
+        """Stage streamed edge insertions; visible to queries after flush()."""
+        return self.delta.stage(src, dst, weights)
+
+    def flush(self) -> FlushRecord:
+        """Re-tile the dirty buckets, swap in the new partition, sync the COO
+        view, and free the retired partition's device copies."""
+        src, dst, w = self.delta.pending()
+        t0 = time.perf_counter()
+        new_pg, report = self.delta.flush(self.pg)
+        wall = time.perf_counter() - t0
+        if report.edges_added:
+            old_pg = self.pg
+            self.pg = new_pg
+            self.g = COOGraph(
+                src=np.concatenate([self.g.src, src.astype(self.g.src.dtype)]),
+                dst=np.concatenate([self.g.dst, dst.astype(self.g.dst.dtype)]),
+                num_vertices=self.g.num_vertices,
+                weights=(
+                    np.concatenate([self.g.weights, w]) if self.g.weights is not None else None
+                ),
+            )
+            self.generation += 1  # next batch per kind uploads the new partition (cold)
+            evict_from_cache(old_pg)
+        return FlushRecord(
+            edges_added=report.edges_added,
+            wall_s=wall,
+            buckets_retiled=report.buckets_retiled,
+            total_buckets=report.total_buckets,
+            repacked_fraction=report.repacked_fraction,
+        )
+
+    # -- query answering ---------------------------------------------------
+    def answer_batch(self, queries: list) -> BatchResult:
+        """Answer one SAME-KIND batch of up to ``lanes`` queries (the request
+        loop's admission coalescing guarantees both)."""
+        if not queries:
+            raise ValueError("empty batch")
+        kind = queries[0].kind
+        if any(q.kind != kind for q in queries):
+            raise ValueError("mixed-kind batch; admission must coalesce by kind")
+        if kind not in KINDS:
+            raise ValueError(f"unknown kind {kind!r}; supported: {KINDS}")
+        if kind in TRAVERSAL_KINDS and len(queries) > self.lanes:
+            raise ValueError(f"batch of {len(queries)} exceeds K={self.lanes}")
+        if kind == "recommend":
+            raise ValueError("service built without a RecommendScorer")
+        t0 = time.perf_counter()
+        if kind == "neighbors":
+            answers = [self.pg.in_neighbors(q.root) for q in queries]
+            iters, lanes_used, cold = 0, 1, False
+        else:
+            answers, iters, cold = self._answer_traversal(kind, queries)
+            lanes_used = self.lanes
+        wall = time.perf_counter() - t0
+        return BatchResult(
+            kind=kind, answers=answers, served=len(queries),
+            lanes=lanes_used, wall_s=wall, iterations=iters, cold=cold,
+        )
+
+    def _answer_traversal(self, kind: str, queries: list):
+        roots = np.asarray([q.root for q in queries], dtype=np.int64)
+        served = roots.shape[0]
+        if served < self.lanes:  # pad the partial batch (admission_batches rule)
+            roots = np.concatenate([roots, np.repeat(roots[-1:], self.lanes - served)])
+        key = (kind, self.generation)
+        cold = key not in self._warm
+        self._warm.add(key)
+        res = run(self._makers[kind](roots), self.g, self.pg, self.opts, device=self.device)
+        if kind == "bfs":
+            dist = res.labels["dist"]  # (V, K) uint32, INF_U32 = unreachable
+            answers = [
+                {"distance": int(dist[q.target, j]),
+                 "reachable": bool(dist[q.target, j] != INF_U32)}
+                for j, q in enumerate(queries)
+            ]
+        elif kind == "sssp":
+            # (V, K) float32; an unreachable vertex holds FLT_MAX, which
+            # np.isfinite accepts: "reachable" is the reference's own flag
+            lab = res.labels["label"]
+            answers = [
+                {"distance": float(lab[q.target, j]),
+                 "reachable": bool(np.isfinite(lab[q.target, j]))}
+                for j, q in enumerate(queries)
+            ]
+        else:  # ppr: top-k vertices per seed lane
+            lab = res.labels["label"]  # (V, K) float32 rank columns
+            answers = []
+            for j in range(served):
+                top = np.argsort(-lab[:, j], kind="stable")[: self.ppr_topk]
+                answers.append({"vertices": top.astype(np.int64), "scores": lab[top, j].copy()})
+        return answers, res.iterations, cold

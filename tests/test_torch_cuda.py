@@ -2,8 +2,10 @@
 
 The gather kernel on its static and fetch-map arms, the scatter kernel on
 both push regimes and both arms (min bit-equal, sum within ``SUM_TOL``),
-and the engine with its default options (dynamic tile skip, 'auto'
-direction) and with forced push, on the card against the CPU run.
+each lane arm of both (the word OR of packed reach words, vector min with
+the SSSP add, vector sum, and the lane-chunk path at vb=1024), and the
+engine with its default options (dynamic tile skip, 'auto' direction) and
+with forced push, laneless and K-lane, on the card against the CPU run.
 
 Every test here needs an NVIDIA GPU (the kernel has no CPU mode) and skips
 without one. The file imports neither jax nor ``repro``, so it runs on a
@@ -226,3 +228,143 @@ def test_dynamic_engine_on_card_matches_cpu(pname, direction, cuda_device):
     tc = run_frontier_trace(problem, g, pg, opts, device="cpu")
     assert tg["direction"] == tc["direction"] and "push" in tg["direction"]
     assert tg["dynamic_skipped_tile_fraction"] == tc["dynamic_skipped_tile_fraction"]
+
+
+# -- multi-query lane arms -----------------------------------------------------
+
+# lane variant -> (kind, edge_op, identity, lanes, payload kind)
+LANE_VARIANTS = {
+    "or_w1": ("or", "none", 0.0, 1, "words"),  # K = 16: one packed reach word
+    "or_w2": ("or", "none", 0.0, 2, "words"),  # K = 40: a full and a partial word
+    "min_f32_add_l16": ("min", "add", INF_F32, 16, "dist"),
+    "sum_f32_l16": ("sum", "none", 0.0, 16, "rank"),
+    "min_f32_add_l64": ("min", "add", INF_F32, 64, "dist"),  # lane chunks at vb=1024
+    "sum_f32_l48": ("sum", "none", 0.0, 48, "rank"),  # lane chunks at vb=1024
+}
+
+LANE_GRAPHS = {
+    "rmat10_16bit": GRAPHS["rmat10_16bit"],
+    "rmat10_32bit": GRAPHS["rmat10_32bit"],
+    "hub_split": GRAPHS["hub_split"],
+    # vb = 1024, the smoke partition's row block: 64 lanes need two chunks
+    "rmat12_vb1024": (lambda: _with_weights(G.symmetrize(G.rmat(12, 8, seed=6)), 6),
+                      dict(p=2, l=2, lane=8, tile_vb=1024, build_push=False)),
+}
+
+
+def _lane_payload(pkind, n, lanes, rng):
+    if pkind == "words":
+        k = 16 if lanes == 1 else 40
+        bits = rng.random((n, 32 * lanes)) < 0.15
+        bits[:, k:] = False
+        w = (bits.reshape(n, lanes, 32).astype(np.uint64) << np.arange(32, dtype=np.uint64))
+        return u32.to_bits(w.sum(axis=-1).astype(np.uint32))
+    if pkind == "dist":
+        v = (rng.random((n, lanes)) * 50).astype(np.float32)
+        v[rng.random((n, lanes)) < 0.2] = INF_F32
+        return torch.from_numpy(v)
+    return torch.from_numpy((rng.random((n, lanes)) / n).astype(np.float32))
+
+
+def _on(dev, args):
+    return [a.to(dev) if a is not None else None for a in args]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["static", "fetch"])
+@pytest.mark.parametrize("variant", list(LANE_VARIANTS))
+@pytest.mark.parametrize("graph", list(LANE_GRAPHS))
+def test_cuda_lane_gather_matches_plain(graph, variant, arm, cuda_device):
+    """Each lane arm of the gather kernel against its plain version: min and
+    OR bit-equal, sum within ``SUM_TOL`` and the same bits on a second
+    launch (lane-ordered, warp-ordered partials)."""
+    make, cfg = LANE_GRAPHS[graph]
+    pg = partition_2d(make(), PartitionConfig(**cfg))
+    kind, edge_op, identity, lanes, pkind = LANE_VARIANTS[variant]
+    rng = np.random.default_rng(16)
+    kw = dict(num_rows=pg.packed_rows_per_core, vb=pg.tile_vb, src_bits=pg.src_bits,
+              kind=kind, edge_op=edge_op, identity=identity)
+    payload_dtype = torch.int32 if pkind == "words" else torch.float32
+    key = K.variant_name(payload_dtype, kind, edge_op, lanes=True)
+    for m in range(pg.l):
+        hi = pg.tile_word_hi[:, m] if pg.tile_word_hi is not None else None
+        w = pg.tile_weights[:, m] if edge_op == "add" and pg.tile_weights is not None else None
+        counts = torch.from_numpy(pg.tile_counts[:, m].copy())
+        args = [_lane_payload(pkind, pg.gathered_size, lanes, rng),
+                torch.from_numpy(pg.tile_word[:, m].copy()), counts,
+                None if hi is None else torch.from_numpy(hi.copy()),
+                None if w is None else torch.from_numpy(w.copy()),
+                _fetch(counts, pg.tile_word.shape[3], rng) if arm == "fetch" else None]
+        want = K.gather_reduce_cores(*args, **kw)
+        before = K.LAUNCHES.get(key, 0)
+        dev_args = _on(cuda_device, args)
+        got = K.gather_reduce_cores(*dev_args, **kw)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES[key] == before + 1
+        got = got.cpu()
+        assert got.dtype == want.dtype and got.shape == want.shape
+        if kind == "sum":
+            torch.testing.assert_close(got, want, **SUM_TOL)
+            again = K.gather_reduce_cores(*dev_args, **kw).cpu()
+            assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+        else:
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["static", "fetch"])
+@pytest.mark.parametrize("graph", list(PUSH_GRAPHS))
+@pytest.mark.parametrize("variant", ["or_w1", "or_w2", "min_f32_add_l16"])
+def test_cuda_lane_scatter_matches_plain(variant, graph, arm, cuda_device):
+    make, cfg = PUSH_GRAPHS[graph]
+    pg = partition_2d(make(), PartitionConfig(**cfg))
+    kind, edge_op, identity, lanes, pkind = LANE_VARIANTS[variant]
+    rng = np.random.default_rng(17)
+    kw = dict(num_rows=pg.vertices_per_core, src_bits=pg.push_src_bits, kind=kind,
+              edge_op=edge_op, identity=identity)
+    payload_dtype = torch.int32 if pkind == "words" else torch.float32
+    key = K.variant_name(payload_dtype, kind, edge_op, lanes=True)
+    for m in range(pg.l):
+        hi = pg.push_word_hi[:, m] if pg.push_word_hi is not None else None
+        w = pg.push_weights[:, m] if edge_op == "add" else None
+        counts = torch.from_numpy(pg.push_counts[:, m].copy())
+        args = [_lane_payload(pkind, pg.gathered_size, lanes, rng),
+                torch.from_numpy(pg.push_word[:, m].copy()), counts,
+                None if hi is None else torch.from_numpy(hi.copy()),
+                None if w is None else torch.from_numpy(w.copy()),
+                _fetch(counts, pg.push_word.shape[3], rng) if arm == "fetch" else None]
+        want = S.scatter_reduce_cores(*args, **kw)
+        before = S.LAUNCHES.get(key, 0)
+        got = S.scatter_reduce_cores(*_on(cuda_device, args), **kw).cpu()
+        assert S.LAUNCHES[key] == before + 1
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pname,direction", [("bfs_multi", "auto"), ("bfs_multi", "push"),
+                                             ("sssp_multi", "auto"), ("sssp_multi", "push"),
+                                             ("ppr_multi", "auto")])
+def test_lane_engine_on_card_matches_cpu(pname, direction, cuda_device):
+    """K-lane runs on the card against the CPU run: BFS/SSSP labels bit-equal,
+    PPR within ``SUM_TOL`` and the same bits on a second card run (sum
+    problems stay pull, so PPR has no forced-push case)."""
+    g = _shuffled_path() if pname != "ppr_multi" else _hub_graph(19, weighted=False)
+    pg = partition_2d(g, PartitionConfig(p=2, l=2, lane=8, tile_vb=32, tile_eb=32))
+    roots = np.random.default_rng(20).integers(0, g.num_vertices, 20)
+    problem = getattr(P, pname)(roots)
+    opts = EngineOptions(direction=direction, lanes=20)
+    K.reset_launch_counts()
+    S.reset_launch_counts()
+    got = run(problem, g, pg, opts, device=cuda_device)
+    assert sum(K.LAUNCHES.values()) + sum(S.LAUNCHES.values()) == got.iterations * pg.l
+    want = run(problem, g, pg, opts, device="cpu")
+    assert got.iterations == want.iterations and got.converged
+    for k, b in want.labels.items():
+        a = got.labels[k]
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if pname == "ppr_multi" and k == "label":
+            np.testing.assert_allclose(a, b, **SUM_TOL)
+            again = run(problem, g, pg, opts, device=cuda_device).labels[k]
+            assert a.tobytes() == again.tobytes()
+        else:
+            np.testing.assert_array_equal(a, b)

@@ -122,6 +122,16 @@ def test_active_fetch_map_matches_reference():
 
 
 def test_lane_union_is_not_ported_yet():
+    """The lane union is ported now (the name is kept): a vertex is in the
+    frontier iff any of its lanes changed, as in the reference."""
     lab = torch.zeros((1, 32, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        TF.frontier_words_from_labels(lab, lab, 1, 32, lanes=True)
+    assert not TF.frontier_words_from_labels(lab, lab, 1, 32, lanes=True).any()
+    rng = np.random.default_rng(7)
+    old = rng.integers(0, 3, (2, 2 * 40, 3)).astype(np.float32)
+    new = old.copy()
+    new[rng.random(old.shape) < 0.04] += 1.0
+    want = np.asarray(RF.frontier_words_from_labels(jnp.asarray(old), jnp.asarray(new), 2, 40,
+                                                    lanes=True))
+    got = TF.frontier_words_from_labels(torch.from_numpy(old), torch.from_numpy(new), 2, 40,
+                                        lanes=True)
+    np.testing.assert_array_equal(u32.from_bits(got), want)
