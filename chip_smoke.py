@@ -68,8 +68,9 @@ This slice's paths (multi-query lanes and graph serving, K = 16):
              they must equal sum(iterations) * l with every lane variant
              run. Then (not counted) columns 0 and 1 against laneless
              bfs/sssp runs, BFS/SSSP bit-equal to the oracle backend's
-             K-lane runs, PPR within 2e-5 of the oracle at 3 fixed
-             iterations, PPR bit-stable, and the schedule of each min/or run
+             K-lane runs, PPR within rtol=1e-5, atol=1e-9 of the oracle over
+             the counted run's iteration count (no lane frozen), PPR
+             bit-stable, and the schedule of each min/or run
   serve      a GraphService over the built partition at K = 16: 128 queries of
              mixed_query_workload(seed=0) with mix bfs 0.35, sssp 0.2, ppr
              0.2, neighbors 0.25 and 512 weighted insertions from
@@ -140,8 +141,6 @@ LANE_ENTRIES = {
 }
 LANE_VARIANTS = {f"{k}_reduce_cores": tuple(v for v, _ in e) for k, e in LANE_ENTRIES.items()}
 PPR_RUN_TOL = 1e-4  # the serving router's PPR tolerance
-PPR_TOL = 2e-5  # sum problems: K-lane kernel vs the oracle backend
-PPR_FIXED_ITERS = 3
 SERVE_QUERIES = 128
 SERVE_INSERTS = 512
 
@@ -751,10 +750,10 @@ def main() -> int:
                 for a in args_list:
                     fn(payload, *a, **kw)
 
-            row = dict(lanes=lanes, lane_chunk=K.lane_chunk(pg.tile_vb, lanes, kind),
+            chunk = None if rehearsal else K.lane_chunk(pg.tile_vb, lanes, kind)
+            row = dict(lanes=lanes, lane_chunk=chunk, chunks=chunk and -(-lanes // chunk),
                        real_slots_per_phase=real_slots, laneless_variant=laneless,
                        laneless_ms=timing[("gather", laneless)]["ms"])
-            row["chunks"] = -(-lanes // row["lane_chunk"])
             row["ms"] = device_ms(lambda: launch_all(K.gather_reduce_cores, phase_args, gkw),
                                   reps, pg.l, name="gather_reduce_cores")
             row["plain_ms"] = device_ms(lambda: launch_all(K.gather_reduce_cores_plain, phase_args,
@@ -886,15 +885,23 @@ def main() -> int:
                 check(np.array_equal(got.labels[key], ref.labels[key]),
                       f"{name}: {key} differs from the oracle backend")
             oracle[name] = dict(iterations=ref.iterations, oracle_seconds=sec)
-        # PPR at a fixed iteration count: the oracle's float64 K-lane index_add
-        # is too slow on this graph to run to convergence inside the time limit
-        fixed = EngineOptions(max_iters=PPR_FIXED_ITERS)
+        # PPR for as many iterations as the counted run took, with no lane
+        # frozen (tol=0), so that no convergence threshold can split the two
+        # backends; held to the PageRank check's relative tolerance
+        n_ppr = lane_results["ppr_multi"].iterations
+        fixed = EngineOptions(max_iters=n_ppr)
         pk = run(ppr_multi(roots, tol=0.0), g, pg, fixed, device=dev).labels["label"]
+        t = time.perf_counter()
         po = run(ppr_multi(roots, tol=0.0), g, pg, dataclasses.replace(fixed, backend="oracle"),
                  device=dev).labels["label"]
+        sec = time.perf_counter() - t
         ppr_err = float(np.max(np.abs(pk - po)))
-        check(ppr_err <= PPR_TOL, f"ppr_multi: kernel vs oracle max |diff| {ppr_err} > {PPR_TOL}")
-        oracle["ppr_multi"] = dict(iterations=PPR_FIXED_ITERS, max_abs_diff=ppr_err)
+        ppr_rel = float(np.max(np.abs(pk - po) / np.maximum(np.abs(po), np.finfo(np.float32).tiny)))
+        check(bool(np.allclose(pk, po, **SUM_TOL)),
+              f"ppr_multi: kernel vs oracle max |diff| {ppr_err}, max relative {ppr_rel}")
+        oracle["ppr_multi"] = dict(iterations=n_ppr, oracle_seconds=sec, max_abs_diff=ppr_err,
+                                   max_rel_diff=ppr_rel, max_abs_label=float(np.max(np.abs(po))),
+                                   tolerance=SUM_TOL)
         schedule = {}
         for name, problem in lane_runs[:2]:
             tr = run_frontier_trace(problem, g, pg, EngineOptions(lanes=LANE_K), device=dev)

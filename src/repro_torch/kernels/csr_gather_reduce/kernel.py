@@ -49,7 +49,7 @@ __all__ = [
 
 SOURCE = "gather_reduce_cores.cu"
 SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block can use
-_THREADS = 256  # must match kThreads in the .cu file
+_STAGING_WORDS = 1032  # the one-lane kernel's shared words beside its rows
 
 # kernel launches per variant (see ``variant_name``); incremented only where
 # the CUDA kernel is launched
@@ -70,25 +70,29 @@ def variant_name(payload_dtype: torch.dtype, kind: str, edge_op: str,
 
 
 def smem_limit_rows() -> int:
-    """Largest vb whose accumulator (plus the sum staging and the active-tile
-    list) fits one block."""
-    return SMEM_LIMIT // 4 - 4 * _THREADS - _THREADS // 32
+    """Largest vb the wrapper admits on every device, so that a partition
+    runs everywhere (on the CPU too, where no kernel is built): the
+    one-lane kernel's vb-row accumulator and its ``_STAGING_WORDS`` of
+    staging (``one_lane_smem_bytes`` in the .cu file) fit one block. The
+    launcher itself refuses a vb that does not fit."""
+    return SMEM_LIMIT // 4 - _STAGING_WORDS
 
 
 def lane_chunk(vb: int, lanes: int, kind: str) -> int:
-    """Lanes one block of the lane kernel accumulates: all ``lanes`` when
-    the (vb, lanes) accumulator (for sum also the threads' staged (256,
-    lanes) values) fits one block's shared memory, else the even split of
-    the lanes into the fewest chunks that fit (each chunk is a block of its
-    own and re-reads its tiles' words). The byte count is
-    ``gather_reduce_cores_lanes_smem_bytes`` of the .cu file."""
-    fixed = 4 * (_THREADS + _THREADS // 32 + (_THREADS if kind == "sum" else 0))
-    per_lane = 4 * (vb + (_THREADS if kind == "sum" else 0))
-    most = (SMEM_LIMIT - fixed) // per_lane
-    if most < 1:
+    """Lanes one block of the kernel accumulates on the current CUDA device,
+    as its launcher picks them from the kernel's shared-memory layout: all
+    ``lanes`` when their (vb, lanes) accumulator fits one block, else the
+    even split into the fewest chunks that fit (each chunk re-reads its
+    tiles' words). Needs the built kernel, so a CUDA device."""
+    from repro_torch.kernels.build import load_library
+
+    fn = load_library(SOURCE)[0].gather_reduce_cores_lane_chunk
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    chunk = fn(vb, lanes, _KIND_CODES[kind])
+    if chunk < 1:
         raise ValueError(f"vb={vb} rows of one lane do not fit one block's shared memory")
-    chunks = -(-lanes // most)
-    return -(-lanes // chunks)
+    return chunk
 
 
 def _decode(word, word_hi, src_bits):
@@ -251,29 +255,21 @@ def _launch(payload, word, counts, word_hi, weights, fetch, num_rows, vb, kind, 
 
     lib, _ = load_library(SOURCE)
     p, r_blocks, t_tiles, eb = word.shape
-    lanes = payload.shape[1] if payload.dim() == 2 else 0
+    lanes = payload.shape[1] if payload.dim() == 2 else 1  # (G,) is (G, 1) in memory
     out = torch.empty((p, num_rows) + tuple(payload.shape[1:]), dtype=payload.dtype,
                       device=payload.device)
-    head = [*pointers(payload, word, word_hi, weights, counts, fetch, out),
-            p, r_blocks, t_tiles, eb, vb]
-    tail = [_KIND_CODES[kind], int(payload.dtype == torch.float32), int(edge_op == "add"),
+    fn = lib.gather_reduce_cores_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_uint32, ctypes.c_void_p]
+    args = [*pointers(payload, word, word_hi, weights, counts, fetch, out),
+            p, r_blocks, t_tiles, eb, vb, lanes, _KIND_CODES[kind],
+            int(payload.dtype == torch.float32), int(edge_op == "add"),
             identity_word(payload.dtype, identity)]
-    if lanes:
-        fn = lib.gather_reduce_cores_lanes_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_uint32,
-                                                                      ctypes.c_void_p]
-        args = head + [lanes, lane_chunk(vb, lanes, kind)] + tail
-    else:
-        fn = lib.gather_reduce_cores_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_uint32,
-                                                                     ctypes.c_void_p]
-        args = head + tail
     fn.restype = ctypes.c_int
     with torch.cuda.device(payload.device):  # the launch goes to the current device
         err = fn(*args, torch.cuda.current_stream(payload.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gather_reduce_cores launch failed: CUDA error {err}")
-    key = variant_name(payload.dtype, kind, edge_op, lanes=bool(lanes))
+    key = variant_name(payload.dtype, kind, edge_op, lanes=payload.dim() == 2)
     LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
     return out
 

@@ -77,29 +77,21 @@ def _launch(payload, word, counts, word_hi, weights, fetch, num_rows, kind, edge
 
     lib, _ = load_library(SOURCE)
     p, b_blocks, t_tiles, eb = word.shape
-    lanes = payload.shape[1] if payload.dim() == 2 else 0
+    lanes = payload.shape[1] if payload.dim() == 2 else 1  # (G,) is (G, 1) in memory
     out = torch.empty((p, num_rows) + tuple(payload.shape[1:]), dtype=payload.dtype,
                       device=payload.device)
-    head = [*pointers(payload, word, word_hi, weights, counts, fetch, out),
-            p, b_blocks, t_tiles, eb, num_rows]
-    tail = [int(payload.dtype == torch.float32), int(edge_op == "add"),
+    fn = lib.scatter_reduce_cores_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_uint32, ctypes.c_void_p]
+    args = [*pointers(payload, word, word_hi, weights, counts, fetch, out),
+            p, b_blocks, t_tiles, eb, num_rows, lanes, int(kind == "or"),
+            int(payload.dtype == torch.float32), int(edge_op == "add"),
             identity_word(payload.dtype, identity)]
-    if lanes:
-        fn = lib.scatter_reduce_cores_lanes_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_uint32,
-                                                                     ctypes.c_void_p]
-        args = head + [lanes, int(kind == "or")] + tail
-    else:
-        fn = lib.scatter_reduce_cores_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_uint32,
-                                                                     ctypes.c_void_p]
-        args = head + tail
     fn.restype = ctypes.c_int
     with torch.cuda.device(payload.device):  # the launch goes to the current device
         err = fn(*args, torch.cuda.current_stream(payload.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"scatter_reduce_cores launch failed: CUDA error {err}")
-    key = variant_name(payload.dtype, kind, edge_op, lanes=bool(lanes))
+    key = variant_name(payload.dtype, kind, edge_op, lanes=payload.dim() == 2)
     LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
     return out
 

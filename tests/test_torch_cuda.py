@@ -368,3 +368,59 @@ def test_lane_engine_on_card_matches_cpu(pname, direction, cuda_device):
             assert a.tobytes() == again.tobytes()
         else:
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_lane_chunk_splits_only_what_does_not_fit(cuda_device):
+    """The gather launcher's lane chunk on the card (the kernel's own
+    shared-memory layout against the device's limit per block)."""
+    assert K.lane_chunk(1024, 16, "min") == 16  # 64 KiB: one block
+    assert K.lane_chunk(1024, 16, "sum") == 16  # 80 KiB with the staged values
+    assert K.lane_chunk(1024, 56, "min") == 56  # the most that fits at vb = 1024
+    assert K.lane_chunk(1024, 44, "sum") == 44
+    # K = 64 at vb = 1024 needs 256 KiB: two chunks of 32 lanes
+    assert K.lane_chunk(1024, 64, "min") == 32
+    assert K.lane_chunk(1024, 48, "sum") == 24
+    for vb, lanes, kind in ((1024, 1024, "min"), (32, 1024, "sum"), (64, 3, "or")):
+        lc = K.lane_chunk(vb, lanes, kind)
+        chunks = -(-lanes // lc)
+        assert lc * chunks >= lanes and lc * (chunks - 1) < lanes
+    assert K.lane_chunk(32, 40, "or") == 40
+    assert K.lane_chunk(K.smem_limit_rows(), 1, "sum") == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        K.lane_chunk(1 << 16, 1, "min")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_cuda_laneless_is_the_one_lane_case(variant, cuda_device):
+    """A laneless (G,) payload and its (G, 1) view launch the same kernel on
+    the same memory: the same bits, counted under their own variants."""
+    make, cfg = GRAPHS["rmat10_16bit"]
+    pg = partition_2d(make(), PartitionConfig(**dict(cfg, build_push=True)))
+    kind, edge_op, identity = VARIANTS[variant]
+    rng = np.random.default_rng(21)
+    payload = _payload(variant, pg.gathered_size, rng).to(cuda_device)
+    streams = [(K, K.gather_reduce_cores, pg.tile_word, pg.tile_counts, pg.tile_weights,
+                dict(num_rows=pg.packed_rows_per_core, vb=pg.tile_vb, src_bits=pg.src_bits))]
+    if kind == "min":
+        streams.append((S, S.scatter_reduce_cores, pg.push_word, pg.push_counts,
+                        pg.push_weights,
+                        dict(num_rows=pg.vertices_per_core, src_bits=pg.push_src_bits)))
+    for mod, fn, word, counts, weights, kw in streams:
+        for m in range(pg.l):
+            w = weights[:, m] if edge_op == "add" else None
+            args = _on(cuda_device, [torch.from_numpy(word[:, m].copy()),
+                                     torch.from_numpy(counts[:, m].copy()), None,
+                                     None if w is None else torch.from_numpy(w.copy())])
+            kw2 = dict(kw, kind=kind, edge_op=edge_op, identity=identity)
+            before = dict(mod.LAUNCHES)
+            flat = fn(payload, *args, **kw2)
+            lane = fn(payload.view(-1, 1), *args, **kw2)
+            torch.cuda.synchronize()
+            flat_key = K.variant_name(payload.dtype, kind, edge_op)
+            lane_key = K.variant_name(payload.dtype, kind, edge_op, lanes=True)
+            assert mod.LAUNCHES[flat_key] == before.get(flat_key, 0) + 1
+            assert mod.LAUNCHES[lane_key] == before.get(lane_key, 0) + 1
+            assert lane.shape == flat.shape + (1,)
+            assert torch.equal(lane[..., 0].view(torch.int32), flat.view(torch.int32))

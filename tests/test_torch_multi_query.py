@@ -218,21 +218,35 @@ def test_lane_wrappers_reject_what_the_kernels_do_not_take():
         S.scatter_reduce_cores(torch.zeros((4, 2)), word, counts, num_rows=8, kind="sum")
 
 
-def test_lane_chunk_splits_only_what_does_not_fit():
-    assert K.lane_chunk(1024, 16, "min") == 16  # 64 KiB: one block
-    assert K.lane_chunk(1024, 16, "sum") == 16  # 80 KiB with the staged values
-    assert K.lane_chunk(1024, 56, "min") == 56  # the most that fits at vb = 1024
-    assert K.lane_chunk(1024, 44, "sum") == 44
-    # K = 64 at vb = 1024 needs 256 KiB: two chunks of 32 lanes
-    assert K.lane_chunk(1024, 64, "min") == 32
-    assert K.lane_chunk(1024, 48, "sum") == 24
-    for vb, lanes, kind in ((1024, 1024, "min"), (32, 1024, "sum"), (64, 3, "or")):
-        lc = K.lane_chunk(vb, lanes, kind)
-        chunks = -(-lanes // lc)
-        assert lc * chunks >= lanes and lc * (chunks - 1) < lanes
-        staged = 256 * lc + 256 if kind == "sum" else 0
-        assert 4 * (vb * lc + 256 + 8 + staged) <= K.SMEM_LIMIT
-    assert K.lane_chunk(32, 40, "or") == 40
+@pytest.mark.parametrize("variant", ["min_u32", "min_f32_add", "sum_f32"])
+def test_laneless_payload_is_the_one_lane_case(partitions, variant):
+    """Both kernels run a laneless (G,) payload as L = 1 (the same memory
+    layout): the wrappers give the same values for (G,) and (G, 1), on both
+    arms of both streams (sum on the pull stream only)."""
+    pg = partitions["rmat8_16bit"]
+    kind, edge_op, identity = {"min_u32": ("min", "none", float(0xFFFFFFFF)),
+                               "min_f32_add": ("min", "add", INF_F32),
+                               "sum_f32": ("sum", "none", 0.0)}[variant]
+    rng = np.random.default_rng(24)
+    payload = (_payload("words", pg.gathered_size, 1, rng)[:, 0] if variant == "min_u32"
+               else _payload("dist" if edge_op == "add" else "rank", pg.gathered_size, 1, rng)[:, 0])
+    one = _to_port(payload)
+    streams = [(K.gather_reduce_cores, pg.tile_word, pg.tile_counts, pg.tile_weights,
+                dict(num_rows=pg.packed_rows_per_core, vb=pg.tile_vb, src_bits=pg.src_bits))]
+    if kind == "min":
+        streams.append((S.scatter_reduce_cores, pg.push_word, pg.push_counts, pg.push_weights,
+                        dict(num_rows=pg.vertices_per_core, src_bits=pg.push_src_bits)))
+    for fn, word, counts, weights, kw in streams:
+        for m in range(pg.l):
+            w = _to_port(weights[:, m]) if edge_op == "add" else None
+            fetch = _to_port(_fetch(counts[:, m], word.shape[3], rng))
+            for f in (None, fetch):
+                args = (_to_port(word[:, m]), _to_port(counts[:, m]), None, w, f)
+                flat = fn(one, *args, kind=kind, edge_op=edge_op, identity=identity, **kw)
+                lane = fn(one.view(-1, 1), *args, kind=kind, edge_op=edge_op, identity=identity,
+                          **kw)
+                assert lane.shape == flat.shape + (1,)
+                assert torch.equal(lane[..., 0], flat)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""Time every arm of the port's two CUDA kernels on one partition.
+
+    python3 tools/kernel_arm_times.py [--src DIR] [--scale 20] [--out FILE]
+
+Builds the smoke's graph and partition (graph500 RMAT, edge factor 16, seed
+0, ``chip_smoke.CFG``), then, for each arm, launches the kernel once per
+phase over the l phase streams and reports the device time per launch
+(torch.profiler, the kernels' own events) and a SHA-256 of the outputs of
+every phase. The arms are the laneless variants (gather min_u32 and
+min_f32_add on a fetch map of every real tile, sum_f32 on the static
+counts; scatter min_u32 and min_f32_add) and the lane arms of the serving
+width (gather 'or' on one packed word, min_f32_add and sum_f32 at L=16,
+min_f32_add at L=64; scatter 'or' and min_f32_add at L=16).
+
+``--src`` imports ``repro_torch`` from another checkout's ``src`` (default:
+this one's), so that two versions of the kernels are timed and their outputs
+compared on the same card; run it once per checkout on one machine, in the
+order A, B, B, A. Payloads come from a fixed seed, so the hashes of two
+checkouts agree iff their kernels give the same bits. One JSON line goes to
+stdout (and to ``--out``). Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+CFG = dict(p=4, l=16, tile_vb=1024, tile_eb=128, build_push=True, push_block=65536)
+INF_F32 = 3.4028234663852886e38
+# arm -> (kernel, kind, edge_op, identity, lanes (0: laneless), payload kind, schedule)
+ARMS = {
+    "gather[min_u32]": ("gather", "min", "none", float(0xFFFFFFFF), 0, "labels", "fetch"),
+    "gather[min_f32_add]": ("gather", "min", "add", INF_F32, 0, "dist", "fetch"),
+    "gather[sum_f32]": ("gather", "sum", "none", 0.0, 0, "rank", "counts"),
+    "scatter[min_u32]": ("scatter", "min", "none", float(0xFFFFFFFF), 0, "labels", "fetch"),
+    "scatter[min_f32_add]": ("scatter", "min", "add", INF_F32, 0, "dist", "fetch"),
+    "gather[or_w1]": ("gather", "or", "none", 0.0, 1, "words", "fetch"),
+    "gather[min_f32_add_l16]": ("gather", "min", "add", INF_F32, 16, "dist", "fetch"),
+    "gather[sum_f32_l16]": ("gather", "sum", "none", 0.0, 16, "rank", "counts"),
+    "gather[min_f32_add_l64]": ("gather", "min", "add", INF_F32, 64, "dist", "fetch"),
+    "scatter[or_w1]": ("scatter", "or", "none", 0.0, 1, "words", "fetch"),
+    "scatter[min_f32_add_l16]": ("scatter", "min", "add", INF_F32, 16, "dist", "fetch"),
+}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", type=Path, default=ROOT / "src")
+    ap.add_argument("--scale", type=int, default=20)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--out", type=Path)
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("kernel_arm_times: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(args.src.resolve()))
+    import repro_torch.core.graph as G
+    from repro_torch.core import frontier_words as F
+    from repro_torch.core import u32
+    from repro_torch.core.partition import PartitionConfig, partition_2d
+    from repro_torch.kernels.csr_gather_reduce import kernel as K
+    from repro_torch.kernels.csr_gather_reduce import scatter as S
+
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    t0 = time.perf_counter()
+    g0 = G.symmetrize(G.rmat(args.scale, 16, a=0.57, b=0.19, c=0.19, seed=0))
+    w = np.random.default_rng(0).random(g0.num_edges).astype(np.float32)
+    g = G.COOGraph(src=g0.src, dst=g0.dst, num_vertices=g0.num_vertices, weights=w)
+    pg = partition_2d(g, PartitionConfig(**CFG))
+    setup_s = time.perf_counter() - t0
+
+    def on(a):
+        return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def stream(kern, m, add):
+        if kern == "gather":
+            word, counts, hi, wts = pg.tile_word, pg.tile_counts, pg.tile_word_hi, pg.tile_weights
+            kw = dict(num_rows=pg.packed_rows_per_core, vb=pg.tile_vb, src_bits=pg.src_bits)
+        else:
+            word, counts, hi, wts = pg.push_word, pg.push_counts, pg.push_word_hi, pg.push_weights
+            kw = dict(num_rows=pg.vertices_per_core, src_bits=pg.push_src_bits)
+        return ([on(word[:, m]), on(counts[:, m]), on(None if hi is None else hi[:, m]),
+                 on(wts[:, m] if add and wts is not None else None)], kw)
+
+    def payload(pkind, lanes, rng):
+        n, width = pg.gathered_size, max(lanes, 1)
+        if pkind == "words":  # K = 16 reach bits in one packed word
+            bits = rng.random((n, 32)) < 0.15
+            bits[:, 16:] = False
+            v = (bits.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(-1)
+            return u32.to_bits(v.astype(np.uint32).reshape(n, 1)).to(dev)
+        if pkind == "labels":
+            v = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+            v[rng.random(n) < 0.1] = u32.U32_MAX
+            return u32.to_bits(v).to(dev)
+        shape = (n, width) if lanes else (n,)
+        if pkind == "dist":
+            v = (rng.random(shape) * 100).astype(np.float32)
+            v[rng.random(shape) < 0.1] = np.finfo(np.float32).max
+        else:
+            v = (rng.random(shape) / n).astype(np.float32)
+        return torch.from_numpy(v).to(dev)
+
+    results = {}
+    for name, (kern, kind, edge_op, identity, lanes, pkind, sched) in ARMS.items():
+        rng = np.random.default_rng(7)
+        pay = payload(pkind, lanes, rng)
+        fn = K.gather_reduce_cores if kern == "gather" else S.scatter_reduce_cores
+        calls = []
+        for m in range(pg.l):
+            a, kw = stream(kern, m, edge_op == "add")
+            if sched == "fetch":  # every real tile active: the main path's arm
+                real = torch.arange(a[0].shape[2], device=dev).view(1, 1, -1) < a[1].unsqueeze(-1)
+                a.append(F.active_fetch_map(real))
+            calls.append((a, dict(kw, kind=kind, edge_op=edge_op, identity=identity)))
+
+        def launch_all(fn=fn, pay=pay, calls=calls):
+            return [fn(pay, *a, **kw) for a, kw in calls]
+
+        outs = launch_all()
+        torch.cuda.synchronize()
+        digest = hashlib.sha256()
+        for o in outs:
+            digest.update(o.cpu().numpy().tobytes())
+        del outs
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(args.reps):
+                launch_all()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        us = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+                 for e in evs if "reduce_cores" in e.key)
+        results[name] = dict(ms=us / 1e3 / (args.reps * pg.l), sha256=digest.hexdigest()[:16])
+        del calls
+    line = dict(src=str(args.src), card=smi, scale=args.scale, config=CFG, reps=args.reps,
+                setup_seconds=setup_s, arms=results,
+                note="ms: device time per launch (profiler, events named *reduce_cores*), "
+                     "averaged over the l phase streams; sha256: of every phase's output")
+    print(json.dumps(line), flush=True)
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(line) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
