@@ -71,31 +71,70 @@ This slice's paths (multi-query lanes and graph serving, K = 16):
              K-lane runs, PPR within rtol=1e-5, atol=1e-9 of the oracle over
              the counted run's iteration count (no lane frozen), PPR
              bit-stable, and the schedule of each min/or run
-  serve      a GraphService over the built partition at K = 16: 128 queries of
-             mixed_query_workload(seed=0) with mix bfs 0.35, sssp 0.2, ppr
-             0.2, neighbors 0.25 and 512 weighted insertions from
-             edge_insertion_stream in 2 batches, each flushed mid-stream;
-             QPS, latency percentiles, batches, flushes, and
-             torch.cuda.memory_allocated() around each flush (the retired
-             partition's device copies must be freed); launches counted as
-             above. serve_equivalence: a cold partition_2d of the final
-             graph, every answer replayed on both partitions bit for bit,
-             BFS/WCC/SSSP labels and iterations equal
+DIN scoring and recommend-for (the embedding-bag kernel), at the published
+DIN width (get("din").model: item_vocab 10,000,384, cate_vocab 10,000,
+embed 18, seq_len 100, attention MLP 80-40, output MLP 200-80), its
+parameters drawn on the card from a seeded generator:
+
+  bag_kernel the embedding-bag kernel against its plain version, sum and
+             mean, at four shapes: (a) DIN's profile bag at serve_p99 (B =
+             512, L = 32, the 10,000 x 18 cate table, ~30% padding from
+             recsys_batch), (b) the same at serve_bulk (B = 262,144), (c) the
+             10,000,384 x 18 item table with B = 4096, L = 100 (the
+             histories of recsys_batch; 8 id sets in rotation, ~160 MB of
+             row sectors, so each launch finds its rows out of L2), (d) B = 1 (the
+             retrieval profile) and an all-padding bag. Within rtol=1e-5,
+             atol=1e-7, the same bits on a second launch. Device time per
+             launch (profiler; the median and spread of readings that
+             alternate sum and mean) of the kernel, the plain version (L
+             takes added in id order) and the one
+             library call (F.embedding_bag with the validity mask as
+             per_sample_weights, / max(count, 1) for mean); the byte bound
+             at 3.35 TB/s: ids + output + the distinct 32-B sectors of the
+             rows the real ids touch
+  din        pointwise score on recsys_batch(batch=512) and retrieval
+             score_candidates on retrieval_batch(n_candidates=4096) in
+             chunks of 512, as the reference CLI runs them (the item rows
+             by a take): ms per call (host clock, each call synchronized:
+             median, min, max), QPS and candidates/s (the rows scored over
+             the wall of all timed calls); the
+             kernel's launches (counted) equal the calls; the scores within
+             rtol=1e-5, atol=1e-6 of a run whose bag is the plain version;
+             three profiled calls of each
+  serve      a GraphService over the built partition at K = 16 with a
+             RecommendScorer at the published DIN config (pool 64, top 8,
+             the crossbar lookup at one shard): 128 queries of
+             mixed_query_workload(seed=0) with the reference's default mix
+             (bfs 0.35, sssp 0.2, ppr 0.2, recommend 0.25) and 512 weighted
+             insertions from edge_insertion_stream in 2 batches, each flushed
+             mid-stream; QPS, latency percentiles, batches and their walls by
+             kind, flushes, and torch.cuda.memory_allocated() around each
+             flush (the retired partition's device copies must be freed);
+             launches counted as above, one embedding-bag launch per
+             recommend query. serve_equivalence: a cold partition_2d of the
+             final graph, every answer (recommend-for's vertices and scores
+             too, through the same scorer) replayed on both partitions bit
+             for bit, then neighbors-of for every distinct root (checked,
+             not timed: the default mix sends none), BFS/WCC/SSSP labels
+             and iterations equal
 
 Then a ``{"kernels": [...]}`` line (the laneless variants' launches from
-main_path, the lane variants' from lanes_engine) and, last, ``{"ok": true,
-"device": ...}``.
+main_path, the lane variants' from lanes_engine, the embedding bag's from
+din and serve, timed at shape (a)) and, last, ``{"ok": true, "device":
+...}``.
 Any failure raises and exits non-zero; it also exits non-zero, printing no
 result, when no CUDA device is present or the port's sources are missing.
 
 ``--scale N`` shrinks the graph for a quick run. ``--cpu-rehearsal`` runs
-every phase on the CPU through the plain versions at a small scale, to check
-the script's control flow without a card; it always exits 3.
+every phase on the CPU through the plain versions at a small scale (DIN at
+its smoke config), to check the script's control flow without a card; it
+always exits 3.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -143,6 +182,13 @@ LANE_VARIANTS = {f"{k}_reduce_cores": tuple(v for v, _ in e) for k, e in LANE_EN
 PPR_RUN_TOL = 1e-4  # the serving router's PPR tolerance
 SERVE_QUERIES = 128
 SERVE_INSERTS = 512
+EMBAG = dict(source="src/repro_torch/csrc/embedding_bag.cu",
+             replaces="src/repro/kernels/embedding_bag/kernel.py:75")
+BAG_TOL = dict(rtol=1e-5, atol=1e-7)  # both sum in id order (in fact the same bits)
+DIN_TOL = dict(rtol=1e-5, atol=1e-6)
+DIN_BATCH, DIN_CANDIDATES, DIN_CHUNK = 512, 4096, 512  # the reference CLI's sizes
+BAG_ROUNDS = 2  # bag timing: (sum, mean, mean, sum) this many times per shape
+COLD_SETS = 8  # id sets of shape (c) in rotation: ~160 MB of row sectors, past the 50 MB L2
 
 
 def emit(phase: str, t0: float, **kw) -> None:
@@ -176,6 +222,9 @@ def main() -> int:
     if scale < 12:
         ap.error("--scale must be at least 12")
     dev = torch.device("cpu" if rehearsal else "cuda")
+    # full float32 matmuls and convolutions (DIN's MLPs; the plain versions)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch.core.graph as G
@@ -189,10 +238,17 @@ def main() -> int:
     from repro_torch.core.problems import (
         bfs, bfs_multi, pagerank, ppr_multi, sssp, sssp_multi, wcc,
     )
-    from repro_torch.data.synthetic import edge_insertion_stream, mixed_query_workload
+    from repro_torch.configs.registry import get as get_arch
+    from repro_torch.data.synthetic import (
+        DEFAULT_QUERY_MIX, edge_insertion_stream, mixed_query_workload, recsys_batch,
+        retrieval_batch,
+    )
     from repro_torch.kernels.build import build_library, load_library
     from repro_torch.kernels.csr_gather_reduce import kernel as K
     from repro_torch.kernels.csr_gather_reduce import scatter as S
+    from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_reference
+    from repro_torch.kernels.embedding_bag import kernel as EB
+    from repro_torch.models.recsys import din
 
     def sync():
         if dev.type == "cuda":
@@ -215,14 +271,15 @@ def main() -> int:
     # -- build: one nvcc per source, all started together ----------------------
     t0 = time.perf_counter()
     if not rehearsal:
-        sources = (K.SOURCE, S.SOURCE)
+        sources = (K.SOURCE, S.SOURCE, EB.SOURCE)
         with ThreadPoolExecutor(len(sources)) as pool:
             logs = dict(zip(sources, pool.map(lambda s: build_library(s)[1], sources)))
         for s in sources:
             load_library(s)
         ptxas = {s: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
                  for s, log in logs.items()}
-        emit("build", t0, sources=[GATHER["source"], SCATTER["source"]], ptxas=ptxas)
+        emit("build", t0, sources=[GATHER["source"], SCATTER["source"], EMBAG["source"]],
+             ptxas=ptxas)
 
     # -- graph ----------------------------------------------------------------
     t0 = time.perf_counter()
@@ -917,17 +974,224 @@ def main() -> int:
 
     lane_launches = lane_engine_phase()
 
+    # -- DIN at the published width: parameters drawn on the card from the seed
+    din_cfg = get_arch("din").smoke() if rehearsal else get_arch("din").model
+    t0 = time.perf_counter()
+    din_params = din.init(din_cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    sync()
+    din_init_s = time.perf_counter() - t0
+
+    def bag_bound(table, ids):
+        """Least time for one launch: every id (4 B) read and the output
+        written once, plus the distinct 32-B sectors of the rows the real ids
+        touch (a row of the 10,000-row cate table read by many bags counts
+        once); one add per real id and column at the float32 rate."""
+        d = table.shape[1]
+        row_bytes = d * 4
+        real = ids[ids >= 0].long().unique()
+        first, last = real * row_bytes // 32, (real * row_bytes + row_bytes - 1) // 32
+        span = torch.arange((row_bytes + 31) // 32 + 1, device=ids.device)
+        sec = first[:, None] + span[None, :]
+        n_sec = int(sec[sec <= last[:, None]].unique().numel())
+        nbytes = ids.numel() * 4 + ids.shape[0] * row_bytes + n_sec * 32
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = int((ids >= 0).sum()) * d / F32_OPS_PER_S * 1e3
+        return dict(bound_ms=max(bytes_ms, ops_ms), bound_bytes=nbytes,
+                    distinct_rows=int(real.numel()), sectors=n_sec,
+                    bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+    def library_call(table, ids, mode):
+        """The one PyTorch call computing the same function (timed only)."""
+        import torch.nn.functional as Fn
+
+        idc, valid = ids.clamp(min=0), ids >= 0
+        w = valid.to(table.dtype)
+        cnt = valid.sum(dim=1, keepdim=True).clamp(min=1).to(table.dtype)
+        if mode == "sum":
+            return lambda: Fn.embedding_bag(idc, table, mode="sum", per_sample_weights=w)
+        return lambda: Fn.embedding_bag(idc, table, mode="sum", per_sample_weights=w) / cnt
+
+    def bag_kernel_phase():
+        """The embedding-bag kernel against its plain version at the four
+        shapes, with times and bounds. Returns ({shape[mode]: row}, {mode:
+        max error})."""
+        t0 = time.perf_counter()
+        reps = 3 if rehearsal else 50
+        c = din_cfg
+
+        def recsys(batch, step, key):
+            b = recsys_batch(SEED, step, batch, c.seq_len, c.item_vocab, c.cate_vocab,
+                             c.profile_bag_len)[key]
+            return torch.from_numpy(np.ascontiguousarray(b, dtype=np.int32)).to(dev)
+
+        one = retrieval_batch(SEED, c.seq_len, 1, c.item_vocab, c.cate_vocab, c.profile_bag_len)
+        shapes = {
+            "a_serve_p99": (din_params["cate_table"], [recsys(DIN_BATCH, 0, "profile_bag")]),
+            "b_serve_bulk": (din_params["cate_table"],
+                             [recsys(4096 if rehearsal else 262_144, 1, "profile_bag")]),
+            "c_cold_items": (din_params["item_table"],
+                             [recsys(4096, 2 + k, "hist_items") for k in range(COLD_SETS)]),
+            "d_one_bag": (din_params["cate_table"],
+                          [torch.from_numpy(one["profile_bag"]).to(dev)]),
+        }
+        rows, errs = {}, {"sum": 0.0, "mean": 0.0}
+        for shape, (table, id_sets) in shapes.items():
+            ids0 = id_sets[0]
+            for mode in ("sum", "mean"):  # checks; they also warm both modes
+                got = embedding_bag(table, ids0, mode)
+                want = embedding_bag_reference(table, ids0, mode)
+                again = embedding_bag(table, ids0, mode)
+                lib = library_call(table, ids0, mode)()
+                sync()
+                err = float((got - want).abs().max()) if got.numel() else 0.0
+                check(got.shape == want.shape == (ids0.shape[0], table.shape[1]),
+                      f"bag {shape} {mode}: shape {tuple(got.shape)}")
+                check(torch.allclose(got, want, **BAG_TOL),
+                      f"bag {shape} {mode}: kernel disagrees with plain version (max err {err})")
+                check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+                      f"bag {shape} {mode}: two launches gave different bits")
+                errs[mode] = max(errs[mode], err)
+                row = dict(bags=ids0.shape[0], length=ids0.shape[1], table_rows=table.shape[0],
+                           d=table.shape[1], id_sets=len(id_sets), max_abs_err=err,
+                           library_max_abs_err=float((lib - want).abs().max()),
+                           padding_share=float((ids0 < 0).float().mean()))
+                bounds = [bag_bound(table, ids) for ids in id_sets]
+                row.update(bounds[0])
+                row["bound_ms"] = float(np.mean([b["bound_ms"] for b in bounds]))
+                rows[f"{shape}[{mode}]"] = row
+            # readings alternate the modes (sum, mean, mean, sum, ...) so that
+            # neither is always timed first; each launch takes the next id
+            # set (shape (c): rows out of L2)
+            cyc = {m: itertools.cycle(id_sets) for m in ("sum", "mean")}
+            libs = {m: itertools.cycle([library_call(table, ids, m) for ids in id_sets])
+                    for m in ("sum", "mean")}
+            readings = {m: {"ms": [], "plain_ms": [], "library_ms": []} for m in ("sum", "mean")}
+            for mode in ("sum", "mean", "mean", "sum") * BAG_ROUNDS:
+                r = readings[mode]
+                r["ms"].append(device_ms(lambda: embedding_bag(table, next(cyc[mode]), mode),
+                                         reps, 1, name="embedding_bag_kernel"))
+                r["plain_ms"].append(device_ms(
+                    lambda: embedding_bag_reference(table, next(cyc[mode]), mode),
+                    max(1, reps // 5), 1))
+                r["library_ms"].append(device_ms(lambda: next(libs[mode])(), reps, 1))
+            for mode, r in readings.items():
+                row = rows[f"{shape}[{mode}]"]
+                for key, vals in r.items():
+                    row[key] = float(np.median(vals))
+                    row[f"{key}_min_max"] = [min(vals), max(vals)]
+        pad = torch.full((1, c.profile_bag_len), -1, dtype=torch.int32, device=dev)
+        for mode in ("sum", "mean"):
+            z = embedding_bag(din_params["cate_table"], pad, mode)
+            sync()
+            check(not bool(z.any()), f"bag all-padding {mode}: not zero")
+        emit("bag_kernel", t0, per_launch=rows, max_abs_err=errs, tolerance=BAG_TOL,
+             all_padding_bag_zero=True,
+             note="ms, plain_ms, library_ms: device time per launch (profiler; ms the kernel's "
+                  "own events), the median and the min/max of 2 * BAG_ROUNDS readings per mode, "
+                  "the modes alternated (sum, mean, mean, sum, ...); each launch on the next of "
+                  "id_sets; plain: L takes added in id order (serial); library: F.embedding_bag "
+                  "(clamped ids, the validity mask as per_sample_weights), / max(count, 1) for "
+                  "mean; bound_ms: ids + output + distinct 32-B row sectors at 3.35 TB/s, "
+                  "averaged over the id sets")
+        return rows, errs
+
+    bag_rows, bag_errs = bag_kernel_phase()
+
+    def din_phase():
+        """DIN pointwise and retrieval scoring at the published width, as the
+        reference CLI runs them, with the kernel's launches counted. Returns
+        the launch counts."""
+        t0 = time.perf_counter()
+        c = din_cfg
+        host = recsys_batch(SEED, 0, DIN_BATCH, c.seq_len, c.item_vocab, c.cate_vocab,
+                            c.profile_bag_len)
+        pb = din.batch_to({k: v for k, v in host.items() if k != "labels"}, dev)
+        rb = din.batch_to(retrieval_batch(SEED, c.seq_len, DIN_CANDIDATES, c.item_vocab,
+                                          c.cate_vocab, c.profile_bag_len), dev)
+        calls = {
+            "pointwise": lambda: din.score(din_params, pb, c),
+            "retrieval": lambda: din.score_candidates(din_params, rb, c, chunk=DIN_CHUNK),
+        }
+        reps = {"pointwise": 3, "retrieval": 2} if rehearsal else \
+            {"pointwise": 50, "retrieval": 20}
+        for fn in calls.values():  # warm
+            fn()
+        sync()
+        EB.reset_launch_counts()
+        scores, ms = {}, {}
+        for name, fn in calls.items():
+            lat = []
+            t_all = time.perf_counter()
+            for _ in range(reps[name]):
+                t = time.perf_counter()
+                scores[name] = fn()
+                sync()
+                lat.append((time.perf_counter() - t) * 1e3)
+            ms[name] = dict(total_ms=(time.perf_counter() - t_all) * 1e3,
+                            median_ms=float(np.median(lat)), min_ms=min(lat), max_ms=max(lat))
+        din_launches = dict(EB.LAUNCHES)
+        n_calls = sum(reps.values())
+        check(scores["pointwise"].shape == (DIN_BATCH,)
+              and scores["retrieval"].shape == (DIN_CANDIDATES,), "DIN score shapes")
+        for name, s in scores.items():
+            check(bool(torch.isfinite(s).all()), f"DIN {name}: non-finite scores")
+        if not rehearsal:
+            check(din_launches == {"sum": n_calls},
+                  f"DIN: embedding-bag launches {din_launches} != {n_calls} calls")
+        # the same calls with the profile bag through the plain version
+        kernel_bag = din.embedding_bag
+        din.embedding_bag = lambda table, ids, mode: embedding_bag_reference(table, ids, mode)
+        try:
+            plain = {name: fn() for name, fn in calls.items()}
+        finally:
+            din.embedding_bag = kernel_bag
+        diffs = {}
+        for name in calls:
+            diffs[name] = float((scores[name] - plain[name]).abs().max())
+            check(torch.allclose(scores[name], plain[name], **DIN_TOL),
+                  f"DIN {name}: scores differ from the plain-bag run by {diffs[name]}")
+        prof, n_prof = {}, 3
+        for name, fn in calls.items():
+            wall_us, evs = profiled(lambda fn=fn: [fn() for _ in range(n_prof)])
+            dev_us = sum(event_us(e) for e in evs)
+            top = sorted(evs, key=event_us, reverse=True)[:6]
+            prof[name] = dict(
+                wall_us=wall_us / n_prof, device_busy_us=dev_us / n_prof,
+                bag_kernel_us=sum(event_us(e) for e in evs if "embedding_bag" in e.key) / n_prof,
+                device_idle_share=1.0 - dev_us / wall_us if wall_us else None,
+                device_launches=sum(e.count for e in evs) / n_prof,
+                top_device_us={e.key[:80]: [event_us(e) / n_prof, e.count / n_prof] for e in top})
+        emit("din", t0, config={k: (str(v) if k == "dtype" else v)
+                                for k, v in dataclasses.asdict(c).items() if k != "lookup"},
+             lookup="take", init_seconds=din_init_s, batch=DIN_BATCH,
+             candidates=DIN_CANDIDATES, chunk=DIN_CHUNK, calls=reps, ms_per_call=ms,
+             pointwise_qps=DIN_BATCH * reps["pointwise"] / ms["pointwise"]["total_ms"] * 1e3,
+             retrieval_candidates_per_s=DIN_CANDIDATES * reps["retrieval"]
+             / ms["retrieval"]["total_ms"] * 1e3,
+             launches=din_launches, expected_launches=n_calls,
+             max_abs_diff_vs_plain_bag=diffs, tolerance=DIN_TOL, profile=prof,
+             note="lookup: the item-table reads are a take, as the reference CLI runs DIN "
+                  "(the config's 'crossbar' runs in serve's RecommendScorer); QPS and "
+                  "candidates/s: the rows scored over the wall of all timed calls; "
+                  "ms_per_call: host clock around one call ending in a synchronize; "
+                  "profile: per call over 3 calls under torch.profiler, device events only")
+        return din_launches
+
+    din_launches = din_phase()
+
     # -- the serving path: GraphService over the built partition --------------
     t0 = time.perf_counter()
     import gc
 
-    from repro_torch.launch.serve import SERVE_MIX, _serve_events, check_replay_equivalence
-    from repro_torch.serve import GraphService, LoopConfig, RequestLoop
+    from repro_torch.launch.serve import _serve_events, check_replay_equivalence
+    from repro_torch.serve import GraphService, LoopConfig, RecommendScorer, RequestLoop
 
-    workload = mixed_query_workload(SERVE_QUERIES, g.num_vertices, mix=SERVE_MIX, seed=SEED)
+    workload = mixed_query_workload(SERVE_QUERIES, g.num_vertices, seed=SEED)  # default mix
+    n_recommend = sum(1 for q in workload if q["kind"] == "recommend")
     deltas = edge_insertion_stream(SERVE_INSERTS, g.num_vertices, num_batches=2, weighted=True,
                                    seed=SEED + 1)
-    service = GraphService(g, pg, lanes=LANE_K, device=dev)
+    scorer = RecommendScorer(din_cfg, pool_size=64, topk=8, params=din_params, device=dev)
+    service = GraphService(g, pg, lanes=LANE_K, scorer=scorer, device=dev)
     del pg  # the service owns the partition now: a flush retires it
     flush_memory = []
     service_flush = service.flush
@@ -955,10 +1219,11 @@ def main() -> int:
     sync()
     K.reset_launch_counts()
     S.reset_launch_counts()
+    EB.reset_launch_counts()
     completions = loop.run(_serve_events(workload, deltas))
     sync()
     serve_launches = {"gather_reduce_cores": dict(K.LAUNCHES),
-                      "scatter_reduce_cores": dict(S.LAUNCHES)}
+                      "scatter_reduce_cores": dict(S.LAUNCHES), "embedding_bag": dict(EB.LAUNCHES)}
     summ = loop.metrics.summary()
     trav = [b for b in loop.metrics.batches if b.iterations > 0]
     expect = sum(b.iterations for b in trav) * service.pg.l
@@ -968,8 +1233,10 @@ def main() -> int:
          per_kind=summ["per_kind"], batches=summ["batches"], cold_batches=summ["cold_batches"],
          steady_batch_ms=summ["steady_batch_ms"], amortized_mteps=summ["amortized_mteps"],
          flushes=summ["flushes"], flush_memory=flush_memory, launches=serve_launches,
-         total_launches=total, expected_launches=expect, mix=SERVE_MIX,
-         inserted_edges=SERVE_INSERTS,
+         total_launches=total, expected_launches=expect, mix=DEFAULT_QUERY_MIX,
+         recommend_queries=n_recommend, inserted_edges=SERVE_INSERTS,
+         batch_walls_ms_by_kind={k: [b.wall_s * 1e3 for b in loop.metrics.batches if b.kind == k]
+                                 for k in sorted({b.kind for b in loop.metrics.batches})},
          batch_log=[dict(kind=b.kind, served=b.served, wall_ms=b.wall_s * 1e3,
                          iterations=b.iterations, cold=b.cold) for b in loop.metrics.batches])
     check(len(completions) == SERVE_QUERIES, f"{len(completions)} answers for {SERVE_QUERIES}")
@@ -980,6 +1247,9 @@ def main() -> int:
         for v in LANE_VARIANTS["gather_reduce_cores"]:
             check(serve_launches["gather_reduce_cores"].get(v, 0) > 0,
                   f"serve: gather lane variant {v} never ran")
+        check(n_recommend > 0 and serve_launches["embedding_bag"] == {"sum": n_recommend},
+              f"serve: embedding-bag launches {serve_launches['embedding_bag']} != "
+              f"{n_recommend} recommend queries")
         for rec in flush_memory:
             freed = rec["memory_allocated_before"] - rec["memory_allocated_after"]
             check(rec["retired_device_cache_bytes"] > 0
@@ -994,9 +1264,13 @@ def main() -> int:
     t = time.perf_counter()
     pg_cold = partition_2d(g_final, PartitionConfig(**CFG))
     cold_build_s = time.perf_counter() - t
-    n_answers = check_replay_equivalence(g_final, pg_res, pg_cold, workload, LANE_K, dev)
-    emit("serve_equivalence", t0, cold_build_seconds=cold_build_s, answers_replayed=n_answers,
-         labels_checked=["bfs", "wcc", "sssp"], bit_identical=True)
+    replayed = check_replay_equivalence(g_final, pg_res, pg_cold, workload, LANE_K, dev, scorer)
+    check(replayed.get("recommend", 0) == n_recommend and replayed.get("neighbors", 0) > 0,
+          f"serve_equivalence replayed {replayed}")
+    emit("serve_equivalence", t0, cold_build_seconds=cold_build_s, answers_by_kind=replayed,
+         labels_checked=["bfs", "wcc", "sssp"], bit_identical=True,
+         note="neighbors: one neighbors-of answer per distinct root of the workload, checked "
+              "here and not timed (the default mix sends none)")
 
     kernels = [
         dict(name=f"{kern}_reduce_cores[{v}]", route="cuda", **meta,
@@ -1015,6 +1289,15 @@ def main() -> int:
              bound_by=lane_timing[(kern, arm)]["bound_by"], library_ms=None)
         for kern, meta in (("gather", GATHER), ("scatter", SCATTER))
         for v, arm in LANE_ENTRIES[kern]
+    ] + [
+        # the main path's bag: DIN's profile bag at serve_p99, shape (a)
+        dict(name="embedding_bag[sum]", route="cuda", **EMBAG,
+             launches=din_launches.get("sum", 0) + serve_launches["embedding_bag"].get("sum", 0),
+             max_abs_err=bag_errs["sum"], ms=bag_rows["a_serve_p99[sum]"]["ms"],
+             plain_ms=bag_rows["a_serve_p99[sum]"]["plain_ms"],
+             bound_ms=bag_rows["a_serve_p99[sum]"]["bound_ms"],
+             bound_by=bag_rows["a_serve_p99[sum]"]["bound_by"],
+             library_ms=bag_rows["a_serve_p99[sum]"]["library_ms"])
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     if rehearsal:

@@ -22,6 +22,7 @@ __all__ = [
     "symmetrize",
     "deduplicate",
     "out_degrees",
+    "in_degrees",
     "rmat",
     "erdos_renyi",
     "grid_2d",
@@ -88,6 +89,10 @@ def deduplicate(g: COOGraph) -> COOGraph:
 
 def out_degrees(g: COOGraph) -> np.ndarray:
     return np.bincount(g.src, minlength=g.num_vertices).astype(np.int64)
+
+
+def in_degrees(g: COOGraph) -> np.ndarray:
+    return np.bincount(g.dst, minlength=g.num_vertices).astype(np.int64)
 
 
 def rmat(

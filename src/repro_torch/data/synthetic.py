@@ -1,10 +1,13 @@
-"""Synthetic serving traffic: query streams and edge-insertion streams.
+"""Synthetic data: serving traffic (query streams, edge-insertion streams)
+and recsys batches.
 
-Counterpart of the serving generators of ``repro.data.synthetic``: the same
-numpy RNG calls in the same order, so the same seed gives the same stream in
-both packages. Everything here is host numpy.
+Counterpart of the serving and recsys generators of ``repro.data.synthetic``:
+the same numpy RNG calls in the same order, so the same seed gives the same
+arrays in both packages. Everything here is host numpy.
 """
 from __future__ import annotations
+
+from typing import Dict
 
 import numpy as np
 
@@ -15,6 +18,8 @@ __all__ = [
     "mixed_query_workload",
     "edge_insertion_stream",
     "admission_batches",
+    "recsys_batch",
+    "retrieval_batch",
 ]
 
 QUERY_KINDS = ("bfs", "sssp", "ppr", "recommend", "neighbors")
@@ -152,3 +157,50 @@ def admission_batches(roots: np.ndarray, lanes: int) -> list:
             )
         out.append((chunk, served))
     return out
+
+
+def recsys_batch(
+    seed: int, step: int, batch: int, seq_len: int, item_vocab: int, cate_vocab: int,
+    profile_len: int = 32,
+) -> Dict[str, np.ndarray]:
+    """One DIN click batch: padded behaviour histories, targets, a multi-hot
+    profile bag with ~30% padding, and click labels."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, step, 7]))
+    hist_items = rng.integers(0, item_vocab, (batch, seq_len)).astype(np.int32)
+    lengths = rng.integers(5, seq_len + 1, (batch,))
+    mask = np.arange(seq_len)[None, :] < lengths[:, None]
+    hist_items = np.where(mask, hist_items, -1)
+    hist_cates = np.where(mask, hist_items % cate_vocab, -1).astype(np.int32)
+    target_item = rng.integers(0, item_vocab, (batch,)).astype(np.int32)
+    profile = rng.integers(0, cate_vocab, (batch, profile_len)).astype(np.int32)
+    profile[rng.random((batch, profile_len)) < 0.3] = -1
+    # click label correlated with overlap of target category and history
+    overlap = (hist_cates == (target_item % cate_vocab)[:, None]).sum(1)
+    p = 1.0 / (1.0 + np.exp(-(overlap - 1.0)))
+    labels = (rng.random(batch) < p).astype(np.float32)
+    return {
+        "hist_items": hist_items,
+        "hist_cates": hist_cates,
+        "target_item": target_item,
+        "target_cate": (target_item % cate_vocab).astype(np.int32),
+        "profile_bag": profile,
+        "labels": labels,
+    }
+
+
+def retrieval_batch(
+    seed: int, seq_len: int, n_candidates: int, item_vocab: int, cate_vocab: int,
+    profile_len: int = 32,
+) -> Dict[str, np.ndarray]:
+    """One user (a full history and profile bag) against ``n_candidates``
+    random items."""
+    rng = np.random.default_rng(seed)
+    hist = rng.integers(0, item_vocab, (1, seq_len)).astype(np.int32)
+    cand = rng.integers(0, item_vocab, (n_candidates,)).astype(np.int32)
+    return {
+        "hist_items": hist,
+        "hist_cates": (hist % cate_vocab).astype(np.int32),
+        "profile_bag": rng.integers(0, cate_vocab, (1, profile_len)).astype(np.int32),
+        "cand_items": cand,
+        "cand_cates": (cand % cate_vocab).astype(np.int32),
+    }

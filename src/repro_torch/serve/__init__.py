@@ -8,15 +8,18 @@ the device while mixed-op queries stream in and the graph itself mutates:
   delta.DeltaBuffer     streamed edge insertions binned to (core, phase)
                         buckets; flush re-tiles ONLY dirty buckets
                         (core.partition.apply_edge_deltas)
-  router.GraphService   neighbors-of / distance-to (BFS, SSSP) / PPR routing
-                        over the same resident partition; recommend-for is
-                        not ported yet
+  router.GraphService   neighbors-of / distance-to (BFS, SSSP) / PPR /
+                        recommend-for routing over the same resident
+                        partition (recommend-for: router.RecommendScorer,
+                        DIN retrieval scoring)
   metrics               p50/p95/p99 latency, QPS, amortized MTEPS
 """
 from repro_torch.serve.delta import DeltaBuffer
 from repro_torch.serve.loop import Completion, LoopConfig, RequestLoop
 from repro_torch.serve.metrics import BatchRecord, FlushRecord, ServingMetrics, latency_summary
-from repro_torch.serve.router import KINDS, TRAVERSAL_KINDS, BatchResult, GraphService, Query
+from repro_torch.serve.router import (
+    KINDS, TRAVERSAL_KINDS, BatchResult, GraphService, Query, RecommendScorer,
+)
 
 __all__ = [
     "BatchRecord",
@@ -28,6 +31,7 @@ __all__ = [
     "KINDS",
     "LoopConfig",
     "Query",
+    "RecommendScorer",
     "RequestLoop",
     "ServingMetrics",
     "TRAVERSAL_KINDS",

@@ -10,8 +10,8 @@ per kind: traversal kinds drain as soon as K same-kind queries are waiting
 iteration), or when the OLDEST waiting query has aged past the deadline
 (``max_wait_ms``) — a partial batch is then padded to K by repeating its
 last root (``admission_batches`` rule: duplicate lanes are cheap and keep
-every batch at one width). Host-answered kinds (neighbors) use the same
-queue/deadline machinery with their own batch cap.
+every batch at one width). The other kinds (neighbors, recommend) use the
+same queue/deadline machinery with their own batch cap.
 
 Delta events ride the same stream: ``ingest`` stages insertions and the loop
 flushes when the buffer crosses its auto-flush threshold (or on an explicit
@@ -41,7 +41,7 @@ __all__ = ["LoopConfig", "Completion", "RequestLoop"]
 class LoopConfig:
     queue_capacity: int = 256  # total waiting queries before rejects
     max_wait_ms: float = 20.0  # deadline: oldest waiting query age to drain
-    host_batch: int = 16  # batch cap for host-answered kinds (neighbors)
+    host_batch: int = 16  # batch cap for the other kinds (neighbors/recommend)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,16 +10,18 @@ resident partition:
                  then ``dist[target, lane]`` is read per query. PPR rides the
                  same path (``ppr_multi``), answering the top-k vertices per
                  seed.
-  recommend-for  DIN retrieval scoring. Not ported yet: it needs the DIN
-                 model and the crossbar embedding lookup. A service built
-                 without a scorer (the only kind the port builds) refuses
-                 recommend queries with the reference's own message.
+  recommend-for  DIN retrieval scoring over a candidate pool of hub vertices,
+                 with the user's history read from the SAME partition
+                 (in-neighbors), the item-table reads routed through the
+                 ``dist.embedding`` crossbar lookup and the profile bag
+                 through the embedding-bag kernel.
 
 ``GraphService`` owns the resident state: the COO view, the partition, the
-engine options and the delta buffer. Ingest + flush swap in a NEW partition
-(``apply_edge_deltas``), bump the generation (the next batch per kind is
-marked cold: it uploads the new partition's edge tensors to the device), and
-free the retired partition's device copies (``engine.evict_from_cache``).
+engine options, the recommend scorer and the delta buffer. Ingest + flush
+swap in a NEW partition (``apply_edge_deltas``), bump the generation (the
+next batch per kind is marked cold: it uploads the new partition's edge
+tensors to the device), refresh the recommend pool, and free the retired
+partition's device copies (``engine.evict_from_cache``).
 """
 from __future__ import annotations
 
@@ -28,16 +30,21 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
+from repro_torch.configs.registry import get
 from repro_torch.core.engine import EngineOptions, evict_from_cache, run
-from repro_torch.core.graph import COOGraph
+from repro_torch.core.graph import COOGraph, in_degrees
 from repro_torch.core.partition import PartitionConfig, PartitionedGraph, partition_2d
 from repro_torch.core.problems import INF_U32, bfs_multi, ppr_multi, sssp_multi
 from repro_torch.device import resolve_device
+from repro_torch.dist.embedding import make_crossbar_lookup
+from repro_torch.models.recsys import din
 from repro_torch.serve.delta import DeltaBuffer
 from repro_torch.serve.metrics import FlushRecord
 
-__all__ = ["Query", "BatchResult", "GraphService", "TRAVERSAL_KINDS", "KINDS"]
+__all__ = ["Query", "BatchResult", "RecommendScorer", "GraphService", "TRAVERSAL_KINDS",
+           "KINDS"]
 
 TRAVERSAL_KINDS = ("bfs", "sssp", "ppr")
 KINDS = ("neighbors",) + TRAVERSAL_KINDS + ("recommend",)
@@ -67,11 +74,96 @@ class BatchResult:
     cold: bool
 
 
+class RecommendScorer:
+    """recommend-for: DIN retrieval scoring over a fixed-size candidate pool.
+
+    The pool is the ``pool_size`` highest in-degree vertices of the resident
+    graph (recomputed on every flush, so newly hot vertices enter the pool),
+    mapped onto the DIN item/category vocab by id. The user's behaviour
+    history is their in-neighbor list decoded from the resident partition,
+    the same array the neighbors-of path serves, so recommendations follow
+    the graph through delta ingest. Shapes are static (pool size, seq_len).
+
+    ``params`` takes carried-across weights (``din.params_from_reference``);
+    without them the scorer draws ``din.init`` from a generator seeded with
+    ``seed`` on ``device``. ``lookup='crossbar'`` routes item-table reads
+    through ``dist.embedding.make_crossbar_lookup`` (one shard on one card);
+    ``'take'`` is the plain take.
+    """
+
+    def __init__(
+        self,
+        cfg=None,
+        *,
+        pool_size: int = 64,
+        topk: int = 8,
+        lookup: str = "crossbar",
+        seed: int = 0,
+        params=None,
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        self.cfg = cfg if cfg is not None else get("din").smoke()
+        self.pool_size = int(pool_size)
+        self.topk = int(topk)
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = din.init(self.cfg, gen, self.device)
+        self._params = params
+        if lookup == "crossbar":
+            self._lookup_fn = make_crossbar_lookup()
+        elif lookup == "take":
+            self._lookup_fn = None
+        else:
+            raise ValueError(f"lookup must be 'crossbar' or 'take', got {lookup!r}")
+        self._pool_items = None
+        self._pool_vertices = None
+        self._pool_device = None
+
+    def refresh_pool(self, g: COOGraph):
+        """(Re)build the candidate pool from the current graph's in-degrees.
+        Called at service construction and after every flush."""
+        deg = in_degrees(g)
+        order = np.argsort(-deg, kind="stable")[: self.pool_size]
+        if order.shape[0] < self.pool_size:  # tiny graph: pad by repetition
+            order = np.resize(order, self.pool_size)
+        self._pool_vertices = order.astype(np.int64)
+        self._pool_items = (order % self.cfg.item_vocab).astype(np.int32)
+        items = torch.from_numpy(self._pool_items).to(self.device)
+        self._pool_device = (items, items % self.cfg.cate_vocab)
+
+    def recommend_for(self, pg: PartitionedGraph, root: int) -> dict:
+        """Score the pool for one user (= vertex ``root``); returns the topk
+        pool vertices with their DIN scores."""
+        if self._pool_items is None:
+            raise RuntimeError("refresh_pool was never called")
+        cfg = self.cfg
+        L = cfg.seq_len
+        hist_v = pg.in_neighbors(root)[:L]
+        hist_items = np.full((1, L), -1, dtype=np.int32)
+        hist_items[0, : hist_v.shape[0]] = hist_v % cfg.item_vocab
+        hist_cates = np.where(hist_items >= 0, hist_items % cfg.cate_vocab, -1)
+        # deterministic per-user profile bag (stand-in for profile features)
+        prof = ((int(root) + np.arange(cfg.profile_bag_len)) % cfg.cate_vocab).astype(np.int32)
+        host = {"hist_items": hist_items, "hist_cates": hist_cates.astype(np.int32),
+                "profile_bag": prof[None, :]}
+        batch = {k: torch.from_numpy(v).to(self.device) for k, v in host.items()}
+        batch["cand_items"], batch["cand_cates"] = self._pool_device
+        scores = din.score_candidates(self._params, batch, cfg, lookup_fn=self._lookup_fn)
+        scores = scores.cpu().numpy()
+        top = np.argsort(-scores, kind="stable")[: self.topk]
+        return {
+            "vertices": self._pool_vertices[top].copy(),
+            "items": self._pool_items[top].copy(),
+            "scores": scores[top].copy(),
+        }
+
+
 class GraphService:
-    """The always-on resident graph service: answers neighbors-of and the
-    traversal kinds from one ``PartitionedGraph`` on ``device`` (the card
-    unless the caller asks for ``"cpu"``), accepts streamed edge insertions,
-    and re-tiles dirty buckets on flush."""
+    """The always-on resident graph service: answers every kind of ``KINDS``
+    from one ``PartitionedGraph`` on ``device`` (the card unless the caller
+    asks for ``"cpu"``), accepts streamed edge insertions, and re-tiles dirty
+    buckets on flush. recommend-for needs a ``scorer``."""
 
     def __init__(
         self,
@@ -80,17 +172,12 @@ class GraphService:
         *,
         lanes: int = 16,
         opts: Optional[EngineOptions] = None,
-        scorer=None,
+        scorer: Optional[RecommendScorer] = None,
         ppr_tol: float = 1e-4,
         ppr_topk: int = 8,
         auto_flush_edges: Optional[int] = None,
         device="cuda",
     ):
-        if scorer is not None:
-            raise NotImplementedError(
-                "recommend-for is not ported yet (it needs the DIN model and the "
-                "crossbar embedding lookup); build the service with scorer=None"
-            )
         if isinstance(partition, PartitionConfig):
             pg = partition_2d(g, partition)
         elif isinstance(partition, PartitionedGraph):
@@ -110,6 +197,9 @@ class GraphService:
         self.ppr_topk = ppr_topk
         self.generation = 0
         self.delta = DeltaBuffer(pg, auto_flush_edges=auto_flush_edges)
+        self.scorer = scorer
+        if self.scorer is not None:
+            self.scorer.refresh_pool(g)
         self._makers = {
             "bfs": bfs_multi,
             "sssp": sssp_multi,
@@ -124,7 +214,8 @@ class GraphService:
 
     def flush(self) -> FlushRecord:
         """Re-tile the dirty buckets, swap in the new partition, sync the COO
-        view, and free the retired partition's device copies."""
+        view, refresh the recommend pool, and free the retired partition's
+        device copies."""
         src, dst, w = self.delta.pending()
         t0 = time.perf_counter()
         new_pg, report = self.delta.flush(self.pg)
@@ -142,6 +233,8 @@ class GraphService:
             )
             self.generation += 1  # next batch per kind uploads the new partition (cold)
             evict_from_cache(old_pg)
+            if self.scorer is not None:
+                self.scorer.refresh_pool(self.g)
         return FlushRecord(
             edges_added=report.edges_added,
             wall_s=wall,
@@ -163,12 +256,18 @@ class GraphService:
             raise ValueError(f"unknown kind {kind!r}; supported: {KINDS}")
         if kind in TRAVERSAL_KINDS and len(queries) > self.lanes:
             raise ValueError(f"batch of {len(queries)} exceeds K={self.lanes}")
-        if kind == "recommend":
-            raise ValueError("service built without a RecommendScorer")
         t0 = time.perf_counter()
         if kind == "neighbors":
             answers = [self.pg.in_neighbors(q.root) for q in queries]
             iters, lanes_used, cold = 0, 1, False
+        elif kind == "recommend":
+            if self.scorer is None:
+                raise ValueError("service built without a RecommendScorer")
+            key = ("recommend", self.generation)
+            cold = key not in self._warm
+            self._warm.add(key)
+            answers = [self.scorer.recommend_for(self.pg, q.root) for q in queries]
+            iters, lanes_used = 0, 1
         else:
             answers, iters, cold = self._answer_traversal(kind, queries)
             lanes_used = self.lanes

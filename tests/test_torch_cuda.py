@@ -5,7 +5,11 @@ both push regimes and both arms (min bit-equal, sum within ``SUM_TOL``),
 each lane arm of both (the word OR of packed reach words, vector min with
 the SSSP add, vector sum, and the lane-chunk path at vb=1024), and the
 engine with its default options (dynamic tile skip, 'auto' direction) and
-with forced push, laneless and K-lane, on the card against the CPU run.
+with forced push, laneless and K-lane, on the card against the CPU run; the
+embedding-bag kernel against its plain version (sum and mean, odd D, the
+DIN width D = 18, B = 1, all-padding bags, a cold-table shape at a small N,
+bit-stability) and DIN ``score`` / ``score_candidates`` on the card against
+the CPU run.
 
 Every test here needs an NVIDIA GPU (the kernel has no CPU mode) and skips
 without one. The file imports neither jax nor ``repro``, so it runs on a
@@ -27,6 +31,8 @@ from repro_torch.core.engine import EngineOptions, run, run_frontier_trace
 from repro_torch.core.partition import PartitionConfig, partition_2d
 from repro_torch.kernels.csr_gather_reduce import kernel as K
 from repro_torch.kernels.csr_gather_reduce import scatter as S
+from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_reference
+from repro_torch.kernels.embedding_bag import kernel as EB
 
 INF_U32 = 0xFFFFFFFF
 INF_F32 = float(np.finfo(np.float32).max)
@@ -424,3 +430,97 @@ def test_cuda_laneless_is_the_one_lane_case(variant, cuda_device):
             assert mod.LAUNCHES[lane_key] == before.get(lane_key, 0) + 1
             assert lane.shape == flat.shape + (1,)
             assert torch.equal(lane[..., 0].view(torch.int32), flat.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the embedding bag and DIN
+
+BAG_TOL = dict(rtol=1e-5, atol=1e-7)  # both sum in id order: in fact the same bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("case,n,d,b,length,pad", [
+    ("din_profile", 10_000, 18, 512, 32, 0.3),  # float2 rows
+    ("odd_width", 1000, 7, 37, 9, 0.3),  # scalar loads
+    ("width_16", 1000, 16, 64, 20, 0.3),  # float4 rows
+    ("wide", 300, 200, 33, 40, 0.1),  # several column chunks a lane
+    ("one_bag", 10_000, 18, 1, 32, 0.3),
+    ("cold_table_small_n", 200_003, 18, 256, 100, 0.0),  # scattered rows past L2 reuse
+    ("long_bags", 5000, 18, 9, 1000, 0.5),
+])
+def test_cuda_embedding_bag_matches_plain(case, n, d, b, length, pad, mode, cuda_device):
+    rng = np.random.default_rng(len(case) * 31 + d)
+    table = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(cuda_device)
+    ids = rng.integers(0, n, (b, length)).astype(np.int32)
+    ids[rng.random(ids.shape) < pad] = -1
+    if b > 2:
+        ids[2] = -1  # an all-padding bag
+    ids = torch.from_numpy(ids).to(cuda_device)
+    before = EB.LAUNCHES.get(mode, 0)
+    got = embedding_bag(table, ids, mode=mode)
+    torch.cuda.synchronize()
+    assert EB.LAUNCHES[mode] == before + 1
+    want = embedding_bag_reference(table, ids, mode)
+    assert got.shape == (b, d) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, **BAG_TOL)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if b > 2:
+        assert not got[2].any()
+    again = embedding_bag(table, ids, mode=mode)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))  # the same bits
+    cpu = embedding_bag(table.cpu(), ids.cpu(), mode=mode)  # the plain version on the CPU
+    torch.testing.assert_close(got.cpu(), cpu, **BAG_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_embedding_bag_edges(cuda_device):
+    """No bags: nothing launched; empty bags: zeros; an offset table view
+    falls back to narrower loads; a launch never falls back to the plain
+    version."""
+    table = torch.randn(100, 18, device=cuda_device)
+    before = dict(EB.LAUNCHES)
+    out = embedding_bag(table, torch.zeros(0, 5, dtype=torch.int32, device=cuda_device))
+    assert out.shape == (0, 18) and EB.LAUNCHES == before
+    empty = embedding_bag(table, torch.zeros(3, 0, dtype=torch.int32, device=cuda_device),
+                          mode="mean")
+    assert empty.shape == (3, 18) and not empty.any()
+    base = torch.randn(100 * 16 + 1, device=cuda_device)
+    view = base[1:].view(100, 16)  # 4-B aligned rows: scalar loads
+    ids = torch.randint(-1, 100, (7, 11), dtype=torch.int32, device=cuda_device)
+    torch.testing.assert_close(embedding_bag(view, ids), embedding_bag_reference(view, ids),
+                               **BAG_TOL)
+    with pytest.raises(ValueError, match="contiguous"):
+        embedding_bag(table.t().contiguous().t(), ids.clamp(max=17))
+
+
+@pytest.mark.cuda
+def test_din_on_card_matches_cpu(cuda_device):
+    """DIN at the smoke config with the same weights on the card and on the
+    CPU: logits and candidate scores within rtol 1e-5, atol 1e-6, one
+    embedding-bag launch per call."""
+    from repro_torch.configs.registry import get
+    from repro_torch.data.synthetic import recsys_batch, retrieval_batch
+    from repro_torch.dist.embedding import make_crossbar_lookup
+    from repro_torch.models.recsys import din
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # full float32 matmuls on both sides
+    cfg = get("din").smoke()
+    cpu = din.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = {k: (v.to(cuda_device) if torch.is_tensor(v) else
+                {kk: [t.to(cuda_device) for t in vv] for kk, vv in v.items()})
+            for k, v in cpu.items()}
+    b = recsys_batch(0, 0, 512, cfg.seq_len, cfg.item_vocab, cfg.cate_vocab, cfg.profile_bag_len)
+    b = {k: v for k, v in b.items() if k != "labels"}
+    rb = retrieval_batch(0, cfg.seq_len, 4096, cfg.item_vocab, cfg.cate_vocab,
+                         cfg.profile_bag_len)
+    EB.reset_launch_counts()
+    got = din.score(card, din.batch_to(b, cuda_device), cfg)
+    got_c = din.score_candidates(card, din.batch_to(rb, cuda_device), cfg, chunk=512,
+                                 lookup_fn=make_crossbar_lookup())
+    torch.cuda.synchronize()
+    assert EB.LAUNCHES == {"sum": 2}
+    want = din.score(cpu, din.batch_to(b, "cpu"), cfg)
+    want_c = din.score_candidates(cpu, din.batch_to(rb, "cpu"), cfg, chunk=512)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got_c.cpu(), want_c, rtol=1e-5, atol=1e-6)

@@ -3,14 +3,20 @@
   * the serving generators of ``repro_torch.data.synthetic`` yield the same
     streams as ``repro.data.synthetic`` for the same seed, and
     ``admission_batches`` keeps its edge cases;
-  * ``repro_torch.serve.GraphService`` answers equal ``repro.serve``'s
-    (built with ``scorer=None``) on the same graph and queries: BFS, SSSP and
-    neighbors-of exactly; PPR's top-k vertices equal, scores within 2e-5;
+  * ``repro_torch.serve.GraphService`` answers equal ``repro.serve``'s on
+    the same graph and queries, both services carrying a
+    ``RecommendScorer(pool_size=16, topk=4)`` with the reference's DIN
+    weights carried across: BFS, SSSP and neighbors-of exactly; PPR's top-k
+    vertices equal, scores within 2e-5; recommend-for's scores within rtol
+    1e-5 and its top-k vertices equal wherever the score gaps exceed that,
+    before and after a flush refreshes the pool;
   * the request loop: capacity rejection, deadline drain, full-batch
-    coalescing, a mid-stream flush against a fresh service, the auto-flush
-    threshold; recommend-for raises (not ported);
-  * ``python -m repro_torch.launch.serve --arch graph --smoke --device cpu``
-    exits 0.
+    coalescing over the default mix, a mid-stream flush against a fresh
+    service, the auto-flush threshold;
+  * the smoke's replay check also holds neighbors-of for every root;
+  * ``python -m repro_torch.launch.serve`` exits 0 with ``--arch graph
+    --smoke``, ``--arch din --mode pointwise`` and ``--mode retrieval``, all
+    with ``--device cpu``.
 
 Everything runs on the CPU (``device="cpu"``); inputs come from numpy seeds.
 """
@@ -19,6 +25,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 
@@ -32,10 +39,12 @@ import repro_torch.data.synthetic as TS
 from repro_torch import serve as tserve
 from repro_torch.core.engine import EngineOptions
 from repro_torch.core.partition import PartitionConfig
-from repro_torch.launch.serve import SERVE_MIX
+from repro_torch.models.recsys import din as tdin
 
 LANES = 4
 PPR_TOL = 2e-5  # the round's tolerance for sum problems against the reference
+REC_RTOL = 1e-5  # DIN scores: the same float32 math in another association
+POOL, TOPK = 16, 4
 ROOT = Path(__file__).resolve().parents[1]
 
 
@@ -50,6 +59,16 @@ def _port_graph(g):
     return TG.COOGraph(src=g.src, dst=g.dst, num_vertices=g.num_vertices, weights=g.weights)
 
 
+def _ref_scorer():
+    return rserve.RecommendScorer(pool_size=POOL, topk=TOPK)
+
+
+def _port_scorer(ref_scorer):
+    """The port's scorer with the reference scorer's DIN weights."""
+    params = tdin.params_from_reference(jax.tree.map(np.asarray, ref_scorer._params), "cpu")
+    return tserve.RecommendScorer(pool_size=POOL, topk=TOPK, params=params, device="cpu")
+
+
 def _service(g, **kw):
     return tserve.GraphService(_port_graph(g), PartitionConfig(p=2, l=2), lanes=LANES,
                                device="cpu", **kw)
@@ -57,15 +76,30 @@ def _service(g, **kw):
 
 @pytest.fixture(scope="module")
 def services(graph):
-    ref = rserve.GraphService(graph, RConfig(p=2, l=2), lanes=LANES, scorer=None)
-    return ref, _service(graph)
+    ref_scorer = _ref_scorer()
+    ref = rserve.GraphService(graph, RConfig(p=2, l=2), lanes=LANES, scorer=ref_scorer)
+    return ref, _service(graph, scorer=_port_scorer(ref_scorer))
+
+
+def _assert_recommend_match(got, want):
+    """Scores within REC_RTOL in rank order; the vertex at a rank equal
+    wherever the reference's score there is apart from its neighbours'."""
+    np.testing.assert_allclose(got["scores"], want["scores"], rtol=REC_RTOL, atol=0)
+    s = want["scores"].astype(np.float64)
+    gap = np.abs(np.diff(s)) > 2 * REC_RTOL * np.abs(s).max()
+    clear = np.ones(s.shape[0], bool)
+    clear[:-1] &= gap
+    clear[1:] &= gap
+    assert clear.any()
+    np.testing.assert_array_equal(got["vertices"][clear], want["vertices"][clear])
+    np.testing.assert_array_equal(got["items"][clear], want["items"][clear])
 
 
 # ---------------------------------------------------------------------------
 # generators
 
 
-@pytest.mark.parametrize("mix", [None, SERVE_MIX, {"bfs": 1.0}])
+@pytest.mark.parametrize("mix", [None, TS.DEFAULT_QUERY_MIX, {"bfs": 1.0}])
 @pytest.mark.parametrize("seed", [0, 5])
 def test_query_streams_match_reference(seed, mix):
     for n, v in ((64, 128), (7, 3)):
@@ -74,8 +108,9 @@ def test_query_streams_match_reference(seed, mix):
         np.testing.assert_array_equal(TS.query_workload(n, v, seed=seed, zipf_a=1.5),
                                       RS.query_workload(n, v, seed=seed, zipf_a=1.5))
     assert TS.QUERY_KINDS == RS.QUERY_KINDS and TS.DEFAULT_QUERY_MIX == RS.DEFAULT_QUERY_MIX
-    wl = TS.mixed_query_workload(64, 128, mix=SERVE_MIX, seed=seed)
-    assert {q["kind"] for q in wl} == set(SERVE_MIX)  # no recommend-for traffic
+    wl = TS.mixed_query_workload(64, 128, mix=mix, seed=seed)
+    if mix is not None and len(mix) > 1:  # the default mix carries recommend-for traffic
+        assert {q["kind"] for q in wl} == set(mix) and "recommend" in mix
 
 
 @pytest.mark.parametrize("weighted", [False, True])
@@ -160,7 +195,17 @@ def test_neighbors_answers_match_reference(graph, services):
 
 
 def test_batch_validation_and_recommend(graph, services):
-    _, port = services
+    ref, port = services
+    qs = _queries("recommend", [8, 8, 41])
+    got, want = port.answer_batch(qs), ref.answer_batch(_ref_queries(qs))
+    assert got.kind == "recommend" and got.served == 3 and got.lanes == 1
+    assert got.iterations == 0 and got.cold == want.cold
+    for a, b in zip(got.answers, want.answers):
+        assert sorted(a) == sorted(b) == ["items", "scores", "vertices"]
+        assert a["vertices"].dtype == np.int64 and a["scores"].shape == (TOPK,)
+        _assert_recommend_match(a, b)
+    for k in got.answers[0]:  # the same user twice: the same answer
+        np.testing.assert_array_equal(got.answers[0][k], got.answers[1][k])
     with pytest.raises(ValueError):
         port.answer_batch([])
     with pytest.raises(ValueError):
@@ -170,9 +215,11 @@ def test_batch_validation_and_recommend(graph, services):
     with pytest.raises(ValueError):
         port.answer_batch([tserve.Query(kind="bfs", root=0)] * (LANES + 1))
     with pytest.raises(ValueError, match="without a RecommendScorer"):
-        port.answer_batch([tserve.Query(kind="recommend", root=8)])
-    with pytest.raises(NotImplementedError, match="recommend"):
-        _service(graph, scorer=object())
+        _service(graph).answer_batch([tserve.Query(kind="recommend", root=8)])
+    with pytest.raises(ValueError, match="lookup"):
+        tserve.RecommendScorer(lookup="gspmd", device="cpu")
+    with pytest.raises(RuntimeError, match="refresh_pool"):
+        tserve.RecommendScorer(device="cpu").recommend_for(port.pg, 8)
     with pytest.raises(ValueError):
         _service(graph, opts=EngineOptions(lanes=8))
 
@@ -204,9 +251,11 @@ def test_loop_coalesces_full_batch_and_drains_at_deadline(graph):
 
 
 def test_loop_run_replays_mixed_stream(graph):
-    svc = _service(graph)
+    svc = _service(graph, scorer=tserve.RecommendScorer(pool_size=POOL, topk=TOPK,
+                                                         device="cpu"))
     loop = tserve.RequestLoop(svc, tserve.LoopConfig(max_wait_ms=5.0, host_batch=LANES))
-    wl = TS.mixed_query_workload(20, graph.num_vertices, mix=SERVE_MIX, seed=9)
+    wl = TS.mixed_query_workload(20, graph.num_vertices, seed=9)
+    assert "recommend" in {q["kind"] for q in wl}
     done = loop.run([("query", tserve.Query(kind=q["kind"], root=q["root"],
                                             target=q["target"], qid=i))
                      for i, q in enumerate(wl)])
@@ -250,13 +299,63 @@ def test_auto_flush_threshold(graph):
     assert len(loop.metrics.flushes) == 1 and svc.g.num_edges == graph.num_edges + 8
 
 
-def test_serve_cli_smoke_on_cpu():
+def test_recommend_follows_flush(graph):
+    """A flush refreshes the pool from the new in-degrees on both sides, and
+    the answers still match."""
+    ref_scorer = _ref_scorer()
+    ref = rserve.GraphService(graph, RConfig(p=2, l=2), lanes=LANES, scorer=ref_scorer)
+    port = _service(graph, scorer=_port_scorer(ref_scorer))
+    hub = np.full(40, 61, dtype=np.int64)  # 40 new in-edges make vertex 61 the top hub
+    src = np.arange(40, dtype=np.int64) % graph.num_vertices
+    w = np.ones(40, np.float32)
+    for svc in (ref, port):
+        svc.ingest(src, hub, w)
+        svc.flush()
+    np.testing.assert_array_equal(port.scorer._pool_vertices, ref.scorer._pool_vertices)
+    assert port.scorer._pool_vertices[0] == 61
+    qs = _queries("recommend", [61, 2])
+    got, want = port.answer_batch(qs), ref.answer_batch(_ref_queries(qs))
+    assert got.cold and want.cold
+    for a, b in zip(got.answers, want.answers):
+        _assert_recommend_match(a, b)
+
+
+def test_replay_equivalence_compares_neighbors_of_for_every_root(graph):
+    """The smoke's equivalence check answers neighbors-of for every distinct
+    root of a stream that sends none, and catches partitions whose in-edges
+    differ where BFS cannot see it (a self-loop on a root)."""
+    from repro_torch.core.partition import partition_2d
+    from repro_torch.launch.serve import check_replay_equivalence
+
+    g = _port_graph(graph)
+    cfg = PartitionConfig(p=2, l=2)
+    workload = TS.mixed_query_workload(12, g.num_vertices, mix={"bfs": 1.0}, seed=0)
+    roots = {int(q["root"]) for q in workload}
+    counts = check_replay_equivalence(g, partition_2d(g, cfg), partition_2d(g, cfg), workload,
+                                      LANES, "cpu", None)
+    assert counts == {"bfs": 12, "neighbors": len(roots)}
+    r = min(roots)
+    looped = TG.COOGraph(src=np.append(g.src, r).astype(g.src.dtype),
+                         dst=np.append(g.dst, r).astype(g.dst.dtype),
+                         num_vertices=g.num_vertices,
+                         weights=np.append(g.weights, 1.0).astype(np.float32))
+    with pytest.raises(AssertionError, match="neighbors query"):
+        check_replay_equivalence(g, partition_2d(g, cfg), partition_2d(looped, cfg), workload,
+                                 LANES, "cpu", None)
+
+
+@pytest.mark.parametrize("args,expect", [
+    (["--arch", "graph", "--smoke"], "serve smoke OK"),
+    (["--arch", "din", "--mode", "pointwise"], "pointwise on cpu: batch 512"),
+    (["--arch", "din", "--mode", "retrieval"], "retrieval on cpu: 4096 candidates"),
+])
+def test_serve_cli_smoke_on_cpu(args, expect):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch", "graph",
-                          "--smoke", "--device", "cpu"], capture_output=True, text=True,
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *args,
+                          "--device", "cpu"], capture_output=True, text=True,
                          timeout=300, env=env, cwd=ROOT)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert "serve smoke OK" in out.stdout
+    assert expect in out.stdout
 
 
 def test_serving_modules_import_no_jax():
@@ -266,6 +365,8 @@ def test_serving_modules_import_no_jax():
         f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
         "import repro_torch.serve, repro_torch.launch.serve, repro_torch.data.synthetic\n"
         "import repro_torch.core.partition, repro_torch.core.problems\n"
+        "import repro_torch.models.recsys.din, repro_torch.dist.embedding\n"
+        "import repro_torch.kernels.embedding_bag, repro_torch.configs.registry\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "print(','.join(bad))\n"
     )
