@@ -118,21 +118,66 @@ parameters drawn on the card from a seeded generator:
              not timed: the default mix sends none), BFS/WCC/SSSP labels
              and iterations equal
 
+The one-bucket gather kernel (after lanes_engine, on the same partition):
+
+  bucket     ops.gather_reduce over every one of the p * l = 64 (core,
+             phase) buckets, each tiled from pg.src_gidx/dst_lidx/valid/
+             weights as the partition tiles it (its vb, eb, row packing and
+             split threshold), in three forms: a BFS-level min on u32, an
+             SSSP min-plus with weights, a PageRank sum, one seeded payload
+             per phase; launches counted (64 a form). Each bucket's natural
+             rows against the fused kernel's (channel_phase_reduce) on the
+             same payload, three buckets' packed rows against the plain
+             version: min bit-equal, sum within SUM_TOL and the same bits
+             again. Device time per launch over the 64 buckets, plain ms, the
+             byte bound, and the stream's bytes per edge beside the fused
+             kernel's packed 4 B
+
+GAT and the GNN trainer (after serve, whose partitions are freed first),
+gat-cora at its published width (get("gat-cora").model: 2 layers, 8
+heads x 8), attention vectors seeded non-zero:
+
+  softmax_kernel  the segment-softmax kernel against its plain version at
+             (a) GAT layer 1 at the Cora shape (full_graph_sm: 4096 nodes,
+             16,384 edge slots, H = 8) and (b) the smoke graph as one GAT
+             layout (H = 8): within SOFTMAX_TOL, the same bits again; device
+             time, plain time, the byte bound, the layout's padding share and
+             host build seconds
+  gnn        train: 50 steps of make_gnn_train_step with AdamW(lr 1e-3) on
+             full_graph_sm uncut (symmetrize(rmat(12, 2, seed=0)) padded to
+             16,384 masked slots, d_feat 1433, 7 classes): ms per step
+             (median, min, max), steps/s over the wall, the softmax kernel's
+             launches (counted: 2 a step), the loss falling, and the first
+             step's loss and grads against a plain-softmax run within
+             GNN_TOL. infer: make_gnn_infer on the smoke graph's COO at
+             ogbn-products' widths (d_feat 100, 47 classes; the graph cut from
+             2,449,408 / 61,859,328 to 1,048,576 / 31,403,850 by chip time and
+             the host build): ms per forward, edges/s, launches (2 a
+             forward), device idle share of one profiled forward, peak
+             memory, outputs within 1e-4 of a plain-softmax run. Then one
+             train step at published width of each other arch on its cell
+             (gcn-cora, schnet, meshgraphnet on full_graph_sm; graphsage on
+             minibatch_lg's sizes, a seeded graph, loss on 1024 seed nodes;
+             gin-tu on molecule): the loss must be finite
+
 Then a ``{"kernels": [...]}`` line (the laneless variants' launches from
 main_path, the lane variants' from lanes_engine, the embedding bag's from
-din and serve, timed at shape (a)) and, last, ``{"ok": true, "device":
-...}``.
+din and serve, timed at shape (a); the bucket kernel's from bucket; the
+softmax kernel's from gnn's timed train steps and forwards, timed at shape
+(a)) and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero; it also exits non-zero, printing no
 result, when no CUDA device is present or the port's sources are missing.
 
 ``--scale N`` shrinks the graph for a quick run. ``--cpu-rehearsal`` runs
-every phase on the CPU through the plain versions at a small scale (DIN at
-its smoke config), to check the script's control flow without a card; it
-always exits 3.
+every phase on the CPU through the plain versions at a small scale (DIN and
+the five other GNNs at their smoke configs, GAT at 64 features, 3 train
+steps), to check the script's control flow without a card; it always exits
+3.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -184,8 +229,14 @@ SERVE_QUERIES = 128
 SERVE_INSERTS = 512
 EMBAG = dict(source="src/repro_torch/csrc/embedding_bag.cu",
              replaces="src/repro/kernels/embedding_bag/kernel.py:75")
+BUCKET = dict(source="src/repro_torch/csrc/gather_reduce.cu",
+              replaces="src/repro/kernels/csr_gather_reduce/kernel.py:159")
+SOFTMAX = dict(source="src/repro_torch/csrc/segment_softmax.cu",
+               replaces="src/repro/kernels/segment_softmax/kernel.py:66")
 BAG_TOL = dict(rtol=1e-5, atol=1e-7)  # both sum in id order (in fact the same bits)
 DIN_TOL = dict(rtol=1e-5, atol=1e-6)
+SOFTMAX_TOL = dict(rtol=1e-5, atol=1e-7)  # online rescaling vs the plain version's final max
+GNN_TOL = dict(rtol=1e-5, atol=1e-6)
 DIN_BATCH, DIN_CANDIDATES, DIN_CHUNK = 512, 4096, 512  # the reference CLI's sizes
 BAG_ROUNDS = 2  # bag timing: (sum, mean, mean, sum) this many times per shape
 COLD_SETS = 8  # id sets of shape (c) in rotation: ~160 MB of row sectors, past the 50 MB L2
@@ -231,7 +282,7 @@ def main() -> int:
     from repro_torch.core import frontier_words as F
     from repro_torch.core import reference, u32
     from repro_torch.core.engine import (
-        EngineOptions, _edge_constants, channel_phase_reduce_oracle,
+        EngineOptions, _edge_constants, channel_phase_reduce, channel_phase_reduce_oracle,
         make_iteration, phase_consts_at, prepare_labels, run, run_frontier_trace,
     )
     from repro_torch.core.partition import PartitionConfig, partition_2d
@@ -247,7 +298,10 @@ def main() -> int:
     from repro_torch.kernels.csr_gather_reduce import kernel as K
     from repro_torch.kernels.csr_gather_reduce import scatter as S
     from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_reference
+    from repro_torch.kernels.csr_gather_reduce import bucket as B
+    from repro_torch.kernels.csr_gather_reduce import ops as BO
     from repro_torch.kernels.embedding_bag import kernel as EB
+    from repro_torch.kernels.segment_softmax import kernel as SK
     from repro_torch.models.recsys import din
 
     def sync():
@@ -271,14 +325,14 @@ def main() -> int:
     # -- build: one nvcc per source, all started together ----------------------
     t0 = time.perf_counter()
     if not rehearsal:
-        sources = (K.SOURCE, S.SOURCE, EB.SOURCE)
+        sources = (K.SOURCE, S.SOURCE, EB.SOURCE, B.SOURCE, SK.SOURCE)
         with ThreadPoolExecutor(len(sources)) as pool:
             logs = dict(zip(sources, pool.map(lambda s: build_library(s)[1], sources)))
         for s in sources:
             load_library(s)
         ptxas = {s: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
                  for s, log in logs.items()}
-        emit("build", t0, sources=[GATHER["source"], SCATTER["source"], EMBAG["source"]],
+        emit("build", t0, sources=[m["source"] for m in (GATHER, SCATTER, EMBAG, BUCKET, SOFTMAX)],
              ptxas=ptxas)
 
     # -- graph ----------------------------------------------------------------
@@ -385,6 +439,28 @@ def main() -> int:
         if dev.type != "cuda":
             return wall / 1e3 / (reps * calls)
         return sum(event_us(e) for e in evs if name is None or name in e.key) / 1e3 / (reps * calls)
+
+    def kernel_ms(fn, reps, launches_per_call, name):
+        """Device time per launch of the kernel named ``name``: the mean of
+        its profiler events over ``reps`` calls of ``fn`` (each making
+        ``launches_per_call`` launches), with the count of events seen, and
+        the CUDA-event time of the same calls per launch, host gaps
+        included, which stands in for the mean if the profiler saw none.
+        Late in this run the profiler misses some launches of the kernels
+        loaded with ctypes (the mean does not depend on how many it sees),
+        and at times all of them."""
+        if dev.type != "cuda":
+            return dict(ms=device_ms(fn, reps, launches_per_call), events_seen=None,
+                        events_expected=reps * launches_per_call, event_clock_ms=None)
+        fn()
+        sync()
+        _, evs = profiled(lambda: [fn() for _ in range(reps)])
+        hits = [e for e in evs if name in e.key]
+        seen = sum(e.count for e in hits)
+        clock = wall_ms(fn, reps) / launches_per_call
+        return dict(ms=sum(event_us(e) for e in hits) / seen / 1e3 if seen else clock,
+                    ms_from="profiler" if seen else "cuda_events", events_seen=seen,
+                    events_expected=reps * launches_per_call, event_clock_ms=clock)
 
     def wall_ms(fn, reps):
         """CUDA-event time per run of ``fn``, host launch gaps included."""
@@ -974,6 +1050,115 @@ def main() -> int:
 
     lane_launches = lane_engine_phase()
 
+    # -- the one-bucket gather kernel over every (core, phase) bucket ---------
+    def bucket_phase():
+        """ops.gather_reduce over the 64 buckets of the partition, each tiled
+        as the partition tiles it, in three forms (BFS-level min on u32,
+        SSSP min-plus with weights, PageRank sum), against the fused kernel
+        #1 on the same phase payload (natural rows) and the plain version
+        (packed rows). Returns (launches, errors, timing)."""
+        t0 = time.perf_counter()
+        from repro_torch.core.partition import _bucket_split_threshold
+
+        t = time.perf_counter()
+        cfg = PartitionConfig(**CFG)
+        vpc, vb, eb = pg.vertices_per_core, pg.tile_vb, pg.tile_word.shape[4]
+        host = [[BO.prepare_tiles(
+            pg.src_gidx[i, m], pg.dst_lidx[i, m], pg.valid[i, m], num_rows=vpc, vb=vb, eb=eb,
+            weights=pg.weights[i, m] if pg.weights is not None else None,
+            balance_rows=cfg.degree_aware_tiles,
+            split_threshold=_bucket_split_threshold(cfg, int(pg.valid[i, m].sum()), vpc // vb))
+            for m in range(pg.l)] for i in range(pg.p)]
+        build_s = time.perf_counter() - t
+        tiles = [[BO.layout_to(tl, dev) for tl in row] for row in host]
+        sync()
+        slots = sum(int(tl.valid.size) for row in host for tl in row)
+        real = sum(int(tl.valid.sum()) for row in host for tl in row)
+        split_buckets = sum(tl.row_orig is not None for row in host for tl in row)
+        fused_real_slots = float(pg.tile_counts.sum()) * eb
+        forms = {"min_u32": bfs(0), "min_f32_add": sssp(0), "sum_f32": pagerank()}
+        payloads = {v: [payload_for(v, pg.gathered_size) for _ in range(pg.l)] for v in forms}
+        errs, timing = {}, {}
+        sync()
+        B.reset_launch_counts()
+        outs = {}
+        for variant, problem in forms.items():  # the main path: ops.gather_reduce per bucket
+            kw = dict(kind=problem.reduce_kind, edge_op=problem.edge_op,
+                      identity=problem.identity)
+            outs[variant] = [[BO.gather_reduce(payloads[variant][m], tiles[i][m], **kw)
+                              for m in range(pg.l)] for i in range(pg.p)]
+        sync()
+        bucket_launches = dict(B.LAUNCHES)
+        if not rehearsal:
+            check(bucket_launches == {v: pg.p * pg.l for v in forms},
+                  f"bucket launches {bucket_launches} != {pg.p * pg.l} per form")
+        reps = 2 if rehearsal else 10
+        for variant, problem in forms.items():
+            kw = dict(kind=problem.reduce_kind, edge_op=problem.edge_op,
+                      identity=problem.identity)
+            consts = _edge_constants(problem, pg, EngineOptions(), dev)
+            err = 0.0
+            for m in range(pg.l):
+                fused = channel_phase_reduce(problem, pg, payloads[variant][m],
+                                             phase_consts_at(consts, m))
+                for i in range(pg.p):
+                    err = max(err, agree(outs[variant][i][m], fused[i], variant,
+                                         f"bucket ({i}, {m}) vs fused"))
+            del consts
+            add = problem.edge_op == "add"
+
+            def raw_args(i, m, variant=variant, add=add):
+                tl = tiles[i][m]
+                return ((payloads[variant][m], tl.src, tl.dstb, tl.valid,
+                         tl.weights if add else None),
+                        dict(num_rows=tl.src.shape[0] * vb, vb=vb, **kw))
+
+            for i, m in ((0, 0), (pg.p - 1, pg.l - 1), (1, pg.l // 2)):
+                a, k2 = raw_args(i, m)
+                got = B.gather_reduce_bucket(*a, **k2)
+                err = max(err, agree(got, B.gather_reduce_bucket_plain(*a, **k2), variant,
+                                     f"bucket ({i}, {m}) kernel vs plain"))
+                if variant == "sum_f32":
+                    check(torch.equal(got.view(torch.int32),
+                                      B.gather_reduce_bucket(*a, **k2).view(torch.int32)),
+                          f"bucket ({i}, {m}) sum: two launches gave different bits")
+            errs[variant] = err
+            every = [raw_args(i, m) for i in range(pg.p) for m in range(pg.l)]
+            n = len(every)
+            row = dict(launches_per_call=n)
+            row.update(kernel_ms(lambda: [B.gather_reduce_bucket(*a, **k2) for a, k2 in every],
+                                 reps, n, "gather_reduce_kernel"))
+            row["plain_ms"] = device_ms(
+                lambda: [B.gather_reduce_bucket_plain(*a, **k2) for a, k2 in every],
+                max(1, reps // 5), n)
+            # each real slot's src, dstb, valid (and weight) once, plus the
+            # payload and the output, per launch
+            out_rows = sum(int(tl.src.shape[0]) * vb for row_ in host for tl in row_)
+            nbytes = real * (9 + 4 * add) + n * pg.gathered_size * 4 + out_rows * 4
+            row.update(bound(0, 0, nbytes / n))
+            row["bound_ms"] = max(row["bound_ms"], real / n / F32_OPS_PER_S * 1e3)
+            timing[variant] = row
+        emit("bucket", t0, buckets=pg.p * pg.l, layout_build_seconds=build_s,
+             split_buckets=split_buckets, slots=slots, real_edges=real,
+             padding_share=1.0 - real / max(slots, 1), launches=bucket_launches,
+             max_abs_err=errs, per_launch=timing,
+             stream_bytes_per_edge={
+                 "bucket_arrays": slots * 9 / real, "bucket_arrays_weighted": slots * 13 / real,
+                 "bucket_read": (slots + 8 * real) / real,
+                 "fused_packed_words": fused_real_slots * 4 * (1 + (pg.src_bits == 32)) / real},
+             note="ms: device time per launch, the mean of the kernel's profiler events over "
+                  "10 passes of the 64 buckets (events_seen of events_expected); "
+                  "event_clock_ms: CUDA events around the same passes per launch, host gaps "
+                  "included; plain_ms: device time per launch (profiler, all events); bound: each real slot's src, dstb, valid (and weight) "
+                  "once plus the phase payload and the output at 3.35 TB/s; bucket_read: the "
+                  "valid byte of every slot plus src and dstb of the real ones; "
+                  "fused_packed_words: the fused kernel's 4 B word of every slot of its real "
+                  "tiles; no single PyTorch call computes the function (library_ms null)")
+        del tiles, outs, payloads
+        return bucket_launches, errs, timing
+
+    bucket_launches, bucket_errs, bucket_timing = bucket_phase()
+
     # -- DIN at the published width: parameters drawn on the card from the seed
     din_cfg = get_arch("din").smoke() if rehearsal else get_arch("din").model
     t0 = time.perf_counter()
@@ -1272,6 +1457,286 @@ def main() -> int:
          note="neighbors: one neighbors-of answer per distinct root of the workload, checked "
               "here and not timed (the default mix sends none)")
 
+    del g_final, pg_res, pg_cold, replayed
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- GAT's segment softmax: the kernel against its plain version ----------
+    from repro_torch.data.synthetic import batched_molecules, graph_batch_from_coo
+    from repro_torch.models.gnn import archs as gnn_archs
+    from repro_torch.models.gnn.common import softmax_tiles
+    from repro_torch.train import steps as train_steps
+    from repro_torch.train.optim import AdamWConfig, tree_flatten
+
+    def cora_batch(d_feat, n_classes):
+        """The full_graph_sm cell uncut: 4096 nodes, 16,384 edge slots (the
+        seeded graph's edges, the rest masked), d_feat, n_classes."""
+        dims = get_arch("gat-cora").shape("full_graph_sm").dims
+        n, slots = dims["n_nodes"], dims["n_edges"]
+        gc_ = G.symmetrize(G.rmat(12, 2, seed=SEED))
+        check(gc_.num_vertices == n and gc_.num_edges <= slots,
+              f"Cora-shape graph: {gc_.num_vertices} nodes, {gc_.num_edges} edges")
+        pad = slots - gc_.num_edges
+        src = np.concatenate([gc_.src, np.zeros(pad, gc_.src.dtype)])
+        dst = np.concatenate([gc_.dst, np.zeros(pad, gc_.dst.dtype)])
+        b, lab = graph_batch_from_coo(src, dst, n, d_feat, seed=SEED, n_classes=n_classes)
+        mask = torch.from_numpy(np.arange(slots) < gc_.num_edges)
+        return dataclasses.replace(b, edge_mask=mask).to(dev), lab, gc_.num_edges
+
+    def gat_params(cfg, d_in, d_out, seed):
+        """Seeded parameters with non-zero attention vectors (the reference
+        starts them at zero, which makes every softmax uniform)."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        p = gnn_archs.init(cfg, d_in, d_out, gen, dev)
+        for k in ("l1_asrc", "l1_adst", "l2_asrc", "l2_adst"):
+            p[k] = torch.randn(p[k].shape, generator=gen, device=dev) * 0.5
+        return p
+
+    @contextlib.contextmanager
+    def plain_softmax():
+        """Swap the softmax kernel for its plain version (a reference run)."""
+        kernel_fn = SK.segment_softmax_tiles
+        SK.segment_softmax_tiles = lambda s, d, v, vb: SK.segment_softmax_tiles_plain(
+            s, d, v, vb=vb)
+        try:
+            yield
+        finally:
+            SK.segment_softmax_tiles = kernel_fn
+
+    gat_cfg = get_arch("gat-cora").model  # published width: 2 layers, 8 heads x 8
+    heads = gat_cfg.n_heads
+    t0 = time.perf_counter()
+    cora, cora_lab, cora_edges = cora_batch(1433 if not rehearsal else 64, 7)
+    products = get_arch("gat-cora").shape("ogb_products").dims
+    t = time.perf_counter()
+    big, _ = graph_batch_from_coo(g.src, g.dst, g.num_vertices, products["d_feat"], seed=SEED,
+                                  n_classes=products["n_classes"])
+    big = big.to(dev)
+    big_gen_s = time.perf_counter() - t
+    sm_rows, sm_err = {}, 0.0
+    for label, b in (("a_cora_layer1", cora), ("b_smoke_graph", big)):
+        dt = softmax_tiles(b)
+        host = b.__dict__["_softmax_host"]
+        shape = tuple(dt.dstb.shape)
+        srng = np.random.default_rng(SEED + 7)
+        scores = torch.from_numpy(((srng.random((heads,) + shape, dtype=np.float32) - 0.5)
+                                   * 8)).to(dev)
+        sync()
+        got = SK.segment_softmax_tiles(scores, dt.dstb, dt.valid, vb=dt.vb)
+        want = SK.segment_softmax_tiles_plain(scores, dt.dstb, dt.valid, vb=dt.vb)
+        again = SK.segment_softmax_tiles(scores, dt.dstb, dt.valid, vb=dt.vb)
+        sync()
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, **SOFTMAX_TOL),
+              f"softmax {label}: kernel disagrees with plain version (max err {err})")
+        check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+              f"softmax {label}: two launches gave different bits")
+        sm_err = max(sm_err, err)
+        n_slots = int(dt.valid.numel())
+        n_valid = int(dt.valid.sum())
+        reps = 2 if rehearsal else 20
+        row = dict(heads=heads, rows_per_block=dt.vb, r_blocks=shape[0], tiles=shape[1],
+                   slots_per_tile=shape[2], slots=n_slots, valid_slots=n_valid,
+                   padding_share=host.padding_share, layout_build_seconds=host.build_seconds,
+                   max_abs_err=err)
+        row.update(kernel_ms(lambda: SK.segment_softmax_tiles(scores, dt.dstb, dt.valid,
+                                                              vb=dt.vb),
+                             reps, 1, "segment_softmax_kernel"))
+        row["plain_ms"] = device_ms(lambda: SK.segment_softmax_tiles_plain(
+            scores, dt.dstb, dt.valid, vb=dt.vb), max(1, reps // 5), 1)
+        # scores read and weights written once per head, dstb and valid once;
+        # 7 float operations per valid slot and head (max, 2 sub, 2 exp, add, div)
+        nbytes = heads * n_slots * 8 + n_slots * 5
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 7 * heads * n_valid / F32_OPS_PER_S * 1e3
+        row.update(bound_ms=max(bytes_ms, ops_ms), bound_bytes=nbytes,
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=None)
+        sm_rows[label] = row
+        del scores, got, want, again
+    emit("softmax_kernel", t0, per_launch=sm_rows, max_abs_err=sm_err, tolerance=SOFTMAX_TOL,
+         smoke_graph_generation_seconds=big_gen_s,
+         note="(a) GAT layer 1 at the Cora shape (full_graph_sm, 16,384 slots, H = 8); (b) "
+              "the smoke graph as one GAT layout, H = 8; seeded scores in (-4, 4); ms: the mean "
+              "of the kernel's profiler events over 20 launches (events_seen of "
+              "events_expected) or, where it saw none (ms_from), event_clock_ms: CUDA events "
+              "around the 20 back-to-back launches; plain_ms: device "
+              "time per launch (profiler, all events); bound: "
+              "scores read and weights written once per head, dstb and valid read once, at "
+              "3.35 TB/s; padding_share: slots no edge fills (the layout has no tile counts, "
+              "so the kernel reads them); no single PyTorch call computes a segment softmax "
+              "(library_ms null)")
+
+    # -- GNNs at published width: GAT training and inference, one step of each other arch
+    def gnn_phase():
+        """gat-cora: 50 train steps on the Cora shape, launches counted, and
+        inference on the smoke graph at ogbn-products' widths; then one train
+        step of each other arch on its cell. Returns the softmax launches."""
+        t0 = time.perf_counter()
+        n_steps = 3 if rehearsal else 50
+        ocfg = AdamWConfig(lr=1e-3, total_steps=n_steps, warmup_steps=min(20, n_steps))
+        d_in = cora.node_feat.shape[1]
+        params = gat_params(gat_cfg, d_in, 7, SEED)
+        labels = torch.from_numpy(cora_lab).to(dev)
+        loss_fn = train_steps.make_gnn_loss(gat_cfg, "node_class")
+        # the first step's loss and grads against a run with the plain softmax
+        loss_k, grads_k = train_steps.value_and_grad(loss_fn, params, cora, labels)
+        with plain_softmax():
+            loss_p, grads_p = train_steps.value_and_grad(loss_fn, params, cora, labels)
+        gk, gp = tree_flatten(grads_k)[0], tree_flatten(grads_p)[0]
+        grad_err = max(float((a - b).abs().max()) for a, b in zip(gk, gp))
+        check(torch.allclose(loss_k, loss_p, **GNN_TOL)
+              and all(torch.allclose(a, b, **GNN_TOL) for a, b in zip(gk, gp)),
+              f"gat first step: kernel vs plain softmax loss {float(loss_k)} / "
+              f"{float(loss_p)}, max grad diff {grad_err}")
+        step = train_steps.make_gnn_train_step(gat_cfg, ocfg, task="node_class")
+        state = train_steps.init_train_state(params, ocfg)
+        state, _ = step(state, cora, labels)  # warm (not counted)
+        state = train_steps.init_train_state(params, ocfg)
+        sync()
+        SK.reset_launch_counts()
+        lat, losses = [], []
+        t_all = time.perf_counter()
+        for _ in range(n_steps):
+            t = time.perf_counter()
+            state, m = step(state, cora, labels)
+            losses.append(float(m["loss"]))  # waits for the step
+            lat.append((time.perf_counter() - t) * 1e3)
+        wall = time.perf_counter() - t_all
+        train_launches = dict(SK.LAUNCHES)
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"gat train: loss did not fall ({losses[0]} -> {losses[-1]})")
+        if not rehearsal:
+            check(train_launches == {"f32": 2 * n_steps},
+                  f"gat train: softmax launches {train_launches} != 2 x {n_steps} steps")
+        wall_us, evs = profiled(lambda: step(state, cora, labels))
+        dev_us = sum(event_us(e) for e in evs)
+        train = dict(steps=n_steps, ms_per_step=dict(median=float(np.median(lat)),
+                                                     min=min(lat), max=max(lat)),
+                     steps_per_s=n_steps / wall, loss_first=losses[0], loss_last=losses[-1],
+                     first_step_loss=[float(loss_k), float(loss_p)],
+                     first_step_max_grad_diff=grad_err, launches=train_launches,
+                     profiled_step=dict(wall_us=wall_us, device_busy_us=dev_us,
+                                        device_idle_share=1.0 - dev_us / wall_us,
+                                        device_events=sum(e.count for e in evs),
+                                        softmax_events=[sum(e.count for e in evs
+                                                            if "segment_softmax" in e.key), 2],
+                                        softmax_us=sum(event_us(e) for e in evs
+                                                       if "segment_softmax" in e.key)),
+                     real_edges=cora_edges, edge_slots=cora.num_edges, d_feat=d_in)
+        del state, params, grads_k, grads_p
+        # inference on the smoke graph at ogbn-products' widths (d_feat 100, 47 classes)
+        infer = train_steps.make_gnn_infer(gat_cfg)
+        iparams = gat_params(gat_cfg, products["d_feat"], products["n_classes"], SEED + 1)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        out = infer(iparams, big)
+        sync()
+        check(out.shape == (big.num_nodes, products["n_classes"])
+              and bool(torch.isfinite(out).all()), "gat infer: non-finite or misshapen output")
+        with plain_softmax():
+            out_p = infer(iparams, big)
+        sync()
+        infer_err = float((out - out_p).abs().max())
+        check(torch.allclose(out, out_p, rtol=1e-4, atol=1e-4),
+              f"gat infer: kernel vs plain softmax max diff {infer_err}")
+        del out_p
+        n_fwd = 2 if rehearsal else 5
+        SK.reset_launch_counts()
+        lat = []
+        for _ in range(n_fwd):
+            t = time.perf_counter()
+            out = infer(iparams, big)
+            sync()
+            lat.append((time.perf_counter() - t) * 1e3)
+        infer_launches = dict(SK.LAUNCHES)
+        if not rehearsal:
+            check(infer_launches == {"f32": 2 * n_fwd},
+                  f"gat infer: softmax launches {infer_launches} != 2 x {n_fwd} forwards")
+        wall_us, evs = profiled(lambda: infer(iparams, big))
+        dev_us = sum(event_us(e) for e in evs)
+        top = sorted(evs, key=event_us, reverse=True)[:6]
+        med = float(np.median(lat))
+        inference = dict(
+            nodes=big.num_nodes, edges=big.num_edges, d_feat=products["d_feat"],
+            classes=products["n_classes"], forwards=n_fwd,
+            ms_per_forward=dict(median=med, min=min(lat), max=max(lat)),
+            edges_per_s=big.num_edges / med * 1e3, max_abs_diff_vs_plain=infer_err,
+            launches=infer_launches,
+            peak_memory_bytes=torch.cuda.max_memory_allocated() if dev.type == "cuda" else None,
+            profiled_forward=dict(wall_us=wall_us, device_busy_us=dev_us,
+                                  device_idle_share=1.0 - dev_us / wall_us,
+                                  device_events=sum(e.count for e in evs),
+                                  softmax_events=[sum(e.count for e in evs
+                                                      if "segment_softmax" in e.key), 2],
+                                  softmax_us=sum(event_us(e) for e in evs
+                                                 if "segment_softmax" in e.key),
+                                  top_device_us={e.key[:80]: [event_us(e), e.count]
+                                                 for e in top}))
+        del out, iparams
+        # one train step at published width for each other arch, on its cell
+        others = {}
+        for arch_id, cell in (("gcn-cora", "full_graph_sm"), ("graphsage", "minibatch_lg"),
+                              ("schnet", "full_graph_sm"), ("meshgraphnet", "full_graph_sm"),
+                              ("gin-tu", "molecule")):
+            arch = get_arch(arch_id)
+            cfg = arch.smoke() if rehearsal else arch.model
+            dims = arch.shape(cell).dims
+            loss_nodes, task = None, arch.gnn_task
+            if cell == "molecule":
+                b, lab = batched_molecules(SEED, dims["n_graphs"], dims["nodes_per"],
+                                           dims["edges_per"], dims["d_feat"], dims["n_classes"])
+                b, task = b.to(dev), "graph_class"
+                out_dim = dims["n_classes"]
+            elif cell == "minibatch_lg":  # a seeded graph at the sampler's sizes
+                n, e = dims["n_nodes"], dims["n_edges"]
+                if rehearsal:
+                    n, e = n // 64, e // 64
+                erng = np.random.default_rng(SEED + 9)
+                b, lab = graph_batch_from_coo(erng.integers(0, n, e), erng.integers(0, n, e), n,
+                                              dims["d_feat"], seed=SEED,
+                                              n_classes=dims["n_classes"])
+                b, loss_nodes = b.to(dev), dims["batch_nodes"]
+                out_dim = dims["n_classes"]
+            else:
+                b = cora
+                out_dim = dims["n_classes"] if task.endswith("class") else arch.gnn_out_dim
+                lab = cora_lab
+            if task == "node_reg":
+                lab = np.random.default_rng(SEED + 11).standard_normal(
+                    (b.num_nodes, out_dim)).astype(np.float32)
+            d_in = b.node_feat.shape[1]
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            st = train_steps.init_train_state(gnn_archs.init(cfg, d_in, out_dim, gen, dev), ocfg)
+            stp = train_steps.make_gnn_train_step(cfg, ocfg, task=task, loss_nodes=loss_nodes)
+            lab_t = torch.from_numpy(lab).to(dev)
+            sync()
+            t = time.perf_counter()
+            st, m = stp(st, b, lab_t)
+            loss = float(m["loss"])
+            ms = (time.perf_counter() - t) * 1e3
+            check(np.isfinite(loss), f"{arch_id} on {cell}: loss {loss}")
+            others[arch_id] = dict(cell=cell, task=task, loss=loss, first_step_ms=ms,
+                                   nodes=b.num_nodes, edges=b.num_edges, d_feat=d_in,
+                                   out_dim=out_dim, config=dataclasses.asdict(cfg) | {
+                                       "dtype": str(cfg.dtype)})
+            del st, stp
+        emit("gnn", t0, config=dataclasses.asdict(gat_cfg) | {"dtype": str(gat_cfg.dtype)},
+             train=train, infer=inference, other_archs=others, tolerance=GNN_TOL,
+             note="train: gat-cora at published width on full_graph_sm uncut (Cora-shape "
+                  "graph symmetrize(rmat(12, 2, seed=0)), padded to 16,384 masked slots), "
+                  "AdamW lr 1e-3 as the CLI, host clock per step ending in a read of the loss; "
+                  "steps_per_s over the wall of all timed steps; infer: the smoke graph's COO "
+                  "(ogbn-products cut to 1,048,576 nodes / 31,403,850 edges) at d_feat 100, "
+                  "47 classes; profiled_*: one step or forward under torch.profiler, device "
+                  "events only (softmax_events: the softmax kernel's events seen, of 2 launched; "
+                  "the profiler can miss events late in this run, so busy time is a floor); "
+                  "other archs: one step at published width from a fresh state "
+                  "(its first step, so it includes first-call costs)")
+        return {"f32": train_launches.get("f32", 0) + infer_launches.get("f32", 0)}
+
+    softmax_launches = gnn_phase()
+
     kernels = [
         dict(name=f"{kern}_reduce_cores[{v}]", route="cuda", **meta,
              launches=launches[f"{kern}_reduce_cores"].get(v, 0), max_abs_err=errs[(kern, v)],
@@ -1298,6 +1763,20 @@ def main() -> int:
              bound_ms=bag_rows["a_serve_p99[sum]"]["bound_ms"],
              bound_by=bag_rows["a_serve_p99[sum]"]["bound_by"],
              library_ms=bag_rows["a_serve_p99[sum]"]["library_ms"])
+    ] + [
+        dict(name=f"gather_reduce[{v}]", route="cuda", **BUCKET,
+             launches=bucket_launches.get(v, 0), max_abs_err=bucket_errs[v],
+             ms=bucket_timing[v]["ms"], plain_ms=bucket_timing[v]["plain_ms"],
+             bound_ms=bucket_timing[v]["bound_ms"], bound_by=bucket_timing[v]["bound_by"],
+             library_ms=None)
+        for v in ("min_u32", "min_f32_add", "sum_f32")
+    ] + [
+        # the trainer's shape: GAT layer 1 at the Cora shape, shape (a)
+        dict(name="segment_softmax[f32]", route="cuda", **SOFTMAX,
+             launches=softmax_launches.get("f32", 0), max_abs_err=sm_err,
+             ms=sm_rows["a_cora_layer1"]["ms"], plain_ms=sm_rows["a_cora_layer1"]["plain_ms"],
+             bound_ms=sm_rows["a_cora_layer1"]["bound_ms"],
+             bound_by=sm_rows["a_cora_layer1"]["bound_by"], library_ms=None)
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     if rehearsal:

@@ -1,7 +1,7 @@
 """Config schema for the architectures.
 
-Counterpart of ``repro.configs.base`` (the schema and the recsys shapes;
-the LM and GNN shapes come with those models). Every arch module exposes
+Counterpart of ``repro.configs.base`` (the schema, the GNN and the recsys
+shapes; the LM shapes come with the LM models). Every arch module exposes
 ``ARCH: ArchConfig`` registered in ``configs.registry``; ``smoke()`` returns
 a CPU-sized reduction of the same family.
 """
@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
-__all__ = ["ShapeCell", "ArchConfig", "RECSYS_SHAPES"]
+__all__ = ["ShapeCell", "ArchConfig", "GNN_SHAPES", "RECSYS_SHAPES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,7 +25,7 @@ class ShapeCell:
 class ArchConfig:
     arch_id: str
     family: str  # 'lm' | 'gnn' | 'recsys'
-    model: Any  # DINConfig (the port's only family so far)
+    model: Any  # GNNConfig | DINConfig
     shapes: Tuple[ShapeCell, ...]
     source: str  # public provenance tag
     # family-specific extras
@@ -39,6 +39,39 @@ class ArchConfig:
                 return s
         raise KeyError(f"{self.arch_id} has no shape {name}: {[s.name for s in self.shapes]}")
 
+
+# GNN shapes: node/edge counts padded to multiples of 512 (mesh divisibility);
+# originals in notes. Features/classes per standard datasets.
+GNN_SHAPES: Tuple[ShapeCell, ...] = (
+    ShapeCell(
+        "full_graph_sm",
+        "gnn_full",
+        dict(n_nodes=4096, n_edges=16384, d_feat=1433, n_classes=7),
+        note="cora 2708/10556 padded to 4096/16384",
+    ),
+    ShapeCell(
+        "minibatch_lg",
+        "gnn_minibatch",
+        dict(
+            batch_nodes=1024, fanout1=15, fanout2=10,
+            n_nodes=169984, n_edges=168960,  # sampler max_nodes/max_edges
+            d_feat=602, n_classes=41,
+        ),
+        note="reddit-scale (233k nodes / 115M edges) via fanout-15,10 sampler",
+    ),
+    ShapeCell(
+        "ogb_products",
+        "gnn_full",
+        dict(n_nodes=2449408, n_edges=61859328, d_feat=100, n_classes=47),
+        note="ogbn-products 2,449,029/61,859,140 padded to x512 multiples",
+    ),
+    ShapeCell(
+        "molecule",
+        "gnn_molecule",
+        dict(n_graphs=128, nodes_per=32, edges_per=64, d_feat=16, n_classes=2),
+        note="30 nodes padded to 32 for lane alignment; batch=128 graphs",
+    ),
+)
 
 RECSYS_SHAPES: Tuple[ShapeCell, ...] = (
     ShapeCell("train_batch", "serve_train", dict(batch=65536)),

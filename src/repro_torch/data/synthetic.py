@@ -1,15 +1,20 @@
-"""Synthetic data: serving traffic (query streams, edge-insertion streams)
-and recsys batches.
+"""Synthetic data: serving traffic (query streams, edge-insertion streams),
+recsys batches and graph batches.
 
-Counterpart of the serving and recsys generators of ``repro.data.synthetic``:
-the same numpy RNG calls in the same order, so the same seed gives the same
-arrays in both packages. Everything here is host numpy.
+Counterpart of the serving, recsys and graph generators of
+``repro.data.synthetic``: the same numpy RNG calls in the same order, so the
+same seed gives the same arrays in both packages. Everything is drawn on the
+host with numpy; the graph generators wrap the arrays in a ``GraphBatch`` of
+CPU tensors (``GraphBatch.to`` moves it).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.models.gnn.common import GraphBatch
 
 __all__ = [
     "QUERY_KINDS",
@@ -20,6 +25,9 @@ __all__ = [
     "admission_batches",
     "recsys_batch",
     "retrieval_batch",
+    "random_positions_distances",
+    "graph_batch_from_coo",
+    "batched_molecules",
 ]
 
 QUERY_KINDS = ("bfs", "sssp", "ppr", "recommend", "neighbors")
@@ -204,3 +212,77 @@ def retrieval_batch(
         "cand_items": cand,
         "cand_cates": (cand % cate_vocab).astype(np.int32),
     }
+
+
+def random_positions_distances(rng, src, dst, n_nodes, box: float = 10.0):
+    pos = rng.random((n_nodes, 3)).astype(np.float32) * box
+    d = np.linalg.norm(pos[src] - pos[dst], axis=-1).astype(np.float32)
+    return pos, d
+
+
+def _batch(**arrays) -> GraphBatch:
+    n_graphs = arrays.pop("n_graphs")
+    return GraphBatch(n_graphs=n_graphs, **{
+        k: torch.from_numpy(v) if v is not None else None for k, v in arrays.items()
+    })
+
+
+def graph_batch_from_coo(
+    src: np.ndarray,
+    dst: np.ndarray,
+    n_nodes: int,
+    d_feat: int,
+    seed: int = 0,
+    n_classes: int = 8,
+    with_dist: bool = True,
+) -> Tuple[GraphBatch, np.ndarray]:
+    """Single full graph -> GraphBatch (CPU tensors) + node labels (numpy):
+    features, labels, then positions, drawn in that order."""
+    rng = np.random.default_rng(seed)
+    feat = rng.standard_normal((n_nodes, d_feat)).astype(np.float32)
+    labels = rng.integers(0, n_classes, (n_nodes,)).astype(np.int32)
+    dist = None
+    if with_dist:
+        _, dist = random_positions_distances(rng, src, dst, n_nodes)
+    batch = _batch(
+        node_feat=feat,
+        edge_src=src.astype(np.int32),
+        edge_dst=dst.astype(np.int32),
+        node_mask=np.ones(n_nodes, bool),
+        edge_mask=np.ones(len(src), bool),
+        graph_id=np.zeros(n_nodes, np.int32),
+        n_graphs=1,
+        edge_dist=dist,
+    )
+    return batch, labels
+
+
+def batched_molecules(
+    seed: int, n_graphs: int, nodes_per: int, edges_per: int, d_feat: int,
+    n_classes: int = 2,
+) -> Tuple[GraphBatch, np.ndarray]:
+    """TU-style batch of small graphs (molecule shape: 30 nodes / 64 edges)."""
+    rng = np.random.default_rng(seed)
+    n = n_graphs * nodes_per
+    e = n_graphs * edges_per
+    src = np.zeros(e, np.int32)
+    dst = np.zeros(e, np.int32)
+    for g in range(n_graphs):
+        s = rng.integers(0, nodes_per, edges_per)
+        d = rng.integers(0, nodes_per, edges_per)
+        src[g * edges_per : (g + 1) * edges_per] = g * nodes_per + s
+        dst[g * edges_per : (g + 1) * edges_per] = g * nodes_per + d
+    feat = rng.standard_normal((n, d_feat)).astype(np.float32)
+    _, dist = random_positions_distances(rng, src, dst, n)
+    batch = _batch(
+        node_feat=feat,
+        edge_src=src,
+        edge_dst=dst,
+        node_mask=np.ones(n, bool),
+        edge_mask=np.ones(e, bool),
+        graph_id=np.repeat(np.arange(n_graphs, dtype=np.int32), nodes_per),
+        n_graphs=n_graphs,
+        edge_dist=dist,
+    )
+    labels = rng.integers(0, n_classes, (n_graphs,)).astype(np.int32)
+    return batch, labels

@@ -155,6 +155,21 @@ def _or_into(vals, rows, size):
     return u32.narrow(out)
 
 
+def tile_ordered_sum(vals, rows, tile_of, t_tiles, vb, size, identity):
+    """Sum ``vals`` (n[, L]) at ``rows`` (global rows, vb to a row block)
+    into ``size`` rows holding the identity, with the reference kernel's
+    association: each tile's slots are summed per row first, then the tile
+    partials are added in tile order (on the CPU ``index_add_`` runs in
+    index order); lanes sum independently."""
+    lane_shape = tuple(vals.shape[1:])
+    key = ((rows // vb) * t_tiles + tile_of) * vb + rows % vb
+    uniq, inv = torch.unique(key, return_inverse=True)
+    part = torch.zeros((uniq.shape[0],) + lane_shape, dtype=vals.dtype, device=vals.device)
+    part.index_add_(0, inv, vals)
+    out = torch.full((size,) + lane_shape, identity, dtype=vals.dtype, device=vals.device)
+    return out.index_add_(0, (uniq // (t_tiles * vb)) * vb + uniq % vb, part)
+
+
 def gather_reduce_cores_plain(
     payload, word, counts, word_hi=None, weights=None, fetch=None, *,
     num_rows, vb, src_bits=16, kind="min", edge_op="none", identity=0.0,
@@ -177,19 +192,9 @@ def gather_reduce_cores_plain(
         return _min_into(vals, rows, p * num_rows, identity).view(p, num_rows, *lane_shape)
     if kind == "or":
         return _or_into(vals, rows, p * num_rows).view(p, num_rows, *lane_shape)
-    # sum with the reference kernel's association: each tile's slots are
-    # summed per row first, then the tile partials are added in tile order
-    # (on the CPU index_add_ runs in index order); lanes sum independently
-    out = torch.full((p * num_rows,) + lane_shape, identity, dtype=payload.dtype,
-                     device=word.device)
-    t_idx = torch.arange(t_tiles, device=word.device).view(1, 1, t_tiles, 1)
-    t_of = t_idx.expand_as(word)[live]
-    key = ((rows // vb) * t_tiles + t_of) * vb + rows % vb
-    uniq, inv = torch.unique(key, return_inverse=True)
-    part = torch.zeros((uniq.shape[0],) + lane_shape, dtype=vals.dtype, device=word.device)
-    part.index_add_(0, inv, vals)
-    out.index_add_(0, (uniq // (t_tiles * vb)) * vb + uniq % vb, part)
-    return out.view(p, num_rows, *lane_shape)
+    t_of = torch.arange(t_tiles, device=word.device).view(1, 1, t_tiles, 1).expand_as(word)
+    return tile_ordered_sum(vals, rows, t_of[live], t_tiles, vb, p * num_rows,
+                            identity).view(p, num_rows, *lane_shape)
 
 
 def check_stream(payload, word, counts, word_hi, weights, fetch, src_bits, kind, edge_op):

@@ -1,4 +1,5 @@
-"""Host-side tile preparation (numpy) and the level-2 split-row fold (torch).
+"""Host-side tile preparation (numpy), the level-2 split-row fold (torch),
+and the one-bucket entry point ``gather_reduce``.
 
 Counterpart of ``repro.kernels.csr_gather_reduce.ops``. The host half is a
 numpy copy of the reference, so a default ``PartitionConfig`` gives
@@ -38,6 +39,8 @@ __all__ = [
     "stack_push_tiles",
     "tile_coverage_words",
     "split_map_from_row_orig",
+    "gather_reduce",
+    "layout_to",
     "combine_split_rows",
 ]
 
@@ -654,3 +657,69 @@ def combine_split_rows(
     if kind == "min":
         return vals.amin(dim=fold)
     return vals.sum(dim=fold)
+
+
+def layout_to(tiles: TileLayout, device) -> TileLayout:
+    """The layout with what ``gather_reduce`` reads (src, dstb, valid,
+    weights, row_pos) as tensors on ``device``, so that repeated calls
+    upload nothing; ``row_orig`` stays on the host."""
+    def on(a, dtype=None):
+        if a is None:
+            return None
+        t = torch.as_tensor(np.ascontiguousarray(a) if isinstance(a, np.ndarray) else a,
+                            device=device)
+        return t.to(dtype) if dtype is not None else t
+
+    return dataclasses.replace(
+        tiles, src=on(tiles.src, torch.int32), dstb=on(tiles.dstb, torch.int32),
+        valid=on(tiles.valid, torch.bool), weights=on(tiles.weights, torch.float32),
+        row_pos=on(tiles.row_pos, torch.int64),
+    )
+
+
+def gather_reduce(
+    payload: torch.Tensor,  # (G,) gathered block; int32 = uint32 bits
+    tiles: TileLayout,
+    *,
+    kind: str = "min",
+    edge_op: str = "none",
+    identity: float = 0.0,
+    use_reference: bool = False,
+) -> torch.Tensor:
+    """Run the accumulator over one (core, phase) bucket -> (num_rows,).
+
+    The kernel (``bucket.gather_reduce_bucket``: the Hopper kernel on the
+    card, its plain version on the CPU) reduces PACKED rows, R * vb of them,
+    which with hub-row splitting may be more than the natural ``num_rows``;
+    the level-2 fold (``combine_split_rows``) or the row-packing undo brings
+    them back. ``use_reference`` runs the plain segment form instead."""
+    from repro_torch.kernels.csr_gather_reduce.bucket import gather_reduce_bucket
+    from repro_torch.kernels.csr_gather_reduce.ref import gather_reduce_reference
+
+    t = layout_to(tiles, payload.device)
+    r_blocks = t.src.shape[0]
+    packed_rows = r_blocks * t.vb
+    weights = t.weights
+    if edge_op == "add" and weights is None:
+        # the kernel treats missing weights as unit weights; the reference
+        # skips the add when weights is None, so make units explicit
+        weights = torch.ones(t.src.shape, dtype=torch.float32, device=payload.device)
+    if use_reference:
+        base = torch.arange(r_blocks, device=payload.device).view(-1, 1, 1) * t.vb
+        out = gather_reduce_reference(
+            payload, t.src.reshape(-1), (t.dstb + base).reshape(-1), t.valid.reshape(-1),
+            packed_rows, kind=kind, identity=identity,
+            weights=weights.reshape(-1) if edge_op == "add" else None,
+        )
+    else:
+        out = gather_reduce_bucket(
+            payload, t.src, t.dstb, t.valid, weights if edge_op == "add" else None,
+            num_rows=packed_rows, vb=t.vb, kind=kind, edge_op=edge_op, identity=identity,
+        )
+    if t.row_orig is not None:  # level-2 reduce over virtual-row partials
+        sm = split_map_from_row_orig(np.asarray(t.row_orig), t.num_rows)
+        return combine_split_rows(out, torch.from_numpy(sm).to(payload.device, torch.int64),
+                                  kind=kind, identity=identity)
+    if t.row_pos is not None:  # undo degree-aware row packing
+        return out[t.row_pos]
+    return out

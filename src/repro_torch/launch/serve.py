@@ -235,7 +235,8 @@ def check_replay_equivalence(g_final, pg_res, pg_cold, workload, lanes, device, 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True, choices=sorted(ARCHS) + ["graph"],
-                    help="a model arch (din), or 'graph' for lane-batched graph query "
+                    help="a model arch (din; GNN archs run in launch.train), or 'graph' "
+                         "for lane-batched graph query "
                          "serving (the LM mode is not ported yet)")
     ap.add_argument("--mode", default="pointwise", choices=["pointwise", "retrieval"])
     ap.add_argument("--lanes", type=int, default=16, help="admission batch width K")
@@ -251,7 +252,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
     if args.arch != "graph":
-        serve_din(get(args.arch), args.mode, device=args.device)
+        arch = get(args.arch)
+        if arch.family != "recsys":
+            raise SystemExit("GNN archs serve via launch.train")
+        serve_din(arch, args.mode, device=args.device)
         return
     if args.smoke:
         # bounded: small graph, few queries, still covers every kind and two

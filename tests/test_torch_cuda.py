@@ -9,7 +9,11 @@ with forced push, laneless and K-lane, on the card against the CPU run; the
 embedding-bag kernel against its plain version (sum and mean, odd D, the
 DIN width D = 18, B = 1, all-padding bags, a cold-table shape at a small N,
 bit-stability) and DIN ``score`` / ``score_candidates`` on the card against
-the CPU run.
+the CPU run; the segment-softmax kernel against its plain version (heads,
+vb up to 8192, empty rows, all-invalid tiles, bit-stability) and GAT's
+forward and backward on the card against the CPU run; the one-bucket
+gather kernel against its plain version (every arm, plain, packed, split
+and empty layouts, both sizes of source offset, T = 0).
 
 Every test here needs an NVIDIA GPU (the kernel has no CPU mode) and skips
 without one. The file imports neither jax nor ``repro``, so it runs on a
@@ -524,3 +528,155 @@ def test_din_on_card_matches_cpu(cuda_device):
     want_c = din.score_candidates(cpu, din.batch_to(rb, "cpu"), cfg, chunk=512)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(got_c.cpu(), want_c, rtol=1e-5, atol=1e-6)
+
+
+# -- the segment-softmax kernel and GAT --------------------------------------
+
+SOFTMAX_TOL = dict(rtol=1e-5, atol=1e-7)  # online rescaling vs the plain version's final max
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,r_blocks,t_tiles,eb,vb,fill", [
+    (1, 4, 3, 16, 8, 0.85),
+    (8, 8, 5, 256, 512, 0.7),  # GAT layer 1 at a small graph
+    (3, 2, 40, 128, 8192, 0.9),  # the most rows a block holds
+    (8, 3, 2, 64, 64, 0.0),  # every slot padding
+    (2, 5, 7, 32, 16, 0.3),  # empty rows and all-invalid tiles
+])
+def test_cuda_segment_softmax_matches_plain(heads, r_blocks, t_tiles, eb, vb, fill, cuda_device):
+    from repro_torch.kernels.segment_softmax import kernel as SK
+
+    rng = np.random.default_rng(heads * 7 + vb)
+    shape = (r_blocks, t_tiles, eb)
+    dstb = rng.integers(0, max(1, vb // 2), shape).astype(np.int32)  # upper rows stay empty
+    valid = rng.random(shape) < fill
+    valid[:, -1] = False  # an all-invalid tile in every block
+    dstb[0, 0, : eb // 2] = 1  # one heavy row
+    scores = ((rng.random((heads,) + shape) - 0.5) * 20).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (scores, dstb, valid)]
+    want = SK.segment_softmax_tiles(*args, vb=vb)  # the plain version on the CPU
+    before = SK.LAUNCHES.get("f32", 0)
+    got = SK.segment_softmax_tiles(*[a.to(cuda_device) for a in args], vb=vb)
+    again = SK.segment_softmax_tiles(*[a.to(cuda_device) for a in args], vb=vb)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES["f32"] == before + 2
+    assert got.shape == want.shape and got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, **SOFTMAX_TOL)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))  # the same bits
+    assert not got.cpu()[:, ~torch.from_numpy(valid)].any()
+    plain = SK.segment_softmax_tiles_plain(*[a.to(cuda_device) for a in args], vb=vb)
+    torch.testing.assert_close(got, plain, **SOFTMAX_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_gat_forward_and_backward_match_plain(cuda_device):
+    """GAT at the smoke config with non-zero attention on the card (the
+    softmax kernel) against the CPU run (its plain version): outputs and
+    every parameter's gradient."""
+    import repro_torch.core.graph as TG
+    from repro_torch.configs.registry import get
+    from repro_torch.data.synthetic import graph_batch_from_coo
+    from repro_torch.kernels.segment_softmax import kernel as SK
+    from repro_torch.models.gnn import archs
+    from repro_torch.train.optim import tree_flatten, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get("gat-cora").smoke()
+    g = TG.symmetrize(TG.rmat(10, 8, seed=4))
+    b, _ = graph_batch_from_coo(g.src, g.dst, g.num_vertices, 12, seed=4)
+    cpu = archs.init(cfg, 12, 5, torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    for k in ("l1_asrc", "l1_adst", "l2_asrc", "l2_adst"):
+        cpu[k] = torch.randn(cpu[k].shape, generator=gen) * 0.5
+    coef = torch.randn(g.num_vertices, 5, generator=gen)
+
+    def run(params, batch):
+        leaves, rebuild = tree_flatten(params)
+        live = [p.detach().requires_grad_(True) for p in leaves]
+        out = archs.apply(rebuild(live), batch, cfg)
+        grads = torch.autograd.grad((out * coef.to(out.device)).sum(), live)
+        return out.detach().cpu(), [x.cpu() for x in grads]
+
+    want_out, want_g = run(cpu, b)
+    before = SK.LAUNCHES.get("f32", 0)
+    got_out, got_g = run(tree_map(lambda t: t.to(cuda_device), cpu), b.to(cuda_device))
+    assert SK.LAUNCHES["f32"] == before + 2  # one per layer: the card never took plain
+    torch.testing.assert_close(got_out, want_out, rtol=1e-5, atol=1e-5)
+    for a, w in zip(got_g, want_g):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-5)
+
+
+# -- the one-bucket gather kernel -------------------------------------------
+
+BUCKET_VARIANTS = {  # variant -> (payload dtype, kind, edge_op, identity, weights)
+    "min_u32": (np.uint32, "min", "none", float(INF_U32), False),
+    "min_f32": (np.float32, "min", "none", INF_F32, False),
+    "min_f32_add": (np.float32, "min", "add", INF_F32, True),
+    "min_f32_add_unit": (np.float32, "min", "add", INF_F32, False),
+    "sum_f32": (np.float32, "sum", "none", 0.0, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g_size", [4096, 1 << 17])  # within and past 16-bit source offsets
+@pytest.mark.parametrize("variant", list(BUCKET_VARIANTS))
+@pytest.mark.parametrize("layout", ["plain", "packed", "split", "empty"])
+def test_cuda_gather_bucket_matches_plain(layout, variant, g_size, cuda_device):
+    from repro_torch.kernels.csr_gather_reduce import bucket as B
+    from repro_torch.kernels.csr_gather_reduce.ops import gather_reduce, layout_to, prepare_tiles
+
+    dtype, kind, edge_op, identity, weighted = BUCKET_VARIANTS[variant]
+    rng = np.random.default_rng(len(layout) * 101 + g_size)
+    v, vb, eb = 2048, 256, 128
+    e = 0 if layout == "empty" else 20_000
+    dst = np.sort(np.concatenate([np.full(e // 4, 17), rng.integers(0, v, e - e // 4)]))
+    dst = dst.astype(np.int32)
+    src = rng.integers(0, g_size, e).astype(np.int32)
+    valid = rng.random(e) < 0.9
+    w = rng.random(e).astype(np.float32) if weighted else None
+    tiles = prepare_tiles(src, dst, valid, num_rows=v, vb=vb, eb=eb, weights=w,
+                          balance_rows=layout != "plain",
+                          split_threshold=eb if layout == "split" else None)
+    if dtype == np.uint32:
+        pay = rng.integers(0, 1 << 32, g_size, dtype=np.uint64).astype(np.uint32)
+        pay[rng.random(g_size) < 0.2] = INF_U32
+        payload = u32.to_bits(pay)
+    else:
+        pay = (rng.random(g_size) * 50).astype(np.float32)
+        if kind == "min":
+            pay[rng.random(g_size) < 0.2] = INF_F32
+        payload = torch.from_numpy(pay)
+    kw = dict(kind=kind, edge_op=edge_op, identity=identity)
+    want = gather_reduce(payload, tiles, **kw)
+    key = K.variant_name(payload.dtype, kind, edge_op)
+    before = B.LAUNCHES.get(key, 0)
+    dev_tiles = layout_to(tiles, cuda_device)
+    got = gather_reduce(payload.to(cuda_device), dev_tiles, **kw)
+    again = gather_reduce(payload.to(cuda_device), dev_tiles, **kw)
+    torch.cuda.synchronize()
+    assert B.LAUNCHES[key] == before + 2
+    assert got.shape == want.shape == (v,) and got.dtype == want.dtype
+    if kind == "sum":
+        torch.testing.assert_close(got.cpu(), want, **SUM_TOL)
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))  # the same bits
+    else:
+        assert torch.equal(got.cpu(), want)
+    if layout == "empty":
+        ident = u32.to_bits(np.full(v, INF_U32, np.uint32)) if dtype == np.uint32 else \
+            torch.full((v,), identity)
+        assert torch.equal(got.cpu(), ident)
+
+
+@pytest.mark.cuda
+def test_cuda_gather_bucket_without_tiles_writes_the_identity(cuda_device):
+    from repro_torch.kernels.csr_gather_reduce import bucket as B
+
+    empty = torch.zeros(4, 0, 8, dtype=torch.int32, device=cuda_device)
+    out = B.gather_reduce_bucket(torch.ones(16, device=cuda_device), empty, empty,
+                                 empty.bool(), num_rows=64, vb=16, identity=3.0)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), torch.full((64,), 3.0))
+    tall = torch.zeros(1, 1, 8, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(RuntimeError, match="launch failed"):  # vb rows past shared memory
+        B.gather_reduce_bucket(torch.ones(16, device=cuda_device), tall, tall, tall.bool(),
+                               num_rows=1 << 17, vb=1 << 17)

@@ -113,7 +113,8 @@ def test_recsys_generators_byte_identical(seed, step, batch):
 
 
 def test_configs_match_reference():
-    assert set(ARCHS) == {"din"}
+    assert set(ARCHS) == {"din", "gat-cora", "gcn-cora", "gin-tu", "graphsage",
+                          "meshgraphnet", "schnet"}
     ra, ta = r_get("din"), t_get("din")
     for f in dataclasses.fields(ra):
         if f.name in ("model", "smoke", "shapes"):
