@@ -160,19 +160,56 @@ heads x 8), attention vectors seeded non-zero:
              minibatch_lg's sizes, a seeded graph, loss on 1024 seed nodes;
              gin-tu on molecule): the loss must be finite
 
+The LM family on the flash-attention kernel (after gnn, whose tensors are
+freed first):
+
+  flash_kernel  the kernel against its plain version (its block schedule,
+             float32 inside) and the full-logit oracle run in float32 on the
+             same inputs, at (a) smollm-135m's layer at prefill_32k's S =
+             32,768 (Hq 9, Hkv 3, D 64, bf16; the oracle on the first 4096
+             positions, whose logits fit), (b) llama3-8b's at S = 4096 (Hq
+             32, Hkv 8, D 128, bf16), (c) (a)'s widths at S = 4096 in
+             float32: within FLASH_F32_TOL / FLASH_BF16_TOL, the same bits
+             again; ms by CUDA events over 20 back-to-back launches, plain
+             ms, the oracle's ms where it fits, the library call's ms
+             (F.scaled_dot_product_attention, a yardstick), the bound
+  lm         smollm-135m at published width (30 layers, d 576, bf16), seeded
+             weights: prefill at prefill_32k's S = 32,768 (batch cut to 1):
+             ms and tokens/s, 30 launches a prefill, logits at S = 4096
+             against a plain-attention run; decode: serve_lm's greedy loop
+             against decode_32k's 32,768-slot cache, batch cut to 32, 32
+             tokens after a 2-token warm run: tokens/s and ms a token, and a
+             64-token prompt decoded
+             step by step against the forward (bf16 and float32); train: 10
+             AdamW steps at train_4k's S = 4096 (batch cut to 4): ms a step,
+             2 launches a layer a step, the loss falling, the first step's
+             loss and grads against a plain-attention run. Then one prefill
+             (B = 1, S = 4096) of granite-moe-1b-a400m, llama3-8b and
+             qwen3-14b at published width and qwen3-moe-30b-a3b cut to 12
+             of its 48 layers: finite logits, launches = layers
+
+Every kernel's ``ms`` is CUDA-event time around back-to-back launches,
+with a spin kernel holding the stream while the host enqueues them; the
+profiler's mean of the kernel's events stands beside it with the count of
+events it saw of those launched. The profiler drops device events at
+random in these runs, torch's own too (``profiler_probe_events``: the events it reports
+for a window of one kernel), so busy times and idle shares from it are
+floors.
+
 Then a ``{"kernels": [...]}`` line (the laneless variants' launches from
 main_path, the lane variants' from lanes_engine, the embedding bag's from
 din and serve, timed at shape (a); the bucket kernel's from bucket; the
 softmax kernel's from gnn's timed train steps and forwards, timed at shape
-(a)) and, last, ``{"ok": true, "device": ...}``.
+(a); the flash kernel's from lm's counted prefills and train steps, timed
+at shape (a)) and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero; it also exits non-zero, printing no
 result, when no CUDA device is present or the port's sources are missing.
 
 ``--scale N`` shrinks the graph for a quick run. ``--cpu-rehearsal`` runs
-every phase on the CPU through the plain versions at a small scale (DIN and
-the five other GNNs at their smoke configs, GAT at 64 features, 3 train
-steps), to check the script's control flow without a card; it always exits
-3.
+every phase on the CPU through the plain versions at a small scale (DIN, the
+five other GNNs and the LMs at their smoke configs, GAT at 64 features, 3
+train steps, the LM and kernel sequence lengths cut 64-fold), to check the
+script's control flow without a card; it always exits 3.
 """
 from __future__ import annotations
 
@@ -190,6 +227,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor-core rate, dense
 SEED = 0
 # push_block=65536 puts each core's whole gathered block (p * sub_size =
 # 65,536 sources) in one push source block (B = 1). The push stream pads
@@ -233,11 +271,36 @@ BUCKET = dict(source="src/repro_torch/csrc/gather_reduce.cu",
               replaces="src/repro/kernels/csr_gather_reduce/kernel.py:159")
 SOFTMAX = dict(source="src/repro_torch/csrc/segment_softmax.cu",
                replaces="src/repro/kernels/segment_softmax/kernel.py:66")
+FLASH = dict(source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:75")
 BAG_TOL = dict(rtol=1e-5, atol=1e-7)  # both sum in id order (in fact the same bits)
 DIN_TOL = dict(rtol=1e-5, atol=1e-6)
 SOFTMAX_TOL = dict(rtol=1e-5, atol=1e-7)  # online rescaling vs the plain version's final max
 GNN_TOL = dict(rtol=1e-5, atol=1e-6)
 DIN_BATCH, DIN_CANDIDATES, DIN_CHUNK = 512, 4096, 512  # the reference CLI's sizes
+# flash kernel against its plain version and the full-logit oracle: float32
+# as tests/test_kernels.py:190; bf16 out, one ulp (2^-7 of the value), as
+# both compute the same float32 values up to reassociation (the oracle run in
+# float32 on the same bf16 inputs, then rounded)
+FLASH_F32_TOL = dict(rtol=2e-5, atol=2e-5)
+FLASH_BF16_TOL = dict(rtol=2 ** -7, atol=1e-6)
+FLASH_REPS = 20  # back-to-back launches a CUDA-event reading
+HOLD_MAX_S = 0.2  # the longest the stream is held while the host enqueues a timed run
+SPIN_CYCLES_PER_S = 2e9  # torch.cuda._sleep cycles a second: at most the SM clock
+# LM at published width in bf16, relative L2 error ||a - b|| / ||b||: the
+# kernel path against a plain-attention run (attention outputs that differ
+# by a bf16 ulp here and there, carried through 30 layers), and decode (the
+# reference's bf16 decode attention: bf16 logits and weights) against the
+# kernel path's forward; float32 decode against float32 forward within the
+# reference's atol 2e-3 (tests/test_models.py:35)
+LM_KERNEL_REL = 2e-2
+LM_DECODE_REL = 1e-1
+LM_DECODE_F32_ATOL = 2e-3
+LM_PROMPT = 64  # decode-vs-forward prompt
+LM_DECODE_TOKENS, LM_DECODE_BATCH = 32, 32  # decode_32k's batch cut from 128
+LM_TRAIN_BATCH, LM_TRAIN_STEPS = 4, 10  # train_4k's batch cut from 256
+LM_OTHER = (("granite-moe-1b-a400m", None), ("llama3-8b", None), ("qwen3-14b", None),
+            ("qwen3-moe-30b-a3b", 12))  # (arch, layers cut to)
 BAG_ROUNDS = 2  # bag timing: (sum, mean, mean, sum) this many times per shape
 COLD_SETS = 8  # id sets of shape (c) in rotation: ~160 MB of row sectors, past the 50 MB L2
 
@@ -301,6 +364,7 @@ def main() -> int:
     from repro_torch.kernels.csr_gather_reduce import bucket as B
     from repro_torch.kernels.csr_gather_reduce import ops as BO
     from repro_torch.kernels.embedding_bag import kernel as EB
+    from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.segment_softmax import kernel as SK
     from repro_torch.models.recsys import din
 
@@ -325,14 +389,15 @@ def main() -> int:
     # -- build: one nvcc per source, all started together ----------------------
     t0 = time.perf_counter()
     if not rehearsal:
-        sources = (K.SOURCE, S.SOURCE, EB.SOURCE, B.SOURCE, SK.SOURCE)
+        sources = (K.SOURCE, S.SOURCE, EB.SOURCE, B.SOURCE, SK.SOURCE, FK.SOURCE)
         with ThreadPoolExecutor(len(sources)) as pool:
             logs = dict(zip(sources, pool.map(lambda s: build_library(s)[1], sources)))
         for s in sources:
             load_library(s)
         ptxas = {s: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
                  for s, log in logs.items()}
-        emit("build", t0, sources=[m["source"] for m in (GATHER, SCATTER, EMBAG, BUCKET, SOFTMAX)],
+        emit("build", t0, sources=[m["source"] for m in (GATHER, SCATTER, EMBAG, BUCKET, SOFTMAX,
+                                                         FLASH)],
              ptxas=ptxas)
 
     # -- graph ----------------------------------------------------------------
@@ -420,7 +485,9 @@ def main() -> int:
 
     def profiled(fn):
         """Run ``fn`` under the profiler: (wall us, device-side events only,
-        i.e. kernels and copies, not the CPU ops that launched them)."""
+        i.e. kernels and copies, not the CPU ops that launched them). The
+        profiler drops device events at random in these runs, torch's own
+        kernels' too (``profiler_probe``): busy times from it are floors."""
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
         with profile(activities=acts) as prof:
             t = time.perf_counter()
@@ -429,38 +496,57 @@ def main() -> int:
             wall = (time.perf_counter() - t) * 1e6
         return wall, [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
-    def device_ms(fn, reps, calls, name=None):
-        """Device time per call: summed device events (those whose name holds
-        ``name``, or all) over ``reps`` runs of ``fn``, each making ``calls``
-        calls. Host launch gaps are not counted."""
+    def profiler_probe():
+        """Device events the profiler reports for a window that launches one
+        elementwise kernel (1 when it sees everything)."""
+        if dev.type != "cuda":
+            return None
+        x = torch.zeros(1 << 16, device=dev)
+        sync()
+        _, evs = profiled(lambda: x.add_(1.0))
+        return sum(e.count for e in evs)
+
+    def device_ms(fn, reps, calls=1):
+        """Device time per call by CUDA events around ``reps`` back-to-back
+        runs of ``fn`` (each making ``calls`` calls). A spin kernel holds the
+        stream while the host enqueues them, so host launch gaps are not
+        counted, except after a sync inside ``fn`` (a plain version's)."""
         fn()
         sync()
-        wall, evs = profiled(lambda: [fn() for _ in range(reps)])
         if dev.type != "cuda":
-            return wall / 1e3 / (reps * calls)
-        return sum(event_us(e) for e in evs if name is None or name in e.key) / 1e3 / (reps * calls)
+            t = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            return (time.perf_counter() - t) * 1e3 / (reps * calls)
+        t = time.perf_counter()
+        fn()
+        sync()
+        hold_s = min(HOLD_MAX_S, 1.5 * reps * (time.perf_counter() - t))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(hold_s * SPIN_CYCLES_PER_S))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (reps * calls)
 
     def kernel_ms(fn, reps, launches_per_call, name):
-        """Device time per launch of the kernel named ``name``: the mean of
-        its profiler events over ``reps`` calls of ``fn`` (each making
-        ``launches_per_call`` launches), with the count of events seen, and
-        the CUDA-event time of the same calls per launch, host gaps
-        included, which stands in for the mean if the profiler saw none.
-        Late in this run the profiler misses some launches of the kernels
-        loaded with ctypes (the mean does not depend on how many it sees),
-        and at times all of them."""
+        """Per launch of the kernel named ``name`` over ``reps`` calls of
+        ``fn`` (each making ``launches_per_call`` launches): ``ms`` by CUDA
+        events (``device_ms``, the whole launch), and beside it the mean of
+        the profiler's events of that kernel (one a launch) with the count it
+        saw of those expected."""
+        ms = device_ms(fn, reps, launches_per_call)
         if dev.type != "cuda":
-            return dict(ms=device_ms(fn, reps, launches_per_call), events_seen=None,
-                        events_expected=reps * launches_per_call, event_clock_ms=None)
-        fn()
-        sync()
+            return dict(ms=ms, ms_from="host_clock", profiler_ms=None, events_seen=None,
+                        events_expected=reps * launches_per_call)
         _, evs = profiled(lambda: [fn() for _ in range(reps)])
         hits = [e for e in evs if name in e.key]
         seen = sum(e.count for e in hits)
-        clock = wall_ms(fn, reps) / launches_per_call
-        return dict(ms=sum(event_us(e) for e in hits) / seen / 1e3 if seen else clock,
-                    ms_from="profiler" if seen else "cuda_events", events_seen=seen,
-                    events_expected=reps * launches_per_call, event_clock_ms=clock)
+        return dict(ms=ms, ms_from="cuda_events",
+                    profiler_ms=sum(event_us(e) for e in hits) / seen / 1e3 if seen else None,
+                    events_seen=seen, events_expected=reps * launches_per_call)
 
     def wall_ms(fn, reps):
         """CUDA-event time per run of ``fn``, host launch gaps included."""
@@ -560,10 +646,12 @@ def main() -> int:
                 for a in phase_args:
                     fn(payload, *a, **kw)
 
-            def time_arm(fn, plain, phase_args, kw, name):
-                k_ms = device_ms(lambda: launch_all(fn, phase_args, kw), reps, pg.l, name=name)
+            def time_arm(fn, plain, phase_args, kw, name, into, arm):
+                k = kernel_ms(lambda: launch_all(fn, phase_args, kw), reps, pg.l, name)
+                into.setdefault("profiler", {})[arm] = {
+                    key: k[key] for key in ("profiler_ms", "events_seen", "events_expected")}
                 p_ms = device_ms(lambda: launch_all(plain, phase_args, kw), max(1, reps // 4), pg.l)
-                return k_ms, p_ms
+                return k["ms"], p_ms
 
             out_bytes = pg.p * pg.packed_rows_per_core * 4
             real_slots = float(pg.tile_counts.sum()) * pg.tile_word.shape[4] / pg.l
@@ -571,7 +659,8 @@ def main() -> int:
             row = dict(word_hi=has_hi, weights=has_w, real_slots_per_phase=real_slots)
             fn, plain, name = K.gather_reduce_cores, K.gather_reduce_cores_plain, \
                 "gather_reduce_cores_kernel"
-            row["static_ms"], row["static_plain_ms"] = time_arm(fn, plain, pull, gkw, name)
+            row["static_ms"], row["static_plain_ms"] = time_arm(fn, plain, pull, gkw, name,
+                                                                row, "static")
             row["launch_wall_ms"] = wall_ms(lambda: launch_all(fn, pull, gkw), reps) / pg.l
             if variant == "sum_f32":  # PageRank stays on the static schedule
                 row["ms"], row["plain_ms"] = row["static_ms"], row["static_plain_ms"]
@@ -580,9 +669,10 @@ def main() -> int:
                 fetch_bytes = pg.tile_counts[:, 0].size * pg.tile_word.shape[3] * 4
                 all_real = [a + (seeded_fetch(a[1], a[0].shape[2], 1.0),) for a in pull]
                 part = [a + (seeded_fetch(a[1], a[0].shape[2], FETCH_SHARE),) for a in pull]
-                row["ms"], row["plain_ms"] = time_arm(fn, plain, all_real, gkw, name)
+                row["ms"], row["plain_ms"] = time_arm(fn, plain, all_real, gkw, name, row, "fetch")
                 row.update(bound(real_slots, 1 + has_hi + has_w, common + fetch_bytes))
-                row["fetch30_ms"], row["fetch30_plain_ms"] = time_arm(fn, plain, part, gkw, name)
+                row["fetch30_ms"], row["fetch30_plain_ms"] = time_arm(fn, plain, part, gkw, name,
+                                                                      row, "fetch30")
                 run_slots = float(sum(int((f[-1] == torch.arange(f[0].shape[2], device=dev)).sum())
                                       for f in part)) * pg.tile_word.shape[4] / pg.l
                 row["fetch30_bound_ms"] = bound(run_slots, 1 + has_hi + has_w,
@@ -606,15 +696,21 @@ def main() -> int:
                 fn, plain = S.scatter_reduce_cores, S.scatter_reduce_cores_plain
                 srow = dict(word_hi=p_hi, weights=p_w, real_slots_per_phase=p_slots)
                 all_real = [a + (seeded_fetch(a[1], a[0].shape[2], 1.0),) for a in push]
-                srow["ms"], srow["plain_ms"] = time_arm(fn, plain, all_real, skw, "scatter_reduce")
+                srow["ms"], srow["plain_ms"] = time_arm(fn, plain, all_real, skw,
+                                                        "scatter_reduce_cores_kernel",
+                                                        srow, "fetch")
                 srow.update(bound(p_slots, 1 + p_hi + p_w, common + fetch_bytes))
                 srow["static_ms"], srow["static_plain_ms"] = time_arm(fn, plain, push, skw,
-                                                                      "scatter_reduce")
+                                                                      "scatter_reduce_cores_kernel",
+                                                                      srow,
+                                                                      "static")
                 srow["launch_wall_ms"] = wall_ms(lambda: launch_all(fn, all_real, skw), reps) / pg.l
                 timing[("scatter", variant)] = srow
         emit("timing", t0, per_launch={f"{k}[{v}]": r for (k, v), r in timing.items()},
-             note="ms, plain_ms, *_ms: device time per launch (profiler, the kernel's own "
-                  "kernels only), averaged over the l phase streams; ms is the arm the main "
+             note="ms, plain_ms, *_ms: device time per launch by CUDA events around "
+                  "back-to-back passes over the l phase streams, the stream held while the host "
+                  "enqueues them (profiler: the mean of the kernel's profiler events, with the "
+                  "count seen of those expected, per arm); ms is the arm the main "
                   "path takes (the fetch map with every real tile active for the min variants, "
                   "the static counts for sum_f32); fetch30: a seeded map keeping ~30% of real "
                   "tiles, bounded by the slots it runs; launch_wall_ms: CUDA-event time per "
@@ -752,7 +848,8 @@ def main() -> int:
             by_direction[label] = dict(breakdown(lambda: it_fn(lab, front, pop=pc)), popcount=pc,
                                        active_tiles=int(stats["active_tiles"]),
                                        use_dense=stats["use_dense"])
-        emit("profile", t0, static_iteration=static, bfs_by_direction=by_direction,
+        emit("profile", t0, profiler_probe_events=profiler_probe(), static_iteration=static,
+             bfs_by_direction=by_direction,
              bfs_iterations_recorded=len(states),
              note="torch.profiler over one warm iteration (l phases); device events only; "
                   "the profiler's own host overhead inflates iteration_wall_us; kernel_us "
@@ -887,8 +984,8 @@ def main() -> int:
             row = dict(lanes=lanes, lane_chunk=chunk, chunks=chunk and -(-lanes // chunk),
                        real_slots_per_phase=real_slots, laneless_variant=laneless,
                        laneless_ms=timing[("gather", laneless)]["ms"])
-            row["ms"] = device_ms(lambda: launch_all(K.gather_reduce_cores, phase_args, gkw),
-                                  reps, pg.l, name="gather_reduce_cores")
+            row.update(kernel_ms(lambda: launch_all(K.gather_reduce_cores, phase_args, gkw),
+                                 reps, pg.l, "gather_reduce_cores"))
             row["plain_ms"] = device_ms(lambda: launch_all(K.gather_reduce_cores_plain, phase_args,
                                                            gkw), max(1, reps // 4), pg.l)
             row.update(bound(real_slots, 1 + has_hi + has_w, common, lanes))
@@ -910,8 +1007,8 @@ def main() -> int:
             all_real = [a + (seeded_fetch(a[1], a[0].shape[2], 1.0),) for a in push]
             srow = dict(lanes=lanes, real_slots_per_phase=p_slots, laneless_variant=laneless,
                         laneless_ms=timing[("scatter", laneless)]["ms"])
-            srow["ms"] = device_ms(lambda: launch_all(S.scatter_reduce_cores, all_real, skw),
-                                   reps, pg.l, name="scatter_reduce")
+            srow.update(kernel_ms(lambda: launch_all(S.scatter_reduce_cores, all_real, skw),
+                                  reps, pg.l, "scatter_reduce_cores_kernel"))
             srow["plain_ms"] = device_ms(lambda: launch_all(S.scatter_reduce_cores_plain, all_real,
                                                             skw), max(1, reps // 4), pg.l)
             s_common = (pg.push_counts[:, 0].nbytes + pg.push_counts[:, 0].size
@@ -922,7 +1019,9 @@ def main() -> int:
         emit("lanes_kernels", t0, max_abs_err={f"{k}[{a}]": e for (k, a), e in lane_errs.items()},
              per_launch={f"{k}[{a}]": r for (k, a), r in lane_timing.items()},
              arms={a: dict(kind=v[0], edge_op=v[1], lanes=v[3]) for a, v in LANE_ARMS.items()},
-             note="ms, plain_ms: device time per launch (profiler, the kernel's own kernels), "
+             note="ms, plain_ms: device time per launch by CUDA events around back-to-back "
+                  "passes, the stream held while the host enqueues them (profiler_ms: the mean of "
+                  "the kernel's profiler events, events_seen of events_expected), "
                   "averaged over the l phase streams, on the arm the main path takes (fetch map of "
                   "all real tiles for min/or, static counts for sum); bound_ms counts each real "
                   "slot's word (+ word_hi, + weight) once plus the L-wide payload and output; "
@@ -1146,10 +1245,11 @@ def main() -> int:
                  "bucket_arrays": slots * 9 / real, "bucket_arrays_weighted": slots * 13 / real,
                  "bucket_read": (slots + 8 * real) / real,
                  "fused_packed_words": fused_real_slots * 4 * (1 + (pg.src_bits == 32)) / real},
-             note="ms: device time per launch, the mean of the kernel's profiler events over "
-                  "10 passes of the 64 buckets (events_seen of events_expected); "
-                  "event_clock_ms: CUDA events around the same passes per launch, host gaps "
-                  "included; plain_ms: device time per launch (profiler, all events); bound: each real slot's src, dstb, valid (and weight) "
+             note="ms: device time per launch by CUDA events around 10 back-to-back passes "
+                  "of the 64 buckets, the stream held while the host enqueues them "
+                  "(profiler_ms: the mean of the kernel's profiler events over as many passes, "
+                  "events_seen of events_expected); plain_ms: the same for the plain "
+                  "version; bound: each real slot's src, dstb, valid (and weight) "
                   "once plus the phase payload and the output at 3.35 TB/s; bucket_read: the "
                   "valid byte of every slot plus src and dstb of the real ones; "
                   "fused_packed_words: the fused kernel's 4 B word of every slot of its real "
@@ -1251,16 +1351,21 @@ def main() -> int:
             libs = {m: itertools.cycle([library_call(table, ids, m) for ids in id_sets])
                     for m in ("sum", "mean")}
             readings = {m: {"ms": [], "plain_ms": [], "library_ms": []} for m in ("sum", "mean")}
+            seen = {m: [0, 0] for m in ("sum", "mean")}  # profiler events seen, expected
             for mode in ("sum", "mean", "mean", "sum") * BAG_ROUNDS:
                 r = readings[mode]
-                r["ms"].append(device_ms(lambda: embedding_bag(table, next(cyc[mode]), mode),
-                                         reps, 1, name="embedding_bag_kernel"))
+                kr = kernel_ms(lambda: embedding_bag(table, next(cyc[mode]), mode), reps, 1,
+                               "embedding_bag_kernel")
+                r["ms"].append(kr["ms"])
+                seen[mode] = [a + b for a, b in zip(seen[mode], (kr["events_seen"] or 0,
+                                                                 kr["events_expected"]))]
                 r["plain_ms"].append(device_ms(
                     lambda: embedding_bag_reference(table, next(cyc[mode]), mode),
                     max(1, reps // 5), 1))
                 r["library_ms"].append(device_ms(lambda: next(libs[mode])(), reps, 1))
             for mode, r in readings.items():
                 row = rows[f"{shape}[{mode}]"]
+                row["events_seen"], row["events_expected"] = seen[mode]
                 for key, vals in r.items():
                     row[key] = float(np.median(vals))
                     row[f"{key}_min_max"] = [min(vals), max(vals)]
@@ -1271,8 +1376,10 @@ def main() -> int:
             check(not bool(z.any()), f"bag all-padding {mode}: not zero")
         emit("bag_kernel", t0, per_launch=rows, max_abs_err=errs, tolerance=BAG_TOL,
              all_padding_bag_zero=True,
-             note="ms, plain_ms, library_ms: device time per launch (profiler; ms the kernel's "
-                  "own events), the median and the min/max of 2 * BAG_ROUNDS readings per mode, "
+             note="ms, plain_ms, library_ms: device time per launch by CUDA events around "
+                  "back-to-back launches, the stream held while the host enqueues them "
+                  "(events_seen: the profiler's events of the kernel over as many launches, of "
+                  "events_expected), the median and the min/max of 2 * BAG_ROUNDS readings per mode, "
                   "the modes alternated (sum, mean, mean, sum, ...); each launch on the next of "
                   "id_sets; plain: L takes added in id order (serial); library: F.embedding_bag "
                   "(clamped ids, the validity mask as per_sample_weights), / max(count, 1) for "
@@ -1467,7 +1574,7 @@ def main() -> int:
     from repro_torch.models.gnn import archs as gnn_archs
     from repro_torch.models.gnn.common import softmax_tiles
     from repro_torch.train import steps as train_steps
-    from repro_torch.train.optim import AdamWConfig, tree_flatten
+    from repro_torch.train.optim import AdamWConfig, tree_flatten, tree_map
 
     def cora_batch(d_feat, n_classes):
         """The full_graph_sm cell uncut: 4096 nodes, 16,384 edge slots (the
@@ -1555,13 +1662,14 @@ def main() -> int:
         sm_rows[label] = row
         del scores, got, want, again
     emit("softmax_kernel", t0, per_launch=sm_rows, max_abs_err=sm_err, tolerance=SOFTMAX_TOL,
+         profiler_probe_events=profiler_probe(),
          smoke_graph_generation_seconds=big_gen_s,
          note="(a) GAT layer 1 at the Cora shape (full_graph_sm, 16,384 slots, H = 8); (b) "
-              "the smoke graph as one GAT layout, H = 8; seeded scores in (-4, 4); ms: the mean "
-              "of the kernel's profiler events over 20 launches (events_seen of "
-              "events_expected) or, where it saw none (ms_from), event_clock_ms: CUDA events "
-              "around the 20 back-to-back launches; plain_ms: device "
-              "time per launch (profiler, all events); bound: "
+              "the smoke graph as one GAT layout, H = 8; seeded scores in (-4, 4); ms: CUDA "
+              "events around 20 back-to-back launches, the stream held while the host "
+              "enqueues them (profiler_ms: the mean of the kernel's profiler events over as "
+              "many launches, events_seen of events_expected); plain_ms: the same for the "
+              "plain version, host gaps after its syncs included; bound: "
               "scores read and weights written once per head, dstb and valid read once, at "
               "3.35 TB/s; padding_share: slots no edge fills (the layout has no tile counts, "
               "so the kernel reads them); no single PyTorch call computes a segment softmax "
@@ -1737,6 +1845,355 @@ def main() -> int:
 
     softmax_launches = gnn_phase()
 
+    # the GNN tensors go before the LM phases
+    del cora, cora_lab, big
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- the flash-attention kernel against its plain version and the oracle ---
+    import torch.nn.functional as TF
+
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels.flash_attention import gqa_attention_reference
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import transformer as tfm
+
+    blocks = tfm.FLASH_BLOCKS
+
+    def flash_phase():
+        """The kernel at three shapes: (a) smollm-135m's layer at prefill_32k's
+        S, (b) llama3-8b's at S = 4096, (c) (a)'s widths at S = 4096 in float32."""
+        t0 = time.perf_counter()
+        shapes = {"a_smollm_prefill_32k": ("smollm-135m", 32768, torch.bfloat16),
+                  "b_llama3_8b_4k": ("llama3-8b", 4096, torch.bfloat16),
+                  "c_smollm_4k_f32": ("smollm-135m", 4096, torch.float32)}
+        rows, worst = {}, 0.0
+        reps = 2 if rehearsal else FLASH_REPS
+        for label, (arch_id, s, dtype) in shapes.items():
+            m = get_arch(arch_id).model
+            hq, hkv, d = m.n_heads, m.n_kv_heads, m.hd
+            if rehearsal:
+                s = s // 64
+            gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+            q, k, v = (torch.randn(1, h, s, d, generator=gen, device=dev).to(dtype)
+                       for h in (hq, hkv, hkv))
+            tol = FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+
+            def kern():
+                return FK.flash_attention_tiles(q, k, v, causal=True, **blocks)
+
+            def plain():
+                return FK.flash_attention_tiles_plain(q, k, v, causal=True, scale=d ** -0.5,
+                                                      **blocks)
+
+            got, again, want = kern(), kern(), plain()
+            sync()
+            err = float((got.float() - want.float()).abs().max())
+            check(torch.allclose(got.float(), want.float(), **tol),
+                  f"flash {label}: kernel disagrees with plain version (max err {err})")
+            check(torch.equal(got, again), f"flash {label}: two launches gave different bits")
+            # the oracle's logits at (a) would take 9 x 32768^2 x 4 B: its first
+            # 4096 positions (a causal prefix sees only its own keys)
+            n = min(s, 4096)
+            ref32 = gqa_attention_reference(q[:, :, :n].float(), k[:, :, :n].float(),
+                                            v[:, :, :n].float()).to(dtype)
+            oerr = float((got[:, :, :n].float() - ref32.float()).abs().max())
+            check(torch.allclose(got[:, :, :n].float(), ref32.float(), **tol),
+                  f"flash {label}: kernel disagrees with the oracle (max err {oerr})")
+            lib = TF.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+            lerr = float((got.float() - lib.float()).abs().max())
+            del want, again, ref32, lib
+            oracle_ms = None
+            if s <= 4096:  # the reference's function in the input type
+                oracle_ms = device_ms(lambda: gqa_attention_reference(q, k, v), max(1, reps // 5))
+            nbytes = (2 * hq + 2 * hkv) * s * d * q.element_size()
+            flops = 2 * 2 * hq * d * s * s / 2  # causal: half the score matrix
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = flops / (BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S) * 1e3
+            rows[label] = dict(
+                arch=arch_id, heads=hq, kv_heads=hkv, seq=s, head_dim=d, dtype=str(dtype),
+                block_q=blocks["block_q"], block_k=blocks["block_k"], max_abs_err=err,
+                max_abs_err_vs_oracle=oerr, oracle_positions=n, max_abs_diff_vs_library=lerr,
+                **kernel_ms(kern, reps, 1, "flash_attention_kernel"),
+                plain_ms=device_ms(plain, max(1, reps // 10)), oracle_ms=oracle_ms,
+                library_ms=device_ms(lambda: TF.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), reps),
+                bound_ms=max(bytes_ms, ops_ms), bound_bytes=nbytes, bound_flops=flops,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+            worst = max(worst, err)
+            del q, k, v, got
+        emit("flash_kernel", t0, per_launch=rows, max_abs_err=worst,
+             tolerance=dict(f32=FLASH_F32_TOL, bf16=FLASH_BF16_TOL),
+             note="(a) smollm-135m's layer at prefill_32k's S = 32,768, B = 1 (Hq 9, Hkv 3, D "
+                  "64, bf16); (b) llama3-8b's at S = 4096 (Hq 32, Hkv 8, D 128, bf16); (c) "
+                  "(a)'s widths at S = 4096, float32; q, k, v seeded N(0, 1); the model's blocks; "
+                  "ms: CUDA events around back-to-back launches, the stream held while the host "
+                  "enqueues them (profiler_ms: the mean of the kernel's profiler events over as "
+                  "many launches, events_seen of events_expected); plain_ms: the kernel's plain "
+                  "version (its block schedule, float32), CUDA events; oracle_ms: the full-logit "
+                  "oracle in the input type where its logits fit (S <= 4096); the oracle check "
+                  "runs it in float32 on the same inputs over the first 4096 positions; "
+                  "library_ms: F.scaled_dot_product_attention(is_causal, enable_gqa), a "
+                  "yardstick the port never calls; bound: q, k, v and out once at 3.35 TB/s "
+                  "or the causal flops at 989 (bf16) / 67 (float32) TFLOP/s, the larger")
+        return rows
+
+    flash_rows = flash_phase()
+
+    @contextlib.contextmanager
+    def plain_attention():
+        """Swap the flash kernel for its plain version (a reference run)."""
+        kernel_fn = FK.flash_attention_tiles
+
+        def plain(q, k, v, *, causal, scale, block_q, block_k):
+            return FK.flash_attention_tiles_plain(
+                q, k, v, causal=causal, scale=q.shape[-1] ** -0.5 if scale is None else scale,
+                block_q=block_q, block_k=block_k)
+
+        FK.flash_attention_tiles = plain
+        try:
+            yield
+        finally:
+            FK.flash_attention_tiles = kernel_fn
+
+    def rel_l2(a, b):
+        return float(torch.linalg.vector_norm((a.float() - b.float()).reshape(-1))
+                     / torch.linalg.vector_norm(b.float().reshape(-1)))
+
+    def lm_tokens(step, batch, seq, vocab):
+        bt = lm_batch(SEED, step, batch, seq, vocab)
+        return {k_: torch.from_numpy(v_).to(dev) for k_, v_ in bt.items()}
+
+    # -- LMs at published width: smollm-135m prefill, decode, train; one prefill of the others
+    def lm_phase():
+        """smollm-135m: prefill at prefill_32k's S, the greedy decode loop at
+        decode_32k's cache length, 10 train steps at train_4k's S; then one
+        prefill of each other LM arch. Returns the kernel's launches."""
+        t0 = time.perf_counter()
+        arch = get_arch("smollm-135m")
+        cfg = arch.smoke() if rehearsal else arch.model
+        mem0 = torch.cuda.memory_allocated() if dev.type == "cuda" else None
+        params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+        prefill = train_steps.make_lm_prefill(cfg)
+        n_layers = cfg.n_layers
+        launches = 0
+
+        # prefill: prefill_32k's seq, batch cut from 32 to 1
+        seq = arch.shape("prefill_32k").dims["seq"] // (64 if rehearsal else 1)
+        toks = lm_tokens(0, 1, seq, cfg.vocab)["tokens"]
+        logits = prefill(params, toks)  # warm (not counted)
+        sync()
+        check(logits.shape == (1, seq, cfg.vocab) and bool(torch.isfinite(logits).all()),
+              "lm prefill: non-finite or misshapen logits")
+        del logits
+        n_pre = 1 if rehearsal else 3
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        FK.reset_launch_counts()
+        lat = []
+        for _ in range(n_pre):
+            t = time.perf_counter()
+            logits = prefill(params, toks)
+            sync()
+            lat.append((time.perf_counter() - t) * 1e3)
+            del logits
+        pre_launches = dict(FK.LAUNCHES)
+        if not rehearsal:
+            check(pre_launches == {"bf16": n_layers * n_pre},
+                  f"lm prefill: flash launches {pre_launches} != {n_layers} x {n_pre}")
+        launches += sum(pre_launches.values())
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+        wall_us, evs = profiled(lambda: prefill(params, toks))
+        dev_us = sum(event_us(e) for e in evs)
+        med = float(np.median(lat))
+        prefill_row = dict(
+            seq=seq, batch=1, prefills=n_pre,
+            ms_per_prefill=dict(median=med, min=min(lat), max=max(lat)),
+            tokens_per_s=seq / med * 1e3, launches=pre_launches, peak_memory_bytes=peak,
+            profiled_prefill=dict(wall_us=wall_us, device_busy_us=dev_us,
+                                  device_idle_share=1.0 - dev_us / wall_us,
+                                  flash_events=[sum(e.count for e in evs
+                                                    if "flash_attention" in e.key), n_layers],
+                                  flash_us=sum(event_us(e) for e in evs
+                                               if "flash_attention" in e.key)))
+        # logits at S = 4096 against a plain-attention run (not counted)
+        short = toks[:, :min(seq, 4096)]
+        lg_k = prefill(params, short)
+        with plain_attention():
+            lg_p = prefill(params, short)
+        sync()
+        prefill_row["vs_plain_attention"] = dict(
+            seq=short.shape[1], rel_l2=rel_l2(lg_k, lg_p),
+            max_abs_diff=float((lg_k.float() - lg_p.float()).abs().max()))
+        check(prefill_row["vs_plain_attention"]["rel_l2"] <= LM_KERNEL_REL,
+              f"lm prefill: kernel vs plain attention {prefill_row['vs_plain_attention']}")
+        del lg_k, lg_p, toks
+
+        # decode: serve_lm's greedy loop at decode_32k's cache length, batch cut to 32
+        max_len = arch.shape("decode_32k").dims["seq"] // (64 if rehearsal else 1)
+        n_tok, batch = (4, 2) if rehearsal else (LM_DECODE_TOKENS, LM_DECODE_BATCH)
+        serve_lm(arch, 2, batch, dev, cfg=cfg, params=params, max_len=max_len)  # warm
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        out, secs = serve_lm(arch, n_tok, batch, dev, cfg=cfg, params=params, max_len=max_len)
+        check(out.shape == (batch, n_tok) and (out >= 0).all() and (out < cfg.vocab).all(),
+              f"lm decode: tokens {out.shape}")
+        decode_row = dict(tokens=n_tok, batch=batch, max_len=max_len,
+                          cache_bytes=2 * n_layers * batch * cfg.n_kv_heads * max_len * cfg.hd
+                          * torch.finfo(cfg.dtype).bits // 8,
+                          seconds=secs, tokens_per_s=n_tok * batch / secs,
+                          ms_per_token=secs / n_tok * 1e3,
+                          peak_memory_bytes=torch.cuda.max_memory_allocated()
+                          if dev.type == "cuda" else None)
+        # a 64-token prompt fed one token at a time against the kernel path's forward
+        prompt = lm_tokens(1, 1, LM_PROMPT, cfg.vocab)["tokens"]
+        decode = train_steps.make_lm_decode_step(cfg)
+
+        def stepwise(p, c):
+            cache = tfm.init_kv_cache(c, 1, LM_PROMPT, device=dev)
+            return torch.stack([decode(p, cache, prompt[:, i:i + 1], i)[0]
+                                for i in range(LM_PROMPT)], 1)
+
+        fwd, dec = prefill(params, prompt), stepwise(params, cfg)
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        p32 = tree_map(lambda t_: t_.float(), params)
+        fwd32 = train_steps.make_lm_prefill(cfg32)(p32, prompt)
+        dec32 = train_steps.make_lm_decode_step(cfg32)
+        cache32 = tfm.init_kv_cache(cfg32, 1, LM_PROMPT, device=dev)
+        dec32 = torch.stack([dec32(p32, cache32, prompt[:, i:i + 1], i)[0]
+                             for i in range(LM_PROMPT)], 1)
+        sync()
+        decode_row["vs_forward"] = dict(
+            prompt=LM_PROMPT, rel_l2=rel_l2(dec, fwd),
+            max_abs_diff=float((dec.float() - fwd.float()).abs().max()),
+            argmax_agree=float((dec.argmax(-1) == fwd.argmax(-1)).float().mean()),
+            f32_max_abs_diff=float((dec32 - fwd32).abs().max()))
+        check(decode_row["vs_forward"]["rel_l2"] <= LM_DECODE_REL
+              and decode_row["vs_forward"]["f32_max_abs_diff"] <= LM_DECODE_F32_ATOL,
+              f"lm decode vs forward: {decode_row['vs_forward']}")
+        del fwd, dec, fwd32, dec32, p32, cache32
+
+        # train: train_4k's seq, batch cut from 256 to 4, AdamW as the CLI
+        tseq = arch.shape("train_4k").dims["seq"] // (64 if rehearsal else 1)
+        tbatch, n_steps = (2, 3) if rehearsal else (LM_TRAIN_BATCH, LM_TRAIN_STEPS)
+        ocfg = AdamWConfig(lr=1e-3, total_steps=n_steps, warmup_steps=min(20, n_steps))
+        loss_fn = train_steps.make_lm_loss(cfg)
+        b0 = lm_tokens(0, tbatch, tseq, cfg.vocab)
+        loss_k, grads_k = train_steps.value_and_grad(loss_fn, params, b0["tokens"], b0["labels"])
+        with plain_attention():
+            loss_p, grads_p = train_steps.value_and_grad(loss_fn, params, b0["tokens"],
+                                                         b0["labels"])
+        gk = torch.cat([x.float().reshape(-1) for x in tree_flatten(grads_k)[0]])
+        gp = torch.cat([x.float().reshape(-1) for x in tree_flatten(grads_p)[0]])
+        first = dict(loss=[float(loss_k), float(loss_p)], grads_rel_l2=rel_l2(gk, gp),
+                     loss_rel=abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)))
+        check(first["loss_rel"] <= LM_KERNEL_REL and first["grads_rel_l2"] <= LM_KERNEL_REL,
+              f"lm train first step: kernel vs plain attention {first}")
+        del grads_k, grads_p, gk, gp
+        step = train_steps.make_lm_train_step(cfg, ocfg)
+        state = train_steps.init_train_state(params, ocfg)
+        batches = [lm_tokens(i, tbatch, tseq, cfg.vocab) for i in range(n_steps)]
+        sync()
+        FK.reset_launch_counts()
+        lat, losses = [], []
+        t_all = time.perf_counter()
+        for bt in batches:
+            t = time.perf_counter()
+            state, m_ = step(state, bt)
+            losses.append(float(m_["loss"]))  # waits for the step
+            lat.append((time.perf_counter() - t) * 1e3)
+        wall = time.perf_counter() - t_all
+        train_launches = dict(FK.LAUNCHES)
+        if not rehearsal:  # forward and the block's recompute in backward: 2 a layer
+            check(train_launches == {"bf16": 2 * n_layers * n_steps},
+                  f"lm train: flash launches {train_launches} != 2 x {n_layers} x {n_steps}")
+        launches += sum(train_launches.values())
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"lm train: loss did not fall ({losses[0]} -> {losses[-1]})")
+        wall_us, evs = profiled(lambda: step(state, batches[0]))
+        dev_us = sum(event_us(e) for e in evs)
+        top = sorted(evs, key=event_us, reverse=True)[:8]
+        med = float(np.median(lat))
+        train_row = dict(seq=tseq, batch=tbatch, steps=n_steps,
+                         profiled_step=dict(wall_us=wall_us, device_busy_us=dev_us,
+                                            device_idle_share=1.0 - dev_us / wall_us,
+                                            flash_events=[sum(e.count for e in evs
+                                                              if "flash_attention" in e.key),
+                                                          2 * n_layers],
+                                            top_device_us={e.key[:80]: [event_us(e), e.count]
+                                                           for e in top}),
+                         ms_per_step=dict(median=med, min=min(lat), max=max(lat)),
+                         tokens_per_s=tbatch * tseq / med * 1e3, steps_per_s=n_steps / wall,
+                         loss_first=losses[0], loss_last=losses[-1], first_step=first,
+                         launches=train_launches)
+        del state, batches, params
+
+        # one prefill of each other LM arch at published width, B = 1, S = 4096
+        others = {}
+        for arch_id, cut in LM_OTHER:
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            a = get_arch(arch_id)
+            c = a.smoke() if rehearsal else a.model
+            if cut is not None and not rehearsal:
+                c = dataclasses.replace(c, n_layers=cut)
+            t = time.perf_counter()
+            p_ = tfm.init_params(c, torch.Generator(device=dev).manual_seed(SEED), dev)
+            sync()
+            init_s = time.perf_counter() - t
+            tk = lm_tokens(2, 1, 4096 // (64 if rehearsal else 1), c.vocab)["tokens"]
+            pf = train_steps.make_lm_prefill(c)
+            FK.reset_launch_counts()
+            t = time.perf_counter()
+            lg = pf(p_, tk)
+            sync()
+            ms = (time.perf_counter() - t) * 1e3
+            got_l = dict(FK.LAUNCHES)
+            check(lg.shape == (1, tk.shape[1], c.vocab) and bool(torch.isfinite(lg).all()),
+                  f"{arch_id} prefill: non-finite or misshapen logits")
+            if not rehearsal:
+                check(got_l == {"bf16": c.n_layers},
+                      f"{arch_id} prefill: flash launches {got_l} != {c.n_layers}")
+            launches += sum(got_l.values())
+            others[arch_id] = dict(layers=c.n_layers, published_layers=a.model.n_layers,
+                                   seq=tk.shape[1], first_prefill_ms=ms, init_seconds=init_s,
+                                   params=tfm.count_params(c), launches=got_l,
+                                   group=c.n_heads // c.n_kv_heads, head_dim=c.hd,
+                                   peak_memory_bytes=torch.cuda.max_memory_allocated()
+                                   if dev.type == "cuda" else None)
+            del p_, lg, tk
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        emit("lm", t0, config=dataclasses.asdict(cfg) | {"dtype": str(cfg.dtype)},
+             memory_allocated_at_start=mem0, profiler_probe_events=profiler_probe(),
+             prefill=prefill_row, decode=decode_row,
+             train=train_row, other_archs=others,
+             tolerance=dict(kernel_rel_l2=LM_KERNEL_REL, decode_rel_l2=LM_DECODE_REL,
+                            decode_f32_atol=LM_DECODE_F32_ATOL),
+             note="smollm-135m at published width (30 layers, d 576, 9/3 heads, D 64, d_ff "
+                  "1536, vocab 49152, bf16), seeded weights. prefill: prefill_32k's S = "
+                  "32,768, batch cut from 32 to 1, host clock ending in a synchronize, 3 "
+                  "prefills after a warm one; launches counted (30 a prefill); logits at S = "
+                  "4096 against a plain-attention run. decode: serve_lm's greedy loop, "
+                  "decode_32k's cache of 32,768 with the batch cut from 128 to 32, 32 tokens "
+                  "(after a 2-token warm run); profiled_prefill: one prefill under "
+                  "torch.profiler (busy time a floor: the profiler drops events); a 64-token "
+                  "prompt fed one token at a time "
+                  "against the kernel path's forward, bf16 and float32. train: train_4k's S "
+                  "= 4096, batch cut from 256 to 4, 10 AdamW steps (lr 1e-3); launches 2 a "
+                  "layer a step (forward and the block's recompute); the first step's loss "
+                  "and grads against a plain-attention run; profiled_step: one more step under "
+                  "torch.profiler (a floor). other archs: one first prefill "
+                  "at B = 1, S = 4096; qwen3-moe-30b-a3b cut from 48 to 12 layers (its 48 "
+                  "layers' 61 GB of bf16 weights leave too little room)")
+        return launches
+
+    flash_launches = lm_phase()
+
     kernels = [
         dict(name=f"{kern}_reduce_cores[{v}]", route="cuda", **meta,
              launches=launches[f"{kern}_reduce_cores"].get(v, 0), max_abs_err=errs[(kern, v)],
@@ -1777,6 +2234,15 @@ def main() -> int:
              ms=sm_rows["a_cora_layer1"]["ms"], plain_ms=sm_rows["a_cora_layer1"]["plain_ms"],
              bound_ms=sm_rows["a_cora_layer1"]["bound_ms"],
              bound_by=sm_rows["a_cora_layer1"]["bound_by"], library_ms=None)
+    ] + [
+        # the model's shape: smollm-135m's layer at prefill_32k, shape (a)
+        dict(name="flash_attention[bf16]", route="cuda", **FLASH, launches=flash_launches,
+             max_abs_err=flash_rows["a_smollm_prefill_32k"]["max_abs_err"],
+             ms=flash_rows["a_smollm_prefill_32k"]["ms"],
+             plain_ms=flash_rows["a_smollm_prefill_32k"]["plain_ms"],
+             bound_ms=flash_rows["a_smollm_prefill_32k"]["bound_ms"],
+             bound_by=flash_rows["a_smollm_prefill_32k"]["bound_by"],
+             library_ms=flash_rows["a_smollm_prefill_32k"]["library_ms"])
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     if rehearsal:

@@ -2,10 +2,10 @@
 
 Module paths mirror ``repro``: ``core.graph``, ``core.problems``,
 ``core.partition``, ``core.frontier_words``, ``core.engine``,
-``kernels.csr_gather_reduce``, ``kernels.embedding_bag``, ``serve``,
-``models.recsys.din`` (with ``models.gnn.common``'s MLP helpers),
-``configs`` (``din``), ``dist.embedding`` (the crossbar lookup),
-``data.synthetic`` (the serving and recsys generators) and ``launch.serve``
-(graph and DIN modes). The package imports torch and numpy only — never jax
-and never ``repro``.
+``kernels.{csr_gather_reduce,embedding_bag,segment_softmax,flash_attention}``,
+``serve``, ``models.{layers,transformer}`` (the LM family),
+``models.gnn``, ``models.recsys.din``, ``configs`` (the LM, GNN and DIN
+archs), ``dist.embedding`` (the crossbar lookup), ``data.synthetic``,
+``train`` and ``launch.{serve,train}``. The package imports torch and numpy
+only — never jax and never ``repro``.
 """

@@ -1,7 +1,7 @@
 """Config schema for the architectures.
 
-Counterpart of ``repro.configs.base`` (the schema, the GNN and the recsys
-shapes; the LM shapes come with the LM models). Every arch module exposes
+Counterpart of ``repro.configs.base``: the schema and the LM, GNN and
+recsys shapes, value for value. Every arch module exposes
 ``ARCH: ArchConfig`` registered in ``configs.registry``; ``smoke()`` returns
 a CPU-sized reduction of the same family.
 """
@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
-__all__ = ["ShapeCell", "ArchConfig", "GNN_SHAPES", "RECSYS_SHAPES"]
+__all__ = ["ShapeCell", "ArchConfig", "LM_SHAPES", "GNN_SHAPES", "RECSYS_SHAPES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,7 +25,7 @@ class ShapeCell:
 class ArchConfig:
     arch_id: str
     family: str  # 'lm' | 'gnn' | 'recsys'
-    model: Any  # GNNConfig | DINConfig
+    model: Any  # LMConfig | GNNConfig | DINConfig
     shapes: Tuple[ShapeCell, ...]
     source: str  # public provenance tag
     # family-specific extras
@@ -39,6 +39,25 @@ class ArchConfig:
                 return s
         raise KeyError(f"{self.arch_id} has no shape {name}: {[s.name for s in self.shapes]}")
 
+
+# The four LM shapes (seq_len x global_batch). decode_* / long_* run the
+# decode step (one token against a seq_len KV cache), NOT the train step.
+LM_SHAPES: Tuple[ShapeCell, ...] = (
+    ShapeCell("train_4k", "train", dict(seq=4096, batch=256)),
+    ShapeCell("prefill_32k", "prefill", dict(seq=32768, batch=32)),
+    ShapeCell("decode_32k", "decode", dict(seq=32768, batch=128)),
+    ShapeCell(
+        "long_500k",
+        "decode",
+        dict(seq=524288, batch=1),
+        note=(
+            "pure full-attention arch: skippable per assignment; run anyway "
+            "because DECODE against a 500k cache is O(S) per token with the "
+            "sequence-parallel cache (500k PREFILL would be quadratic and is "
+            "not attempted)"
+        ),
+    ),
+)
 
 # GNN shapes: node/edge counts padded to multiples of 512 (mesh divisibility);
 # originals in notes. Features/classes per standard datasets.

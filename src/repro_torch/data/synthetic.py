@@ -1,7 +1,7 @@
 """Synthetic data: serving traffic (query streams, edge-insertion streams),
-recsys batches and graph batches.
+LM token batches, recsys batches and graph batches.
 
-Counterpart of the serving, recsys and graph generators of
+Counterpart of the serving, LM, recsys and graph generators of
 ``repro.data.synthetic``: the same numpy RNG calls in the same order, so the
 same seed gives the same arrays in both packages. Everything is drawn on the
 host with numpy; the graph generators wrap the arrays in a ``GraphBatch`` of
@@ -23,6 +23,7 @@ __all__ = [
     "mixed_query_workload",
     "edge_insertion_stream",
     "admission_batches",
+    "lm_batch",
     "recsys_batch",
     "retrieval_batch",
     "random_positions_distances",
@@ -165,6 +166,14 @@ def admission_batches(roots: np.ndarray, lanes: int) -> list:
             )
         out.append((chunk, served))
     return out
+
+
+def lm_batch(seed: int, step: int, batch: int, seq: int, vocab: int) -> Dict[str, np.ndarray]:
+    """Zipf-distributed token stream with next-token labels (int32)."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
+    toks = rng.zipf(1.3, size=(batch, seq + 1)).astype(np.int64)
+    toks = np.minimum(toks, vocab - 1).astype(np.int32)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
 def recsys_batch(

@@ -1,0 +1,3 @@
+from repro_torch.kernels.flash_attention import kernel, ops, ref  # noqa: F401
+from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: F401
+from repro_torch.kernels.flash_attention.ref import gqa_attention_reference  # noqa: F401

@@ -1,9 +1,12 @@
-"""Serving CLI of the port: DIN pointwise/retrieval scoring and lane-batched
-graph query serving, on the device.
+"""Serving CLI of the port: batched greedy decode for LM archs, DIN
+pointwise/retrieval scoring and lane-batched graph query serving, on the
+device.
 
-Counterpart of ``repro.launch.serve`` in its DIN (``--arch din``) and graph
-(``--arch graph``) modes; the LM mode waits for the LM models.
+Counterpart of ``repro.launch.serve`` in its LM (``--arch <lm arch>``), DIN
+(``--arch din``) and graph (``--arch graph``) modes.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --tokens 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch din --mode retrieval
     PYTHONPATH=src python -m repro_torch.launch.serve --arch din --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch graph --lanes 16
@@ -21,6 +24,44 @@ import time
 import numpy as np
 
 from repro_torch.configs.registry import ARCHS, get
+
+
+def serve_lm(arch, tokens: int, batch: int, device="cuda", *, cfg=None, params=None,
+             max_len=None):
+    """The reference's greedy KV-cache decode loop: ``batch`` sequences from
+    token 0, ``tokens`` steps, each feeding back the argmax. At the arch's
+    smoke config with seeded weights unless ``cfg`` / ``params`` are given;
+    the cache holds ``max_len`` (default ``tokens + 8``) positions in the
+    config's type (the reference's float32 is its smoke configs' type).
+    Returns (tokens (batch, tokens) int64 numpy, seconds of the loop)."""
+    import torch
+
+    from repro_torch.device import resolve_device
+    from repro_torch.models.transformer import init_kv_cache, init_params
+    from repro_torch.train.steps import make_lm_decode_step
+
+    dev = resolve_device(device)
+    cfg = cfg if cfg is not None else arch.smoke()
+    if params is None:
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    max_len = max_len if max_len is not None else tokens + 8
+    cache = init_kv_cache(cfg, batch, max_len, device=dev)
+    step = make_lm_decode_step(cfg)
+    tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = []
+    for i in range(tokens):
+        logits, cache = step(params, cache, tok, i)
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        out.append(tok[:, 0])
+    seq = torch.stack(out, 1).cpu().numpy()  # waits for the last step
+    dt = time.perf_counter() - t0
+    print(f"decoded {tokens} tokens x batch {batch} on {dev.type} in {dt:.2f}s "
+          f"({tokens * batch / dt:.1f} tok/s)")
+    print("sample:", seq[0][:16].tolist())
+    return seq, dt
 
 
 def serve_din(arch, mode: str, device="cuda"):
@@ -235,9 +276,10 @@ def check_replay_equivalence(g_final, pg_res, pg_cold, workload, lanes, device, 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True, choices=sorted(ARCHS) + ["graph"],
-                    help="a model arch (din; GNN archs run in launch.train), or 'graph' "
-                         "for lane-batched graph query "
-                         "serving (the LM mode is not ported yet)")
+                    help="a model arch (an LM arch or din; GNN archs run in "
+                         "launch.train), or 'graph' for lane-batched graph query serving")
+    ap.add_argument("--tokens", type=int, default=32, help="LM decode steps")
+    ap.add_argument("--batch", type=int, default=4, help="LM decode batch")
     ap.add_argument("--mode", default="pointwise", choices=["pointwise", "retrieval"])
     ap.add_argument("--lanes", type=int, default=16, help="admission batch width K")
     ap.add_argument("--queries", type=int, default=64)
@@ -253,9 +295,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.arch != "graph":
         arch = get(args.arch)
-        if arch.family != "recsys":
+        if arch.family == "lm":
+            serve_lm(arch, args.tokens, args.batch, device=args.device)
+        elif arch.family == "recsys":
+            serve_din(arch, args.mode, device=args.device)
+        else:
             raise SystemExit("GNN archs serve via launch.train")
-        serve_din(arch, args.mode, device=args.device)
         return
     if args.smoke:
         # bounded: small graph, few queries, still covers every kind and two

@@ -1,17 +1,19 @@
-"""Trainer CLI of the port: ``--arch <id>`` trains a GNN arch at its smoke
-config on the device.
+"""Trainer CLI of the port: ``--arch <id>`` trains an LM or GNN arch at its
+smoke config on the device.
 
-Counterpart of ``repro.launch.train`` for the gnn family:
+Counterpart of ``repro.launch.train`` for the lm and gnn families:
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m --steps 50
     PYTHONPATH=src python -m repro_torch.launch.train --arch gat-cora --steps 100
     PYTHONPATH=src python -m repro_torch.launch.train --arch gin-tu --steps 3 --device cpu
 
 Wiring: configs.registry -> train.steps builders -> a step loop timed by
-``dist.fault_tolerance.StepMonitor``. Node tasks train on
+``dist.fault_tolerance.StepMonitor``. LM archs train on ``lm_batch(seed=0,
+step)`` of ``--batch`` x ``--seq`` tokens; GNN node tasks on
 ``symmetrize(rmat(10, 8, seed=0))`` with 16 features and 4 classes, graph
 tasks on ``batched_molecules(step, 16 graphs of 16 nodes / 32 edges)``, as
-the reference's ``_gnn_runner`` does. The LM and recsys families and
-``--ckpt`` wait for their slices (ROADMAP.md §1).
+the reference's runners do. The recsys family and ``--ckpt`` wait for their
+slices (ROADMAP.md §1).
 """
 from __future__ import annotations
 
@@ -29,10 +31,25 @@ from repro_torch.train.optim import AdamWConfig
 IN_DIM, OUT_DIM = 16, 4
 
 _WAITS = {
-    "lm": "the LM family trains once the LM slice is ported (ROADMAP.md §1 item 11: "
-          "models/transformer.py and the LM step builders)",
-    "recsys": "DIN training waits for its slice (ROADMAP.md §1 item 11: DIN training)",
+    "recsys": "DIN training waits for its slice (ROADMAP.md §1, \"DIN training\")",
 }
+
+
+def _lm_runner(cfg, ocfg, batch, seq, device):
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models.transformer import init_params
+
+    train = steps_mod.make_lm_train_step(cfg, ocfg)
+
+    def init_state():
+        gen = torch.Generator(device=device).manual_seed(0)
+        return steps_mod.init_train_state(init_params(cfg, gen, device), ocfg)
+
+    def step_fn(state, i):
+        b = lm_batch(seed=0, step=i, batch=batch, seq=seq, vocab=cfg.vocab)
+        return train(state, {k: torch.from_numpy(v).to(device) for k, v in b.items()})
+
+    return init_state, step_fn
 
 
 def _gnn_runner(arch, cfg, ocfg, device):
@@ -66,6 +83,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
     ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8, help="LM batch")
+    ap.add_argument("--seq", type=int, default=128, help="LM sequence length")
     ap.add_argument("--reduced", action="store_true", default=True,
                     help="use the smoke config (the default, as the reference's)")
     ap.add_argument("--ckpt", default=None,
@@ -74,15 +93,18 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     arch = get(args.arch)
-    if arch.family != "gnn":
+    if arch.family in _WAITS:
         raise SystemExit(f"--arch {args.arch}: {_WAITS[arch.family]}")
     if args.ckpt:
         raise SystemExit("--ckpt waits for the port of dist/{checkpoint,fault_tolerance}.py "
-                         "(ROADMAP.md §1 item 11)")
+                         "(ROADMAP.md §1, \"Training infrastructure\")")
     dev = resolve_device(args.device)
     cfg = arch.smoke() if args.reduced else arch.model
     ocfg = AdamWConfig(lr=1e-3, total_steps=args.steps, warmup_steps=min(20, args.steps))
-    init_state, step_fn = _gnn_runner(arch, cfg, ocfg, dev)
+    if arch.family == "lm":
+        init_state, step_fn = _lm_runner(cfg, ocfg, args.batch, args.seq, dev)
+    else:
+        init_state, step_fn = _gnn_runner(arch, cfg, ocfg, dev)
 
     monitor = StepMonitor()
     losses = []

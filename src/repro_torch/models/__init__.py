@@ -1,2 +1,3 @@
-"""The port's models. Only DIN (``models.recsys.din``) so far, with the MLP
-helpers it uses (``models.gnn.common``)."""
+"""The port's models: the LM family (``models.layers``,
+``models.transformer``), the GNNs (``models.gnn``) and DIN
+(``models.recsys.din``)."""

@@ -1,12 +1,13 @@
-"""Train / infer step builders for the GNN family.
+"""Train / serve step builders for the LM and GNN families.
 
-Counterpart of the GNN builders of ``repro.train.steps``. Each builder
-returns a plain function: ``train_step(state, batch, labels) -> (new state,
-{"loss"})`` with the gradients from ``torch.autograd`` and the update from
-``optim.adamw_update``, and ``infer(params, batch)``. ``TrainState`` is a
-plain dict {'params', 'opt'}; the step returns a new one and changes none
-of its tensors. The LM and DIN builders come with the LM and DIN training
-slices.
+Counterpart of the LM and GNN builders of ``repro.train.steps``. Each
+builder returns a plain function: ``train_step(state, batch[, labels]) ->
+(new state, {"loss"})`` with the gradients from ``torch.autograd`` and the
+update from ``optim.adamw_update``; ``prefill(params, tokens)``,
+``decode(params, cache, tokens, pos)`` and ``infer(params, batch)`` run
+without autograd. ``TrainState`` is a plain dict {'params', 'opt'}; the
+step returns a new one and changes none of its tensors. The DIN builders
+come with the DIN training slice.
 """
 from __future__ import annotations
 
@@ -14,12 +15,16 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.models import transformer as tfm
 from repro_torch.models.gnn import archs as gnn
 from repro_torch.models.gnn.common import GraphBatch
 from repro_torch.train import losses
-from repro_torch.train.optim import AdamWConfig, adamw_update, init_adamw, tree_flatten
+from repro_torch.train.optim import (
+    AdamWConfig, adamw_update, init_adamw, tree_flatten, tree_map,
+)
 
-__all__ = ["init_train_state", "make_gnn_loss", "make_gnn_train_step", "make_gnn_infer",
+__all__ = ["init_train_state", "make_lm_loss", "make_lm_train_step", "make_lm_prefill",
+           "make_lm_decode_step", "make_gnn_loss", "make_gnn_train_step", "make_gnn_infer",
            "value_and_grad"]
 
 
@@ -46,7 +51,79 @@ def value_and_grad(loss_fn: Callable, params, *args):
     return loss.detach(), rebuild(grads)
 
 
-# task kinds: 'node_class' | 'graph_class' | 'node_reg'
+# ---------------------------------------------------------------------------
+# LM family
+# ---------------------------------------------------------------------------
+
+
+def make_lm_loss(cfg: tfm.LMConfig):
+    """``loss_fn(params, tokens, labels)``: next-token cross-entropy plus the
+    MoE aux loss; the padding columns of a padded vocab get -1e30."""
+    def loss_fn(params, tokens, labels):
+        logits, aux = tfm.forward(params, tokens, cfg)
+        if cfg.vocab_real is not None and cfg.vocab_real < cfg.vocab:
+            pad_mask = torch.arange(cfg.vocab, device=logits.device) >= cfg.vocab_real
+            logits = torch.where(pad_mask, torch.tensor(-1e30, dtype=logits.dtype,
+                                                        device=logits.device), logits)
+        return losses.softmax_xent(logits, labels) + aux
+
+    return loss_fn
+
+
+def make_lm_train_step(
+    cfg: tfm.LMConfig,
+    opt_cfg: AdamWConfig,
+    grad_accum: int = 1,
+    grad_transform: Optional[Callable] = None,
+):
+    """``train_step(state, {"tokens", "labels"})``; with ``grad_accum`` > 1 the
+    batch splits into that many micro-batches whose losses and float32
+    grads are averaged, as the reference's scan does."""
+    loss_fn = make_lm_loss(cfg)
+
+    def train_step(state, batch):
+        if grad_accum == 1:
+            loss, grads = value_and_grad(loss_fn, state["params"], batch["tokens"],
+                                         batch["labels"])
+        else:
+            mb = batch["tokens"].shape[0] // grad_accum
+            toks = batch["tokens"].reshape(grad_accum, mb, -1)
+            labs = batch["labels"].reshape(grad_accum, mb, -1)
+            loss = torch.zeros((), dtype=torch.float32, device=toks.device)
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                   device=p.device), state["params"])
+            for t, l in zip(toks, labs):
+                lo, g = value_and_grad(loss_fn, state["params"], t, l)
+                loss = loss + lo
+                grads = tree_map(torch.add, grads, g)
+            loss = loss / grad_accum
+            grads = tree_map(lambda g: g / grad_accum, grads)
+        new_state = _apply_update(state, grads, opt_cfg, grad_transform)
+        return new_state, {"loss": loss}
+
+    return train_step
+
+
+def make_lm_prefill(cfg: tfm.LMConfig):
+    @torch.no_grad()
+    def prefill(params, tokens):
+        logits, _ = tfm.forward(params, tokens, cfg)
+        return logits
+
+    return prefill
+
+
+def make_lm_decode_step(cfg: tfm.LMConfig):
+    @torch.no_grad()
+    def decode(params, cache, tokens, pos):
+        return tfm.decode_step(params, cache, tokens, pos, cfg)
+
+    return decode
+
+
+# ---------------------------------------------------------------------------
+# GNN family — task kinds: 'node_class' | 'graph_class' | 'node_reg'
+# ---------------------------------------------------------------------------
 def make_gnn_loss(cfg: gnn.GNNConfig, task: str = "node_class",
                   loss_nodes: Optional[int] = None):
     """``loss_fn(params, batch, labels)`` of the train step."""

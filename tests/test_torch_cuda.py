@@ -13,7 +13,12 @@ the CPU run; the segment-softmax kernel against its plain version (heads,
 vb up to 8192, empty rows, all-invalid tiles, bit-stability) and GAT's
 forward and backward on the card against the CPU run; the one-bucket
 gather kernel against its plain version (every arm, plain, packed, split
-and empty layouts, both sizes of source offset, T = 0).
+and empty layouts, both sizes of source offset, T = 0); the flash-attention
+kernel against its plain version and the float32 oracle (the reference's
+sweep cases, ragged S, D = 12 to 128, a GQA group of 5, S = 1; float32 and
+bf16), LM smoke configs' forward and grads on the card against the CPU run
+(one launch a layer), and smollm-135m at published width against a
+plain-attention run.
 
 Every test here needs an NVIDIA GPU (the kernel has no CPU mode) and skips
 without one. The file imports neither jax nor ``repro``, so it runs on a
@@ -680,3 +685,138 @@ def test_cuda_gather_bucket_without_tiles_writes_the_identity(cuda_device):
     with pytest.raises(RuntimeError, match="launch failed"):  # vb rows past shared memory
         B.gather_reduce_bucket(torch.ones(16, device=cuda_device), tall, tall, tall.bool(),
                                num_rows=1 << 17, vb=1 << 17)
+
+
+# -- the flash-attention kernel and the LM -----------------------------------
+
+FLASH_F32_TOL = dict(rtol=2e-5, atol=2e-5)  # tests/test_kernels.py's sweep tolerance
+# bf16 out: the kernel and the plain version compute the same float32 values
+# up to reassociation, so their bf16 roundings differ by at most one ulp
+# (2^-7 of the value)
+FLASH_BF16_TOL = dict(rtol=2 ** -7, atol=1e-6)
+FLASH_CASES = [  # b, hq, hkv, s, d, bq, bk, causal
+    (2, 4, 2, 64, 16, 16, 16, True),  # tests/test_kernels.py's sweep ...
+    (1, 8, 8, 128, 32, 32, 64, True),
+    (2, 6, 3, 96, 8, 32, 32, False),
+    (1, 4, 1, 64, 64, 64, 16, True),
+    (1, 2, 2, 32, 128, 16, 32, True),  # ... and its chunked-twin case below
+    (2, 4, 2, 64, 16, 16, 16, True),
+    (2, 9, 3, 333, 64, 128, 64, True),  # smollm's heads, ragged S
+    (1, 40, 8, 200, 128, 128, 64, True),  # qwen3-14b's group of 5, ragged S
+    (1, 6, 3, 77, 12, 32, 32, False),  # D = 12, ragged, non-causal
+    (3, 4, 4, 1, 64, 128, 128, True),  # S = 1
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,s,d,bq,bk,causal", FLASH_CASES)
+def test_cuda_flash_attention_matches_plain(b, hq, hkv, s, d, bq, bk, causal, dtype, cuda_device):
+    from repro_torch.kernels.flash_attention import gqa_attention_reference
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    rng = np.random.default_rng(s * 7 + d + hq)
+    td = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(np.float32)).to(td)
+               for h in (hq, hkv, hkv))
+    kw = dict(causal=causal, block_q=bq, block_k=bk)
+    want = FK.flash_attention_tiles(q, k, v, **kw)  # the plain version on the CPU
+    name = "f32" if dtype == "float32" else "bf16"
+    before = FK.LAUNCHES.get(name, 0)
+    got = FK.flash_attention_tiles(*(t.to(cuda_device) for t in (q, k, v)), **kw)
+    again = FK.flash_attention_tiles(*(t.to(cuda_device) for t in (q, k, v)), **kw)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES[name] == before + 2
+    assert got.shape == want.shape and got.dtype == td
+    tol = FLASH_F32_TOL if dtype == "float32" else FLASH_BF16_TOL
+    torch.testing.assert_close(got.cpu(), want, **tol)
+    assert torch.equal(got, again)  # the same bits
+    # the oracle in float32 on the same inputs, rounded to the output type
+    oracle = gqa_attention_reference(q.float(), k.float(), v.float(), causal=causal).to(td)
+    torch.testing.assert_close(got.cpu(), oracle, **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_what_it_cannot_launch(cuda_device):
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    q = torch.zeros(1, 4, 64, 128, device=cuda_device)
+    with pytest.raises(ValueError, match="threads"):
+        FK.flash_attention_tiles(q, q, q, block_q=256)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = q.transpose(2, 3)
+        FK.flash_attention_tiles(t, t, t)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", ["qwen3-14b", "granite-moe-1b-a400m"])
+def test_cuda_lm_forward_and_grads_match_cpu(arch_id, cuda_device):
+    """An LM smoke config (float32; qk-norm or MoE) on the card (the flash
+    kernel, one launch a layer) against the CPU run (its plain version):
+    logits and every gradient."""
+    from repro_torch.configs.registry import get
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import steps
+    from repro_torch.train.optim import tree_flatten
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get(arch_id).smoke()
+    cpu = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    b = {k: torch.from_numpy(v) for k, v in lm_batch(0, 0, 2, 200, cfg.vocab).items()}
+    with torch.no_grad():
+        want = tfm.forward(cpu, b["tokens"], cfg)[0]
+    card = _tree_to(cpu, cuda_device)
+    before = FK.LAUNCHES.get("f32", 0)
+    with torch.no_grad():
+        got = tfm.forward(card, b["tokens"].to(cuda_device), cfg)[0]
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES["f32"] == before + cfg.n_layers  # the card never took plain
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    loss_fn = steps.make_lm_loss(cfg)
+    lw, gw = steps.value_and_grad(loss_fn, cpu, b["tokens"], b["labels"])
+    lg, gg = steps.value_and_grad(loss_fn, card, b["tokens"].to(cuda_device),
+                                  b["labels"].to(cuda_device))
+    torch.testing.assert_close(lg.cpu(), lw, rtol=1e-5, atol=1e-5)
+    for a, w in zip(tree_flatten(gg)[0], tree_flatten(gw)[0]):
+        torch.testing.assert_close(a.cpu(), w, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_smollm_full_width_forward_matches_plain_attention(cuda_device, monkeypatch):
+    """smollm-135m at its published width (30 layers, bf16, seeded weights):
+    30 kernel launches a forward, logits within 2e-2 (relative L2) of a run
+    with the kernel's plain version."""
+    from repro_torch.configs.registry import get
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import transformer as tfm
+
+    cfg = get("smollm-135m").model
+    params = tfm.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    toks = torch.from_numpy(lm_batch(0, 0, 2, 777, cfg.vocab)["tokens"]).to(cuda_device)
+    before = FK.LAUNCHES.get("bf16", 0)
+    with torch.no_grad():
+        got = tfm.forward(params, toks, cfg)[0]
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES["bf16"] == before + cfg.n_layers == before + 30
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+
+    def plain(q, k, v, *, causal, scale, block_q, block_k):
+        return FK.flash_attention_tiles_plain(q, k, v, causal=causal,
+                                              scale=q.shape[-1] ** -0.5 if scale is None else scale,
+                                              block_q=block_q, block_k=block_k)
+
+    monkeypatch.setattr(FK, "flash_attention_tiles", plain)
+    with torch.no_grad():
+        want = tfm.forward(params, toks, cfg)[0]
+    rel = torch.linalg.vector_norm((got.float() - want.float()).reshape(-1)) / \
+        torch.linalg.vector_norm(want.float().reshape(-1))
+    assert float(rel) <= 2e-2

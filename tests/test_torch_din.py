@@ -114,7 +114,8 @@ def test_recsys_generators_byte_identical(seed, step, batch):
 
 def test_configs_match_reference():
     assert set(ARCHS) == {"din", "gat-cora", "gcn-cora", "gin-tu", "graphsage",
-                          "meshgraphnet", "schnet"}
+                          "meshgraphnet", "schnet", "smollm-135m", "llama3-8b", "qwen3-14b",
+                          "qwen3-moe-30b-a3b", "granite-moe-1b-a400m"}
     ra, ta = r_get("din"), t_get("din")
     for f in dataclasses.fields(ra):
         if f.name in ("model", "smoke", "shapes"):
@@ -130,7 +131,7 @@ def test_configs_match_reference():
             else:
                 assert a == b, f.name
     with pytest.raises(KeyError):
-        t_get("llama3-8b")
+        t_get("not-an-arch")
 
 
 def test_in_degrees_match_reference():

@@ -15,8 +15,8 @@
     service, the auto-flush threshold;
   * the smoke's replay check also holds neighbors-of for every root;
   * ``python -m repro_torch.launch.serve`` exits 0 with ``--arch graph
-    --smoke``, ``--arch din --mode pointwise`` and ``--mode retrieval``, all
-    with ``--device cpu``.
+    --smoke``, ``--arch din --mode pointwise`` and ``--mode retrieval``, and
+    ``--arch smollm-135m --tokens 8``, all with ``--device cpu``.
 
 Everything runs on the CPU (``device="cpu"``); inputs come from numpy seeds.
 """
@@ -348,6 +348,7 @@ def test_replay_equivalence_compares_neighbors_of_for_every_root(graph):
     (["--arch", "graph", "--smoke"], "serve smoke OK"),
     (["--arch", "din", "--mode", "pointwise"], "pointwise on cpu: batch 512"),
     (["--arch", "din", "--mode", "retrieval"], "retrieval on cpu: 4096 candidates"),
+    (["--arch", "smollm-135m", "--tokens", "8"], "decoded 8 tokens x batch 4 on cpu"),
 ])
 def test_serve_cli_smoke_on_cpu(args, expect):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

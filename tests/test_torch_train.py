@@ -7,7 +7,8 @@
     vectors seeded non-zero), GIN (graph_class) and SchNet (node_reg) from
     the reference's weights: losses and params within rtol 1e-5, atol 1e-6;
   * ``python -m repro_torch.launch.train --arch gat-cora --steps 3 --device
-    cpu`` runs and prints its final line; other families and ``--ckpt``
+    cpu`` runs and prints its final line, as do ``--arch smollm-135m`` and
+    ``--arch granite-moe-1b-a400m`` with a finite loss; DIN and ``--ckpt``
     exit with the ROADMAP item they wait for.
 
 Inputs come from numpy seeds.
@@ -175,6 +176,18 @@ def test_train_cli_runs_gat_on_cpu():
     assert proc.returncode == 0, proc.stderr
     last = proc.stdout.strip().splitlines()[-1]
     assert last.startswith("final: loss ") and "'steps': 3" in last, last
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "granite-moe-1b-a400m"])
+def test_train_cli_runs_lm_on_cpu(arch):
+    proc = _cli("--arch", arch, "--steps", "3", "--batch", "4", "--seq", "32", "--device", "cpu")
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert lines[0].startswith("step     0  loss ")
+    last = lines[-1]
+    assert last.startswith("final: loss ") and "'steps': 3" in last, last
+    first, final = (float(x) for x in last.split("final: loss ")[1].split(";")[0].split(" -> "))
+    assert np.isfinite(first) and np.isfinite(final)
 
 
 @pytest.mark.parametrize("args,says", [(("--arch", "din"), "DIN training"),
