@@ -169,10 +169,13 @@ freed first):
              32,768 (Hq 9, Hkv 3, D 64, bf16; the oracle on the first 4096
              positions, whose logits fit), (b) llama3-8b's at S = 4096 (Hq
              32, Hkv 8, D 128, bf16), (c) (a)'s widths at S = 4096 in
-             float32: within FLASH_F32_TOL / FLASH_BF16_TOL, the same bits
-             again; ms by CUDA events over 20 back-to-back launches, plain
-             ms, the oracle's ms where it fits, the library call's ms
-             (F.scaled_dot_product_attention, a yardstick), the bound
+             float32, (d) the train step's layer, (a)'s widths at B = 4, S =
+             4096, bf16: within FLASH_F32_TOL / FLASH_BF16_TOL, the same bits
+             again; ms by CUDA events over 20 back-to-back launches and
+             TFLOP/s (causal flops over ms), plain ms, the oracle's ms where
+             it fits, the library call's ms (F.scaled_dot_product_attention,
+             a yardstick), the bound; the HMMA / HGMMA count of each
+             kernel's SASS (cuobjdump), none in the bf16 kernel failing
   lm         smollm-135m at published width (30 layers, d 576, bf16), seeded
              weights: prefill at prefill_32k's S = 32,768 (batch cut to 1):
              ms and tokens/s, 30 launches a prefill, logits at S = 4096
@@ -357,7 +360,7 @@ def main() -> int:
         DEFAULT_QUERY_MIX, edge_insertion_stream, mixed_query_workload, recsys_batch,
         retrieval_batch,
     )
-    from repro_torch.kernels.build import build_library, load_library
+    from repro_torch.kernels.build import build_library, cuda_tool, load_library
     from repro_torch.kernels.csr_gather_reduce import kernel as K
     from repro_torch.kernels.csr_gather_reduce import scatter as S
     from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_reference
@@ -1859,26 +1862,54 @@ def main() -> int:
     from repro_torch.launch.serve import serve_lm
     from repro_torch.models import transformer as tfm
 
-    blocks = tfm.FLASH_BLOCKS
+    flash_blocks = tfm.FLASH_BLOCKS
+
+    def sass_tensor_ops():
+        """HMMA / HGMMA instructions in each flash kernel's SASS (``cuobjdump
+        -sass`` of the built library): the bf16 kernel's products run on the
+        tensor cores, the float32 kernel's on the FMA units."""
+        if rehearsal:
+            return None
+        path, _ = build_library(FK.SOURCE)
+        sass = subprocess.run([cuda_tool("cuobjdump"), "-sass", str(path)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        counts, fn = {}, None
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                fn = next((t for t in ("bf16", "f32") if f"flash_attention_kernel_{t}" in ln),
+                          None)
+                if fn:
+                    counts.setdefault(fn, dict(functions=0, HMMA=0, HGMMA=0))["functions"] += 1
+            elif fn and "HGMMA" in ln:
+                counts[fn]["HGMMA"] += 1
+            elif fn and "HMMA" in ln:
+                counts[fn]["HMMA"] += 1
+        bf16 = counts.get("bf16", {})
+        check(bf16.get("HMMA", 0) + bf16.get("HGMMA", 0) > 0,
+              f"flash: no tensor-core instruction in the bf16 kernel's SASS ({counts})")
+        return counts
 
     def flash_phase():
-        """The kernel at three shapes: (a) smollm-135m's layer at prefill_32k's
-        S, (b) llama3-8b's at S = 4096, (c) (a)'s widths at S = 4096 in float32."""
+        """The kernel at four shapes: (a) smollm-135m's layer at prefill_32k's
+        S, (b) llama3-8b's at S = 4096, (c) (a)'s widths at S = 4096 in
+        float32, (d) the train step's layer (smollm-135m, B = 4, S = 4096)."""
         t0 = time.perf_counter()
-        shapes = {"a_smollm_prefill_32k": ("smollm-135m", 32768, torch.bfloat16),
-                  "b_llama3_8b_4k": ("llama3-8b", 4096, torch.bfloat16),
-                  "c_smollm_4k_f32": ("smollm-135m", 4096, torch.float32)}
+        shapes = {"a_smollm_prefill_32k": ("smollm-135m", 1, 32768, torch.bfloat16),
+                  "b_llama3_8b_4k": ("llama3-8b", 1, 4096, torch.bfloat16),
+                  "c_smollm_4k_f32": ("smollm-135m", 1, 4096, torch.float32),
+                  "d_smollm_train_4k": ("smollm-135m", LM_TRAIN_BATCH, 4096, torch.bfloat16)}
         rows, worst = {}, 0.0
         reps = 2 if rehearsal else FLASH_REPS
-        for label, (arch_id, s, dtype) in shapes.items():
+        for label, (arch_id, bsz, s, dtype) in shapes.items():
             m = get_arch(arch_id).model
             hq, hkv, d = m.n_heads, m.n_kv_heads, m.hd
             if rehearsal:
                 s = s // 64
             gen = torch.Generator(device=dev).manual_seed(SEED + 13)
-            q, k, v = (torch.randn(1, h, s, d, generator=gen, device=dev).to(dtype)
+            q, k, v = (torch.randn(bsz, h, s, d, generator=gen, device=dev).to(dtype)
                        for h in (hq, hkv, hkv))
             tol = FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+            blocks = flash_blocks[dtype]
 
             def kern():
                 return FK.flash_attention_tiles(q, k, v, causal=True, **blocks)
@@ -1907,15 +1938,16 @@ def main() -> int:
             oracle_ms = None
             if s <= 4096:  # the reference's function in the input type
                 oracle_ms = device_ms(lambda: gqa_attention_reference(q, k, v), max(1, reps // 5))
-            nbytes = (2 * hq + 2 * hkv) * s * d * q.element_size()
-            flops = 2 * 2 * hq * d * s * s / 2  # causal: half the score matrix
+            nbytes = (2 * hq + 2 * hkv) * bsz * s * d * q.element_size()
+            flops = 2 * 2 * bsz * hq * d * s * s / 2  # causal: half the score matrix
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = flops / (BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S) * 1e3
+            timed = kernel_ms(kern, reps, 1, "flash_attention_kernel")
             rows[label] = dict(
-                arch=arch_id, heads=hq, kv_heads=hkv, seq=s, head_dim=d, dtype=str(dtype),
-                block_q=blocks["block_q"], block_k=blocks["block_k"], max_abs_err=err,
-                max_abs_err_vs_oracle=oerr, oracle_positions=n, max_abs_diff_vs_library=lerr,
-                **kernel_ms(kern, reps, 1, "flash_attention_kernel"),
+                arch=arch_id, batch=bsz, heads=hq, kv_heads=hkv, seq=s, head_dim=d,
+                dtype=str(dtype), block_q=blocks["block_q"], block_k=blocks["block_k"],
+                max_abs_err=err, max_abs_err_vs_oracle=oerr, oracle_positions=n,
+                max_abs_diff_vs_library=lerr, **timed, tflops=flops / timed["ms"] / 1e9,
                 plain_ms=device_ms(plain, max(1, reps // 10)), oracle_ms=oracle_ms,
                 library_ms=device_ms(lambda: TF.scaled_dot_product_attention(
                     q, k, v, is_causal=True, enable_gqa=True), reps),
@@ -1925,9 +1957,13 @@ def main() -> int:
             del q, k, v, got
         emit("flash_kernel", t0, per_launch=rows, max_abs_err=worst,
              tolerance=dict(f32=FLASH_F32_TOL, bf16=FLASH_BF16_TOL),
+             sass_tensor_ops=sass_tensor_ops(),
              note="(a) smollm-135m's layer at prefill_32k's S = 32,768, B = 1 (Hq 9, Hkv 3, D "
                   "64, bf16); (b) llama3-8b's at S = 4096 (Hq 32, Hkv 8, D 128, bf16); (c) "
-                  "(a)'s widths at S = 4096, float32; q, k, v seeded N(0, 1); the model's blocks; "
+                  "(a)'s widths at S = 4096, float32; (d) the train step's: (a)'s widths at B "
+                  "= 4, S = 4096, bf16; q, k, v seeded N(0, 1); the model's blocks; tflops: "
+                  "the causal flops over ms; sass_tensor_ops: HMMA / HGMMA instructions in "
+                  "each kernel's SASS (cuobjdump -sass of the built library); "
                   "ms: CUDA events around back-to-back launches, the stream held while the host "
                   "enqueues them (profiler_ms: the mean of the kernel's profiler events over as "
                   "many launches, events_seen of events_expected); plain_ms: the kernel's plain "

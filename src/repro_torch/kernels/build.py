@@ -16,7 +16,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build_library", "load_library"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "cuda_tool", "build_library", "load_library"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -28,14 +28,16 @@ NVCC_FLAGS = (
 _LOADED: dict = {}  # source name -> (ctypes.CDLL, build log)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``): on the PATH
+    or under /usr/local/cuda/bin."""
+    found = shutil.which(name)
     if found:
         return found
-    cand = Path("/usr/local/cuda/bin/nvcc")
+    cand = Path("/usr/local/cuda/bin") / name
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    raise RuntimeError(f"{name} not found: the CUDA kernels cannot be built or read")
 
 
 def build_library(source: str) -> tuple[Path, str]:
@@ -50,7 +52,7 @@ def build_library(source: str) -> tuple[Path, str]:
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(

@@ -20,6 +20,18 @@ blocks may be partial.
 and raises if the build or the launch fails; on CPU tensors it runs
 ``flash_attention_tiles_plain``, the plain PyTorch version on the same block
 schedule, which the kernel is also checked against on the card.
+
+The source holds one kernel per input type. float32 runs on the FMA units,
+1-4 threads a query row (``threads_per_row``), any ``block_q`` up to 512
+threads a block. bfloat16 runs both products on the tensor cores
+(``wgmma``, float32 accumulation) on tiles that TMA brings to shared
+memory, a warpgroup of 128 threads per 64 query rows, with P split into
+three bf16 parts that sum to the float32 p within one ulp, so that the
+output stays within one bf16 ulp of this plain version; its ``block_q``
+and ``block_k`` must be multiples of 16 up to 128 (``block_q`` is rounded
+up to 64 rows of work).
+``check_launchable`` says whether the kernel takes a (type, D, tile, B * Hq)
+before a launch.
 """
 from __future__ import annotations
 
@@ -28,12 +40,18 @@ import ctypes
 import torch
 
 __all__ = ["flash_attention_tiles", "flash_attention_tiles_plain", "LAUNCHES",
-           "reset_launch_counts", "MAX_D", "threads_per_row", "shared_bytes"]
+           "reset_launch_counts", "MAX_D", "threads_per_row", "shared_bytes",
+           "check_launchable"]
 
 SOURCE = "flash_attention.cu"
-MAX_D = 128  # four threads of 32 head dims a row
-MAX_THREADS = 512
+MAX_D = 128
+MAX_THREADS = 512  # the float32 kernel's threads a block
 MAX_SHARED = 232448  # bytes of shared memory a block can have on sm_90
+MAX_GRID_Y = 65535  # B * Hq
+BF16_TILE = 16  # the bf16 kernel's tile unit (a wgmma k-step) ...
+BF16_MAX_TILE = 128  # ... and its largest block_q, block_k
+BF16_ROWS = 64  # query rows a warpgroup (128 threads) computes
+BF16_STAGES = 2  # K/V tiles in flight
 _NEG = -1e30
 _DTYPES = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16")}
 
@@ -46,17 +64,51 @@ def reset_launch_counts() -> None:
     LAUNCHES.clear()
 
 
-def threads_per_row(d: int) -> int:
-    """Threads the kernel gives a query row: one per 32 head dims, rounded
-    up to a power of two."""
+def threads_per_row(d: int, dtype: torch.dtype = torch.float32) -> int:
+    """Threads the kernel gives a query row: float32, one per 32 head dims,
+    rounded up to a power of two; bf16, a warpgroup per 64 rows."""
+    if dtype == torch.bfloat16:
+        return 128 // BF16_ROWS
     return 1 if d <= 32 else 2 if d <= 64 else 4
 
 
-def shared_bytes(d: int, block_q: int, block_k: int) -> int:
-    """The kernel's shared memory: K and V tiles of block_k rows (head dims
-    padded to 32 a thread) and a block_q x (block_k + 1) score tile, float32."""
+def _bf16_warpgroups(block_q: int) -> int:
+    return -(-block_q // BF16_ROWS)
+
+
+def shared_bytes(d: int, block_q: int, block_k: int, dtype: torch.dtype = torch.float32) -> int:
+    """The kernel's shared memory. float32: K and V tiles of block_k rows
+    (head dims padded to 32 a thread) and a block_q x (block_k + 1) score
+    tile; bf16: a 64-row Q tile a warpgroup and a ring of BF16_STAGES K and
+    V tiles of block_k rows, head dims padded to 64 or 128, 1 KB to align
+    them to 1024 bytes, and a TMA barrier a stage."""
+    if dtype == torch.bfloat16:
+        dp = 64 if d <= 64 else 128
+        rows = _bf16_warpgroups(block_q) * BF16_ROWS + 2 * BF16_STAGES * block_k
+        return 1024 + rows * dp * 2 + 8 * BF16_STAGES
     dp = 32 * threads_per_row(d)
     return (2 * block_k * dp + block_q * (block_k + 1)) * 4
+
+
+def check_launchable(dtype: torch.dtype, d: int, block_q: int, block_k: int, bh: int) -> None:
+    """Raise ValueError unless the kernel for ``dtype`` launches at head dim
+    ``d``, tile ``block_q`` x ``block_k`` and ``bh`` = B * Hq (the launcher's
+    own checks, made before the call)."""
+    if dtype == torch.bfloat16 and not all(
+            x % BF16_TILE == 0 and BF16_TILE <= x <= BF16_MAX_TILE for x in (block_q, block_k)):
+        raise ValueError(f"bf16 tiles must be multiples of {BF16_TILE} up to {BF16_MAX_TILE}, "
+                         f"got block_q={block_q}, block_k={block_k}")
+    threads = (128 * _bf16_warpgroups(block_q) if dtype == torch.bfloat16
+               else block_q * threads_per_row(d))
+    if threads > MAX_THREADS:
+        raise ValueError(f"block_q={block_q} at D={d} needs {threads} threads a block, more "
+                         f"than {MAX_THREADS}")
+    smem = shared_bytes(d, block_q, block_k, dtype)
+    if smem > MAX_SHARED:
+        raise ValueError(f"block_q={block_q}, block_k={block_k} at D={d} need {smem} B of "
+                         "shared memory")
+    if bh > MAX_GRID_Y:
+        raise ValueError(f"B * Hq = {bh} exceeds the grid's {MAX_GRID_Y} blocks")
 
 
 def flash_attention_tiles_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -142,14 +194,7 @@ def flash_attention_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cuda":
         if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
             raise ValueError("kernel operands must be contiguous")
-        if block_q * threads_per_row(d) > MAX_THREADS:
-            raise ValueError(f"block_q={block_q} at D={d} needs more than {MAX_THREADS} "
-                             "threads a block")
-        if shared_bytes(d, block_q, block_k) > MAX_SHARED:
-            raise ValueError(f"block_q={block_q}, block_k={block_k} at D={d} need "
-                             f"{shared_bytes(d, block_q, block_k)} B of shared memory")
-        if b * hq > 65535:
-            raise ValueError(f"B * Hq = {b * hq} exceeds the grid's 65535 blocks")
+        check_launchable(q.dtype, d, block_q, block_k, b * hq)
         return _launch(q, k, v, causal, scale, block_q, block_k)
     if q.device.type == "cpu":
         return flash_attention_tiles_plain(q, k, v, causal=causal, scale=scale,

@@ -45,8 +45,12 @@ from repro_torch.models.layers import (
 __all__ = ["LMConfig", "init_params", "params_from_reference", "forward", "init_kv_cache",
            "decode_step", "count_params", "active_params", "FLASH_BLOCKS"]
 
-# the flash kernel's blocks on the model's forward (query rows, keys)
-FLASH_BLOCKS = dict(block_q=128, block_k=64)
+# the flash kernel's tile on the model's forward (query rows, keys), per
+# input type: the fastest of tools/flash_times.py's sweeps on the card (bf16:
+# every legal tile at smollm-135m's 32k prefill, llama3-8b's 4k layer and the
+# 4k train step; float32: PR 16's)
+FLASH_BLOCKS = {torch.bfloat16: dict(block_q=128, block_k=128),
+                torch.float32: dict(block_q=128, block_k=64)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,7 +176,8 @@ def _attention(lp, x, cfg: LMConfig, cos, sin, *, cache=None, length_mask=None):
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if cache is None:
-        o = flash_attention(q, k, v, causal=True, chunk=min(cfg.attn_chunk, s), **FLASH_BLOCKS)
+        o = flash_attention(q, k, v, causal=True, chunk=min(cfg.attn_chunk, s),
+                            **FLASH_BLOCKS[q.dtype])
     else:
         k_cache, v_cache, pos = cache
         k_cache[:, :, pos:pos + s] = k  # in place: the cache is never copied

@@ -736,6 +736,54 @@ def test_cuda_flash_attention_matches_plain(b, hq, hkv, s, d, bq, bk, causal, dt
     torch.testing.assert_close(got.cpu(), oracle, **tol)
 
 
+# the bf16 kernel's tensor-core tiles: b, hq, hkv, s, d, bq, bk, causal,
+# the largest |logit| (None: the default scale)
+FLASH_BF16_CASES = [
+    (1, 4, 2, 300, 128, 128, 64, True, None),  # D = 128 at block_q = 128
+    (1, 8, 8, 200, 128, 128, 128, True, None),  # the largest tile
+    (1, 32, 4, 160, 128, 64, 64, True, None),  # qwen3-moe's group of 8
+    (2, 4, 2, 65, 64, 64, 64, True, None),  # S = block_k + 1: a partial diagonal block
+    (1, 4, 2, 33, 32, 32, 32, False, None),  # S = block_k + 1, non-causal
+    (1, 9, 3, 256, 64, 128, 64, True, 30.0),  # logits scaled to +-30
+    (1, 4, 1, 96, 128, 64, 32, False, 30.0),
+    (2, 4, 2, 100, 8, 32, 48, True, None),  # D = 8, padded to 16
+    (1, 6, 3, 77, 12, 64, 16, True, None),  # D = 12: rows not a multiple of 16 B
+    (1, 4, 2, 150, 40, 48, 80, True, None),  # D = 40 padded to 64; odd tile counts
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,s,d,bq,bk,causal,logit_max", FLASH_BF16_CASES)
+def test_cuda_flash_attention_bf16_tiles(b, hq, hkv, s, d, bq, bk, causal, logit_max,
+                                         cuda_device):
+    """The bf16 kernel against its plain version and the float32 oracle
+    within one bf16 ulp, the same bits twice."""
+    from repro_torch.kernels.flash_attention import gqa_attention_reference
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    rng = np.random.default_rng(s * 5 + d + hq + bk)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(np.float32))
+               .to(torch.bfloat16) for h in (hq, hkv, hkv))
+    scale = d ** -0.5
+    if logit_max is not None:  # scale the logits so that the largest is +-logit_max
+        qk = torch.einsum("bkgqd,bkcd->bkgqc", q.float().reshape(b, hkv, hq // hkv, s, d),
+                          k.float())
+        scale = logit_max / float(qk.abs().max())
+    kw = dict(causal=causal, scale=scale, block_q=bq, block_k=bk)
+    want = FK.flash_attention_tiles(q, k, v, **kw)  # the plain version on the CPU
+    before = FK.LAUNCHES.get("bf16", 0)
+    got = FK.flash_attention_tiles(*(t.to(cuda_device) for t in (q, k, v)), **kw)
+    again = FK.flash_attention_tiles(*(t.to(cuda_device) for t in (q, k, v)), **kw)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES["bf16"] == before + 2
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.cpu(), want, **FLASH_BF16_TOL)
+    assert torch.equal(got, again)
+    oracle = gqa_attention_reference(q.float(), k.float(), v.float(), causal=causal,
+                                     scale=scale).to(torch.bfloat16)
+    torch.testing.assert_close(got.cpu(), oracle, **FLASH_BF16_TOL)
+
+
 @pytest.mark.cuda
 def test_cuda_flash_attention_refuses_what_it_cannot_launch(cuda_device):
     from repro_torch.kernels.flash_attention import kernel as FK
@@ -743,6 +791,10 @@ def test_cuda_flash_attention_refuses_what_it_cannot_launch(cuda_device):
     q = torch.zeros(1, 4, 64, 128, device=cuda_device)
     with pytest.raises(ValueError, match="threads"):
         FK.flash_attention_tiles(q, q, q, block_q=256)
+    h = q.to(torch.bfloat16)
+    for bq, bk in ((256, 64), (64, 256), (24, 64), (64, 40)):
+        with pytest.raises(ValueError, match="multiples of 16"):
+            FK.flash_attention_tiles(h, h, h, block_q=bq, block_k=bk)
     with pytest.raises(ValueError, match="contiguous"):
         t = q.transpose(2, 3)
         FK.flash_attention_tiles(t, t, t)

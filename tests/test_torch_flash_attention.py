@@ -135,3 +135,154 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     assert FK.threads_per_row(64) == 2 and FK.threads_per_row(128) == 4
     # llama3-8b's D = 128 at the model's blocks fits a block's shared memory
     assert FK.shared_bytes(128, 128, 64) <= FK.MAX_SHARED
+
+
+# -- the bf16 tensor-core kernel: launchability and its P arithmetic ----------
+
+# bf16 out within one bf16 ulp of the float32 plain version (the card's gate)
+FLASH_BF16_TOL = dict(rtol=2 ** -7, atol=1e-6)
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("dtype,d,bq,bk,bh,match", [
+    (BF16, 64, 128, 128, 9, None),  # smollm's prefill tile
+    (BF16, 128, 128, 64, 32, None),  # llama3-8b's
+    (BF16, 8, 16, 16, 4, None),  # the smallest tile, D padded to 16
+    (BF16, 12, 48, 80, 8, None),  # any multiples of 16
+    (BF16, 64, 256, 64, 9, "multiples of 16"),  # past 128
+    (BF16, 64, 64, 256, 9, "multiples of 16"),
+    (BF16, 64, 24, 64, 9, "multiples of 16"),  # not a multiple of 16
+    (BF16, 64, 64, 40, 9, "multiples of 16"),
+    (BF16, 64, 0, 64, 9, "multiples of 16"),
+    (BF16, 64, 128, 128, 65536, "grid"),
+    (F32, 128, 128, 64, 32, None),
+    (F32, 128, 256, 64, 32, "threads"),  # 4 threads a row at D = 128
+    (F32, 32, 256, 64, 32, None),  # 1 thread a row at D = 32
+    (F32, 128, 128, 256, 32, "shared memory"),
+    (F32, 16, 24, 40, 65535, None),  # float32 takes any tile
+])
+def test_check_launchable(dtype, d, bq, bk, bh, match):
+    if match is None:
+        FK.check_launchable(dtype, d, bq, bk, bh)
+    else:
+        with pytest.raises(ValueError, match=match):
+            FK.check_launchable(dtype, d, bq, bk, bh)
+
+
+def test_shared_bytes_and_threads_follow_the_type():
+    # bf16: a 64-row Q tile a warpgroup, a ring of two K and V tiles, bf16,
+    # head dims padded to 64 or 128, 1 KB of alignment, two TMA barriers
+    assert FK.shared_bytes(64, 128, 128, BF16) == 1024 + (2 * 64 + 2 * 2 * 128) * 64 * 2 + 16
+    assert FK.shared_bytes(8, 16, 16, BF16) == 1024 + (64 + 2 * 2 * 16) * 64 * 2 + 16
+    assert FK.shared_bytes(100, 80, 32, BF16) == 1024 + (2 * 64 + 2 * 2 * 32) * 128 * 2 + 16
+    assert FK.shared_bytes(64, 16, 128, BF16) == FK.shared_bytes(64, 64, 128, BF16)
+    # float32: K and V tiles padded to 32 a thread and the score tile
+    assert FK.shared_bytes(64, 128, 128, F32) == (2 * 128 * 64 + 128 * 129) * 4
+    assert FK.shared_bytes(64, 128, 128) == FK.shared_bytes(64, 128, 128, F32)
+    assert [FK.threads_per_row(d, BF16) for d in (8, 64, 128)] == [2, 2, 2]
+    assert [FK.threads_per_row(d, F32) for d in (8, 64, 128)] == [1, 2, 4]
+    # every legal bf16 tile fits a block at D = 128
+    for bq in range(16, 129, 16):
+        for bk in range(16, 129, 16):
+            FK.check_launchable(BF16, 128, bq, bk, 1)
+
+
+def _top16(x):
+    """x's top 16 bits (sign, exponent, 7 mantissa bits): a bf16 value."""
+    return (x.view(torch.int32) & -65536).view(torch.float32)
+
+
+def _split(p, parts):
+    """The kernel's split of float32 p into bf16 parts, each the top 16 bits
+    of what the parts before it left."""
+    out = []
+    for _ in range(parts):
+        out.append(_top16(p))
+        p = p - out[-1]
+    return out
+
+
+def _emulate_bf16_kernel(q, k, v, *, causal, scale, block_k, parts=3):
+    """The bf16 kernel's arithmetic on the CPU: float32 scores of the bf16
+    inputs, p = 2^(s log2 e - m' log2 e), P in ``parts`` bf16 parts whose
+    products with V (exact in float32) a block sums from zero in float32,
+    acc = acc * alpha + pv, l summed from the unrounded p."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    qf = q.float().reshape(b, hkv, hq // hkv, s, d)
+    kf, vf = k.float(), v.float()
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    m = torch.full((b, hkv, hq // hkv, s), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(b, hkv, hq // hkv, s, d)
+    pos = torch.arange(s)
+    for k0 in range(0, s, block_k):
+        k1 = min(s, k0 + block_k)
+        x = torch.einsum("bkgqd,bkcd->bkgqc", qf, kf[:, :, k0:k1]) * scale
+        if causal:
+            x = torch.where(pos[:, None] >= pos[None, k0:k1], x, -1e30)
+        m_new = torch.maximum(m, x.amax(dim=-1))
+        alpha = torch.exp2((m - m_new) * log2e)
+        p = torch.exp2(x * log2e - (m_new * log2e)[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        pv = sum(torch.einsum("bkgqc,bkcd->bkgqd", part, vf[:, :, k0:k1])
+                 for part in reversed(_split(p, parts)))
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).reshape(b, hq, s, d).to(q.dtype)
+
+
+def test_p_split_parts_are_bf16_and_sum_to_p():
+    p = torch.from_numpy(np.random.default_rng(0).random(4096).astype(np.float32) ** 8)
+    p = torch.cat([p, torch.tensor([0.0, 1.0, 2.0 ** -126, 0.99999994])])
+    parts = _split(p, 3)
+    for part in parts:
+        assert torch.equal(part.to(torch.bfloat16).float(), part)  # exact in bf16
+    rest3 = (p - sum(parts)).abs()
+    assert bool((rest3 <= 2.0 ** -23 * p).all())  # within one float32 ulp of p
+    hi, mid = _split(p, 2)
+    assert float(((p - hi - mid).abs() / p.clamp(min=1e-30)).max()) > 2.0 ** -20  # two: ~2^-16
+
+
+# b, hq, hkv, s, d, block_k, causal, the largest |logit| (None: the default scale)
+SPLIT_CASES = [
+    (1, 4, 2, 256, 64, 64, True, None),
+    (1, 4, 1, 200, 128, 128, True, None),
+    (2, 6, 3, 96, 8, 32, False, None),
+    (1, 2, 2, 32, 128, 32, True, None),  # short rows: two parts miss the gate here
+    (1, 4, 2, 256, 64, 64, True, 30.0),  # logits scaled to +-30
+    (1, 2, 2, 160, 128, 32, False, 30.0),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,bk,causal,logit_max", SPLIT_CASES)
+def test_p_split_stays_within_one_bf16_ulp(b, hq, hkv, s, d, bk, causal, logit_max):
+    """The kernel's three-part P.V against the float32 P.V of the plain
+    version, both rounded to bf16: within FLASH_BF16_TOL."""
+    rng = np.random.default_rng(s + d + bk)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(np.float32))
+               .to(torch.bfloat16) for h in (hq, hkv, hkv))
+    scale = d ** -0.5
+    if logit_max is not None:
+        qk = torch.einsum("bkgqd,bkcd->bkgqc", q.float().reshape(b, hkv, hq // hkv, s, d),
+                          k.float())
+        scale = logit_max / float(qk.abs().max())
+    want = FK.flash_attention_tiles_plain(q, k, v, causal=causal, scale=scale, block_q=bk,
+                                          block_k=bk)
+    got = _emulate_bf16_kernel(q, k, v, causal=causal, scale=scale, block_k=bk)
+    torch.testing.assert_close(got, want, **FLASH_BF16_TOL)
+
+
+def test_two_part_split_misses_the_gate():
+    """Why three parts: with two (16 of p's bits) the short rows' outputs
+    near zero move by more than one bf16 ulp."""
+    b, hq, hkv, s, d, bk = 1, 2, 2, 32, 128, 32
+    rng = np.random.default_rng(s * 7 + d + hq)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(np.float32))
+               .to(torch.bfloat16) for h in (hq, hkv, hkv))
+    want = FK.flash_attention_tiles_plain(q, k, v, causal=True, scale=d ** -0.5, block_q=16,
+                                          block_k=bk)
+    two = _emulate_bf16_kernel(q, k, v, causal=True, scale=d ** -0.5, block_k=bk, parts=2)
+    three = _emulate_bf16_kernel(q, k, v, causal=True, scale=d ** -0.5, block_k=bk)
+    assert not torch.allclose(two.float(), want.float(), **FLASH_BF16_TOL)
+    assert torch.allclose(three.float(), want.float(), **FLASH_BF16_TOL)
