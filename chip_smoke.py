@@ -60,8 +60,16 @@ This slice's paths (multi-query lanes and graph serving, K = 16):
              W=1 and min_f32_add L=16 on the real 32-bit push stream. Min and
              OR bit-equal; sum within rtol=1e-5, atol=1e-9 and the same bits
              on a second launch. Device time per launch over the l phases,
-             the byte bound with the L-wide payload and output, and the
-             laneless arm's time on the same streams
+             the byte bound with the L-wide payload and output, the bytes a
+             slot the design moves (word streams once a lane chunk, an
+             L-wide payload row gathered per slot, the output once) beside
+             the bound's, both as GB/s, and the laneless arm's time on the
+             same streams. The lane kernel gives each slot a group of
+             threads (4 at L = 16, a quad of lanes each by 16-B loads), walks
+             contiguous stretches of the dst-sorted slots and folds each run
+             of one row in registers: min and OR write one atomic per run
+             and lane, sum stages the runs that cross stretches and adds them
+             in stretch order
   lanes_engine   bfs_multi, sssp_multi and ppr_multi (twice, tol 1e-4, the
              router's) at K = 16 with the default options; launches counted
              (forced-push runs added should 'auto' never push a variant):
@@ -141,8 +149,15 @@ heads x 8), attention vectors seeded non-zero:
              (a) GAT layer 1 at the Cora shape (full_graph_sm: 4096 nodes,
              16,384 edge slots, H = 8) and (b) the smoke graph as one GAT
              layout (H = 8): within SOFTMAX_TOL, the same bits again; device
-             time, plain time, the byte bound, the layout's padding share and
-             host build seconds
+             time, plain time, the byte bound, the bytes a slot the design
+             moves (12 H + 10: scores in both sweeps, weights once, dstb and
+             valid once a sweep) beside the bound's 8 H + 5, both as GB/s,
+             the layout's padding share and host build seconds. The kernel's
+             stats sweep is a segmented reduction: each warp walks its own
+             range of the block's slots, each thread folding 8 consecutive
+             slots in registers and the warp joining them with a 5-step
+             shuffle scan; runs inside a warp's range are stored once, and
+             only runs that cross ranges are joined by one thread in order
   gnn        train: 50 steps of make_gnn_train_step with AdamW(lr 1e-3) on
              full_graph_sm uncut (symmetrize(rmat(12, 2, seed=0)) padded to
              16,384 masked slots, d_feat 1433, 7 classes): ms per step
@@ -984,7 +999,8 @@ def main() -> int:
                     fn(payload, *a, **kw)
 
             chunk = None if rehearsal else K.lane_chunk(pg.tile_vb, lanes, kind)
-            row = dict(lanes=lanes, lane_chunk=chunk, chunks=chunk and -(-lanes // chunk),
+            chunks = -(-lanes // chunk) if chunk else 1
+            row = dict(lanes=lanes, lane_chunk=chunk, chunks=chunk and chunks,
                        real_slots_per_phase=real_slots, laneless_variant=laneless,
                        laneless_ms=timing[("gather", laneless)]["ms"])
             row.update(kernel_ms(lambda: launch_all(K.gather_reduce_cores, phase_args, gkw),
@@ -992,6 +1008,14 @@ def main() -> int:
             row["plain_ms"] = device_ms(lambda: launch_all(K.gather_reduce_cores_plain, phase_args,
                                                            gkw), max(1, reps // 4), pg.l)
             row.update(bound(real_slots, 1 + has_hi + has_w, common, lanes))
+            # what the design moves: each lane chunk's word streams, one L-wide
+            # payload row gathered per slot (from L2), the output once
+            design = (chunks * real_slots * 4 * (1 + has_hi + has_w) + real_slots * lanes * 4
+                      + common - pg.gathered_size * lanes * 4)
+            row.update(bytes_per_slot_design=design / real_slots,
+                       bytes_per_slot_bound=row["bound_bytes"] / real_slots,
+                       gbps_design=design / row["ms"] / 1e6,
+                       gbps_bound=row["bound_bytes"] / row["ms"] / 1e6)
             lane_timing[("gather", arm)] = row
             if arm not in PUSH_LANE_ARMS:
                 continue
@@ -1029,7 +1053,10 @@ def main() -> int:
                   "all real tiles for min/or, static counts for sum); bound_ms counts each real "
                   "slot's word (+ word_hi, + weight) once plus the L-wide payload and output; "
                   "chunks > 1: each lane chunk re-reads its tiles' words; laneless_ms: the laneless "
-                  "arm's ms on the same streams (timing phase)")
+                  "arm's ms on the same streams (timing phase); bytes_per_slot_design: the word "
+                  "streams once a lane chunk, an L-wide payload row gathered per slot (from L2) "
+                  "and the output once, over the real slots; gbps_*: those bytes and the bound's "
+                  "over ms")
         return lane_timing, lane_errs
 
     lane_timing, lane_errs = lane_kernel_phase()
@@ -1662,6 +1689,12 @@ def main() -> int:
         ops_ms = 7 * heads * n_valid / F32_OPS_PER_S * 1e3
         row.update(bound_ms=max(bytes_ms, ops_ms), bound_bytes=nbytes,
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=None)
+        # the design reads the scores in both sweeps and writes the weights
+        # once; dstb and valid once a sweep (the other heads' blocks find them
+        # in L2)
+        design = n_slots * (12 * heads + 10)
+        row.update(bytes_per_slot_design=12 * heads + 10, bytes_per_slot_bound=8 * heads + 5,
+                   gbps_design=design / row["ms"] / 1e6, gbps_bound=nbytes / row["ms"] / 1e6)
         sm_rows[label] = row
         del scores, got, want, again
     emit("softmax_kernel", t0, per_launch=sm_rows, max_abs_err=sm_err, tolerance=SOFTMAX_TOL,
@@ -1675,8 +1708,10 @@ def main() -> int:
               "plain version, host gaps after its syncs included; bound: "
               "scores read and weights written once per head, dstb and valid read once, at "
               "3.35 TB/s; padding_share: slots no edge fills (the layout has no tile counts, "
-              "so the kernel reads them); no single PyTorch call computes a segment softmax "
-              "(library_ms null)")
+              "so the kernel reads them); bytes_per_slot_design: scores read in both sweeps and "
+              "weights written once per head, dstb and valid once a sweep (12 H + 10), against "
+              "the bound's 8 H + 5; gbps_*: those bytes over ms; no single PyTorch call computes "
+              "a segment softmax (library_ms null)")
 
     # -- GNNs at published width: GAT training and inference, one step of each other arch
     def gnn_phase():

@@ -15,7 +15,14 @@
 // word, plus 4 B of word_hi and 4 B of weight where streamed) and needs one
 // 4 B gather from the phase's payload block per query lane; there is one
 // compare or add per slot and lane, so the arithmetic is negligible beside
-// the memory traffic.
+// the memory traffic. With lanes, the L-wide output (p x R x vb x L words)
+// is most of the bound; the payload rows (G x L words, a few MB) are
+// gathered once per slot from L2. What bounds the lane kernel now (H100
+// SXM at 700 W, the smoke's partition at L = 16: min 0.086 ms, sum 0.100,
+// 3.3x and 4.2x the bound): it moves about 105 B a slot (the word stream,
+// a 64-B payload row from L2, the output and the accumulator's
+// initialisation and write-out) at about 2.0-2.5 TB/s, with 24 warps an SM
+// waiting on the L2 gathers.
 //
 // Design:
 //   * One thread block per (core c, row block r): blockIdx = (r, c). A loop
@@ -23,46 +30,64 @@
 //   * The block first lists the tiles that run, kThreads candidate tiles at
 //     a time: the static arm takes tiles t < counts[c, r], the dynamic arm
 //     tests fetch[c, r, t] == t. A ballot and the per-warp counts compact
-//     them into a shared list, then the block walks the listed tiles' slots,
-//     kThreads slots per step, with coalesced word loads. Tiles that do not
-//     run are never loaded, the GPU form of the TPU kernel's fetch elision.
-//     The run test is a property of the tile, the same for every thread, so
-//     every thread runs every step and the block barriers stay safe.
+//     them into a shared list, then the block walks the listed tiles' slots.
+//     Tiles that do not run are never loaded, the GPU form of the TPU
+//     kernel's fetch elision. The run test is a property of the tile, the
+//     same for every thread, so every thread runs every step and the block
+//     barriers stay safe.
 //   * Two kernels share the tile listing and the slot decode (device
 //     helpers below) and one launcher: gather_reduce_cores_kernel for one
 //     lane (a laneless (G,) payload, or one packed reach word), and
 //     gather_reduce_cores_lanes_kernel for a (G, L) payload with L >= 2.
-//     The lane kernel at L = 1 gives the same bits but ran the sum 1.64x
-//     slower (1.22x with L = 1 known at compile time) and min_u32 1.13x
-//     (1.06x), H100 SXM, RMAT scale 20 (tools/kernel_arm_times.py), so one
-//     lane keeps its own lean fold.
-//   * Lanes are there for bandwidth: each thread decodes its slot's word
-//     (and reads its weight) ONCE and then updates all of its block's
-//     lanes, so the word stream is read once per launch whatever L is. The
-//     payload (G = p * sub_size rows of L values) stays in device memory
-//     and is read through the read-only cache (at L = 1 it lives in L2 for
-//     the whole launch); only the vb x Lc accumulator is in shared memory
-//     (sum also stages 256 x Lc lane values). Where that does not fit one
-//     block (at vb = 1024 from L = 45 on for sum, L = 57 for min/or), the
-//     lanes are split into chunks of Lc over a third grid dimension; each
-//     chunk re-reads its tiles' words, so a launch reads the word stream
-//     ceil(L / Lc) times. The launcher picks Lc from the layouts below
-//     (gather_reduce_cores_lane_chunk reports it).
-//   * min: one shared-memory atomicMin per slot and lane. uint32 labels use
+//     The one-lane kernel takes kThreads slots a step, one a thread, with
+//     coalesced word loads; an earlier lane kernel run at L = 1 gave the
+//     same bits but ran the sum 1.64x slower (H100 SXM, RMAT scale 20,
+//     tools/kernel_arm_times.py), so one lane keeps its own lean fold.
+//   * One lane, min: one shared-memory atomicMin per slot. uint32 labels use
 //     it directly; float32 values are mapped to an order-preserving uint32
-//     key first. or: one atomicOr per slot and lane. Folding each same-row
-//     group in shared memory first ran 1.4x faster at L = 16 but 2.4x slower
-//     on one packed word and 1.25x slower at 32 lanes a chunk (H100 SXM,
-//     RMAT scale 20), and moved no engine run.
-//   * sum: deterministic, so that PageRank and PPR give the same bits on
-//     every run. Within a warp, threads that hit the same row are grouped
-//     with __match_any_sync and their values added in thread order (with
-//     lanes, the group's members split the lanes, each adding its lane over
-//     the peers). The per-warp partials are staged in shared memory and
-//     added to the accumulator warp by warp, one warp's leaders (distinct
-//     rows) at a time. The order of every float add is therefore fixed by
-//     the slot order alone, and one lane of the lane kernel adds in the
-//     same order as the one-lane kernel.
+//     key first. sum: deterministic, so that PageRank gives the same bits on
+//     every run: within a warp, threads that hit the same row are grouped
+//     with __match_any_sync and their values added in thread order; the
+//     per-warp partials are staged in shared memory and added to the
+//     accumulator warp by warp, one warp's leaders (distinct rows) at a
+//     time, so the order of every add is fixed by the slot order alone.
+//   * Lanes: a group of G threads owns one slot's lanes, each thread a
+//     quad of lanes loaded as one 16-B uint4 (L % 4 == 0) or one lane (else),
+//     up to two such items: at L = 16, G = 4 and 8 slots a warp
+//     instruction. The listed slots of a block are cut into kThreads / G
+//     contiguous stretches, one a group. A group takes its stretch a batch
+//     of max(G, 4) slots at a time: each thread loads and decodes the words
+//     of max(1, 4 / G) slots (word, word_hi, weight read once), the group
+//     shares them with __shfl_sync, and each thread issues the payload
+//     loads of the whole batch before it folds them, so several gathers are
+//     in flight. The slot stream is dst-sorted inside a row block
+//     (prepare_tiles keeps the sorted order), so consecutive slots share a
+//     row: the group keeps the running min, OR or sum of its lanes in
+//     registers along the run and writes the accumulator only when the row
+//     changes and at the end of its stretch.
+//   * The accumulator is vb rows of nl lanes in shared memory, each row's
+//     lanes XOR-swizzled by its low bits (nl a multiple of 8) or rows an odd
+//     stride apart (else), so that groups writing different rows spread over
+//     the banks. Where a block cannot hold 64 lanes (16 when L % 4 != 0) or
+//     what shared memory admits, the lanes are split into chunks of Lc over
+//     a third grid dimension; each chunk re-reads its tiles' words, so a
+//     launch reads the word stream ceil(L / Lc) times. The launcher picks
+//     Lc from the layout below (gather_reduce_cores_lane_chunk reports it).
+//   * Lanes, min and OR: one shared atomic per (run piece, lane), skipped
+//     where the piece holds the identity. Atomics keep them exact on any
+//     layout.
+//   * Lanes, sum: deterministic where each row's slots form one run in the
+//     block, which every layout the port builds keeps
+//     (tests/test_torch_partition.py). A run that starts and ends inside a
+//     group's stretch is added to the accumulator by that group alone. The
+//     first and last run of each stretch are staged; after a block barrier
+//     the pieces of a run that spans stretches are added together in
+//     stretch order by the group where it starts, and then once into the
+//     accumulator. So each (row, lane) takes one add per tile list of
+//     kThreads tiles, in an order set by the slot order alone, and a rerun
+//     gives the same bits. The adds are shared-memory atomicAdds: on a
+//     layout where a row has several runs they stay right, only their order
+//     (and so the last bits) may then vary from launch to launch.
 //   * Rows no edge reaches keep the identity, which is what the level-2
 //     split-row fold relies on for spare virtual rows.
 // The wrapper (kernel.py) checks shapes and types before it calls the
@@ -229,6 +254,30 @@ __global__ void __launch_bounds__(kThreads) gather_reduce_cores_kernel(
   }
 }
 
+// Row stride and lane swizzle of the lane kernel's accumulator for nl lanes:
+// where nl is a multiple of 8, rows are nl words apart and a row's lanes
+// are XOR-ed with its low bits (p - 1, p the largest power of two up to 32
+// dividing nl), else rows are an odd stride apart; either way groups that
+// write different rows spread over the banks.
+__host__ __device__ __forceinline__ int acc_stride(int nl) {
+  return (nl & -nl) >= 8 ? nl : (nl | 1);
+}
+
+__device__ __forceinline__ int acc_swizzle(int nl) {
+  const int p = min(nl & -nl, 32);
+  return p >= 8 ? p - 1 : 0;
+}
+
+// One lane's running value along a run: min keys, OR words or float sums.
+__device__ __forceinline__ uint32_t fold_value(uint32_t a, uint32_t v, int kind) {
+  if (kind == kMin) return min(a, v);
+  if (kind == kOr) return a | v;
+  return __float_as_uint(__uint_as_float(a) + __uint_as_float(v));
+}
+
+// A group of G threads owns one slot's lanes: thread gt of the group holds
+// the lane items gt + G * i (i < kItems), each kVec lanes wide.
+template <int G, int kVec, int kItems>
 __global__ void __launch_bounds__(kThreads) gather_reduce_cores_lanes_kernel(
     const uint32_t* __restrict__ payload,  // (G, L) uint32 or float32 bits
     const int32_t* __restrict__ word,      // (p, R, T, Eb)
@@ -239,23 +288,32 @@ __global__ void __launch_bounds__(kThreads) gather_reduce_cores_lanes_kernel(
     uint32_t* __restrict__ out,            // (p, R * vb, L)
     int r_blocks, int t_tiles, int eb, int vb, int lanes, int lane_chunk,
     int kind, int is_f32, int add, uint32_t identity) {
+  constexpr int kGroups = kThreads / G;
+  constexpr int kBatch = G < 4 ? 4 : G;  // slots a group folds per batch
+  constexpr int kWords = kBatch / G;     // slot words a thread loads per batch
+  constexpr unsigned kAll = 0xFFFFFFFFu;
   extern __shared__ uint32_t smem[];
   const int l0 = blockIdx.z * lane_chunk;
   const int nl = min(lane_chunk, lanes - l0);  // lanes of this block's chunk
-  uint32_t* acc = smem;                                      // vb x nl
-  int* tiles = reinterpret_cast<int*>(smem + (size_t)vb * lane_chunk);  // kThreads
-  int* warp_n = tiles + kThreads;                            // kWarps
-  int* st_row = warp_n + kWarps;                             // kThreads (sum)
-  float* st_val = reinterpret_cast<float*>(st_row + kThreads);  // kThreads x nl (sum)
+  const int units = nl / kVec;                 // lane items of this chunk
+  const int stride = acc_stride(nl);
+  const int swz = acc_swizzle(nl);
+  uint32_t* acc = smem;  // vb x stride; lane l of row r at r * stride + (l ^ (r & swz))
+  int* tiles = reinterpret_cast<int*>(smem + (size_t)vb * acc_stride(lane_chunk));  // kThreads
+  int* warp_n = tiles + kThreads;                                      // kWarps
+  int* st_row = warp_n + kWarps;  // sum: each group's first and last run piece
+  float* st_val = reinterpret_cast<float*>(st_row + 2 * kGroups);  // 2 kGroups x lane_chunk
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int g = tid / G;   // the group
+  const int gt = tid % G;  // the thread within it
   const long long blk = (long long)blockIdx.y * r_blocks + blockIdx.x;
   const bool min_f32 = (kind == kMin) && is_f32;
-
   const uint32_t init = min_f32 ? f32_key(identity) : identity;
-  for (int j = tid; j < vb * nl; j += kThreads) acc[j] = init;
+  // a run's starting value: the identity of min and OR, +0 for a sum
+  const uint32_t start = kind == kSum ? 0u : init;
+
+  for (int j = tid; j < vb * stride; j += kThreads) acc[j] = init;
   __syncthreads();
 
   const long long base = blk * (long long)t_tiles * eb;
@@ -265,83 +323,189 @@ __global__ void __launch_bounds__(kThreads) gather_reduce_cores_lanes_kernel(
 
   for (int t0 = 0; t0 < n_cand; t0 += kThreads) {
     const int n_slots = list_running_tiles(t0, n_cand, fetch_blk, tiles, warp_n) * eb;
-    for (int s0 = 0; s0 < n_slots; s0 += kThreads) {
-      const int s = s0 + tid;
-      bool valid = false;
-      int row = 0;
-      float step = 1.0f;
-      const uint32_t* prow = payload;
-      if (s < n_slots) {  // decode the slot once, for every lane
-        const long long at = base + (long long)tiles[s / eb] * eb + s % eb;
-        int src;
-        valid = decode_slot(word, word_hi, at, row, src);
-        if (valid) {
-          prow = payload + (long long)src * lanes + l0;
-          if (add && weights != nullptr) step = __ldg(weights + at);
-        }
-      }
-      if (kind != kSum) {
-        if (!valid) continue;
-        uint32_t* cell = acc + row * nl;
-        for (int l = 0; l < nl; ++l) {
-          uint32_t v = __ldg(prow + l);
-          if (kind == kOr) {
-            if (v != 0u) atomicOr(cell + l, v);
-            continue;
+    // every group takes the same number of batches: slots past n_slots are
+    // padding, so the group's shuffles see all of its threads
+    const int len = ((n_slots + kGroups - 1) / kGroups + kBatch - 1) / kBatch * kBatch;
+    const int s_beg = g * len;
+    int cur = -1;  // the row of the run being folded
+    uint32_t run[kItems][kVec];
+    int n_done = 0;  // sum: runs of the stretch already written or staged
+    if (kind == kSum && gt == 0) st_row[2 * g] = st_row[2 * g + 1] = -1;
+
+    // write the finished run of row `rr`: min and OR by atomics; a sum is
+    // staged when it is the stretch's first (last: at_end) run, else added
+    auto finish = [&](int rr, bool at_end) {
+      uint32_t* cell = acc + rr * stride;
+      const int sw = rr & swz;
+      if (kind == kSum) {
+        const int piece = n_done == 0 ? 0 : (at_end ? 1 : -1);
+        if (piece >= 0 && gt == 0) st_row[2 * g + piece] = rr;
+        float* st = st_val + (size_t)(2 * g + (piece > 0)) * lane_chunk;
+#pragma unroll
+        for (int i = 0; i < kItems; ++i) {
+          const int u = gt + G * i;
+          if (u >= units) continue;
+#pragma unroll
+          for (int v = 0; v < kVec; ++v) {
+            const float x = __uint_as_float(run[i][v]);
+            if (piece >= 0) {
+              st[u * kVec + v] = x;
+            } else {
+              atomicAdd(reinterpret_cast<float*>(cell) + ((u * kVec + v) ^ sw), x);
+            }
           }
-          if (add) {  // saturating min-plus map; the slot's weight on every lane
-            const float x = __uint_as_float(v);
-            v = __float_as_uint(x >= ident_f ? ident_f : x + step);
+        }
+        ++n_done;
+        return;
+      }
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        const int u = gt + G * i;
+        if (u >= units) continue;
+#pragma unroll
+        for (int v = 0; v < kVec; ++v) {
+          const uint32_t x = run[i][v];
+          if (x == init) continue;  // nothing to add to the row
+          if (kind == kMin) {
+            atomicMin(cell + ((u * kVec + v) ^ sw), x);
+          } else {
+            atomicOr(cell + ((u * kVec + v) ^ sw), x);
           }
-          atomicMin(cell + l, min_f32 ? f32_key(v) : v);
         }
-        continue;
       }
-      // deterministic sum: the peer groups (same row) are those of every
-      // lane. The group's members split its lanes (member of rank r takes
-      // lanes r, r + size, ...) and each adds its lane over the peers in
-      // thread order, leaving the partial in the leader's slot: a lane of
-      // the leader's slot is read and written by one member only.
-      if (valid) {
-        float* mine = st_val + tid * nl;
-        for (int l = 0; l < nl; ++l) mine[l] = __uint_as_float(__ldg(prow + l));
-      }
-      const unsigned peers = __match_any_sync(0xFFFFFFFFu, valid ? row : -1 - lane);
-      __syncwarp();
-      const int first = __ffs(peers) - 1;
-      const int size = __popc(peers);
-      const int rank = __popc(peers & ((1u << lane) - 1u));
-      const bool leader = valid && lane == first;
-      if (valid) {
-        float* lead = st_val + ((warp << 5) + first) * nl;
-        for (int l = rank; l < nl; l += size) {
-          float part = 0.0f;  // the leader is the lowest thread: it is read first
-          for (unsigned m = peers; m != 0; m &= m - 1) {
-            part += st_val[((warp << 5) + __ffs(m) - 1) * nl + l];
+    };
+
+    for (int k = 0; k < len; k += kBatch) {
+      // load and decode kWords slot words; slot j of the batch is held by
+      // thread j % G of the group, in its register j / G
+      int my_row[kWords], my_src[kWords];
+      float my_w[kWords];
+#pragma unroll
+      for (int i = 0; i < kWords; ++i) {
+        const int s = s_beg + k + gt + G * i;
+        my_row[i] = -1;
+        my_src[i] = 0;
+        my_w[i] = 1.0f;
+        if (s < n_slots) {
+          const long long at = base + (long long)tiles[s / eb] * eb + s % eb;
+          int rr, src;
+          if (decode_slot(word, word_hi, at, rr, src)) {
+            my_row[i] = rr;
+            my_src[i] = src;
+            if (add && weights != nullptr) my_w[i] = __ldg(weights + at);
           }
-          lead[l] = part;
         }
       }
-      st_row[tid] = leader ? row : -1;
-      __syncthreads();
-      float* accf = reinterpret_cast<float*>(acc);
-      for (int w = 0; w < kWarps; ++w) {
-        // one warp's leaders own distinct rows: no two items share a cell
-        for (int i = tid; i < 32 * nl; i += kThreads) {
-          const int sl = (w << 5) + i / nl;
-          const int rr = st_row[sl];
-          if (rr >= 0) accf[rr * nl + i % nl] += st_val[sl * nl + i % nl];
+      int b_row[kBatch];
+      uint32_t b_val[kBatch][kItems][kVec];
+      float b_w[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        b_row[j] = __shfl_sync(kAll, my_row[j / G], j % G, G);
+        const int src = __shfl_sync(kAll, my_src[j / G], j % G, G);
+        b_w[j] = add ? __shfl_sync(kAll, my_w[j / G], j % G, G) : 1.0f;
+        const uint32_t* prow = payload + (long long)src * lanes + l0;
+#pragma unroll
+        for (int i = 0; i < kItems; ++i) {
+          const int u = gt + G * i;
+          const bool live = b_row[j] >= 0 && u < units;
+          if (kVec == 4) {
+            uint4 q = make_uint4(0u, 0u, 0u, 0u);
+            if (live) q = __ldg(reinterpret_cast<const uint4*>(prow + u * 4));
+            b_val[j][i][0] = q.x;
+            b_val[j][i][1] = q.y;
+            b_val[j][i][2] = q.z;
+            b_val[j][i][3] = q.w;
+          } else {
+            b_val[j][i][0] = live ? __ldg(prow + u) : 0u;
+          }
         }
-        __syncthreads();
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int rr = b_row[j];
+        if (rr < 0) continue;  // padding: the run goes on past it
+        if (rr != cur) {
+          if (cur >= 0) finish(cur, false);
+          cur = rr;
+#pragma unroll
+          for (int i = 0; i < kItems; ++i) {
+#pragma unroll
+            for (int v = 0; v < kVec; ++v) run[i][v] = start;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kItems; ++i) {
+#pragma unroll
+          for (int v = 0; v < kVec; ++v) {
+            uint32_t x = b_val[j][i][v];
+            if (add) {  // saturating min-plus map; the slot's weight on every lane
+              const float f = __uint_as_float(x);
+              x = __float_as_uint(f >= ident_f ? ident_f : f + b_w[j]);
+            }
+            if (min_f32) x = f32_key(x);
+            run[i][v] = fold_value(run[i][v], x, kind);
+          }
+        }
       }
     }
-    __syncthreads();  // the tile list and warp counts are rewritten next chunk
+    if (cur >= 0) finish(cur, true);
+
+    if (kind == kSum) {
+      // the pieces of a run that spans stretches, in stretch order: each
+      // chain of equal-row pieces is added up by the group holding its first
+      // piece, then once into the accumulator
+      __syncthreads();
+      float* accf = reinterpret_cast<float*>(acc);
+      for (int e = 0; e < 2; ++e) {
+        const int p = 2 * g + e;
+        const int rr = st_row[p];
+        if (rr < 0) continue;
+        int q = p - 1;
+        while (q >= 0 && st_row[q] < 0) --q;
+        if (q >= 0 && st_row[q] == rr) continue;  // not the chain's first piece
+        int q_end = p + 1;
+        while (q_end < 2 * kGroups && (st_row[q_end] < 0 || st_row[q_end] == rr)) ++q_end;
+        for (int i = 0; i < kItems; ++i) {
+          const int u = gt + G * i;
+          if (u >= units) continue;
+          for (int v = 0; v < kVec; ++v) {
+            const int l = u * kVec + v;
+            float tot = st_val[(size_t)p * lane_chunk + l];
+            for (int c = p + 1; c < q_end; ++c) {
+              if (st_row[c] == rr) tot += st_val[(size_t)c * lane_chunk + l];
+            }
+            atomicAdd(accf + rr * stride + (l ^ (rr & swz)), tot);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the tile list, warp counts and pieces are rewritten next
   }
   __syncthreads();
 
-  for (int j = tid; j < vb * nl; j += kThreads) {
-    const long long row = blk * vb + j / nl;
-    out[row * lanes + l0 + j % nl] = min_f32 ? key_f32(acc[j]) : acc[j];
+  if (kVec == 4) {  // 16-B stores of 4 lanes
+    for (int j = tid; j < vb * units; j += kThreads) {
+      const int rr = j / units;
+      const int l = (j - rr * units) * 4;
+      const uint32_t* row = acc + rr * stride;
+      const int sw = rr & swz;
+      uint32_t x[4];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        x[v] = row[(l + v) ^ sw];
+        if (min_f32) x[v] = key_f32(x[v]);
+      }
+      *reinterpret_cast<uint4*>(out + (blk * vb + rr) * lanes + l0 + l) =
+          make_uint4(x[0], x[1], x[2], x[3]);
+    }
+  } else {
+    for (int j = tid; j < vb * nl; j += kThreads) {
+      const int rr = j / nl;
+      const int l = j - rr * nl;
+      const uint32_t x = acc[rr * stride + (l ^ (rr & swz))];
+      out[(blk * vb + rr) * lanes + l0 + l] = min_f32 ? key_f32(x) : x;
+    }
   }
 }
 
@@ -352,13 +516,50 @@ size_t one_lane_smem_bytes(int vb) {
   return sizeof(uint32_t) * ((size_t)vb + 4 * kThreads + kWarps);
 }
 
+// The lane kernel's shape for a chunk of lc lanes: lane items of 4 lanes
+// (16-B loads) when L % 4 == 0 and lc % 4 == 0, else of one lane; G
+// threads a slot (a power of two up to 8) holding at most 2 items each.
+struct LaneShape {
+  int vec, group, items;
+};
+
+LaneShape lane_shape(int lanes, int lc) {
+  const int vec = (lanes % 4 == 0 && lc % 4 == 0) ? 4 : 1;
+  const int units = lc / vec;
+  const int group = units <= 1 ? 1 : units <= 2 ? 2 : units <= 4 ? 4 : 8;
+  return {vec, group, (units + group - 1) / group};
+}
+
+constexpr int kMaxLanesVec = 64;     // 8 threads x 2 items x 4 lanes
+constexpr int kMaxLanesScalar = 16;  // 8 threads x 2 items x 1 lane
+
 // Shared memory of the lane kernel for vb rows and a chunk of lc lanes: the
-// accumulator, the tile list and the warp counts; sum adds the leader rows
-// and the staged lane values of every thread.
-size_t lanes_smem_bytes(int vb, int lc, int kind) {
-  size_t words = (size_t)vb * lc + kThreads + kWarps;
-  if (kind == kSum) words += kThreads + (size_t)kThreads * lc;
+// accumulator at its row stride, the tile list and the warp counts; sum
+// adds each group's two staged run pieces.
+size_t lanes_smem_bytes(int vb, int lanes, int lc, int kind) {
+  size_t words = (size_t)vb * acc_stride(lc) + kThreads + kWarps;
+  if (kind == kSum) {
+    const size_t groups = kThreads / lane_shape(lanes, lc).group;
+    words += 2 * groups * (1 + (size_t)lc);
+  }
   return sizeof(uint32_t) * words;
+}
+
+template <int G, int kVec, int kItems>
+cudaError_t launch_lanes(const uint32_t* pay, const int32_t* w, const int32_t* w_hi,
+                         const float* wts, const int32_t* cnt, const int32_t* fm,
+                         uint32_t* out, int p, int r_blocks, int t_tiles, int eb, int vb,
+                         int lanes, int lane_chunk, int kind, int is_f32, int add,
+                         uint32_t identity, size_t smem, cudaStream_t s) {
+  auto kern = gather_reduce_cores_lanes_kernel<G, kVec, kItems>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int chunks = (lanes + lane_chunk - 1) / lane_chunk;
+  kern<<<dim3(r_blocks, p, chunks), kThreads, smem, s>>>(
+      pay, w, w_hi, wts, cnt, fm, out, r_blocks, t_tiles, eb, vb, lanes, lane_chunk, kind,
+      is_f32, add, identity);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -366,9 +567,10 @@ size_t lanes_smem_bytes(int vb, int lc, int kind) {
 extern "C" {
 
 // Lanes one block accumulates on the current device: 1 for one lane when
-// the one-lane kernel's rows fit; else all the lanes when their accumulator
-// fits one block's shared memory, or the even split into the fewest chunks
-// that fit. 0 when not even one lane fits.
+// the one-lane kernel's rows fit; else all the lanes when they fit one
+// block (at most 64, 16 when L % 4 != 0, and what shared memory holds), or
+// the even split into the fewest chunks that fit (a multiple of 4 lanes
+// when L % 4 == 0). 0 when not even one lane fits.
 int gather_reduce_cores_lane_chunk(int vb, int lanes, int kind) {
   int dev = 0, limit = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -377,12 +579,23 @@ int gather_reduce_cores_lane_chunk(int vb, int lanes, int kind) {
     return 0;
   }
   if (lanes == 1) return one_lane_smem_bytes(vb) <= (size_t)limit ? 1 : 0;
-  const size_t fixed = lanes_smem_bytes(vb, 0, kind);
-  const size_t per_lane = lanes_smem_bytes(vb, 1, kind) - fixed;
-  if (lanes < 1 || fixed + per_lane > (size_t)limit) return 0;
-  const int most = (int)(((size_t)limit - fixed) / per_lane);
+  if (lanes < 1) return 0;
+  const bool vec = lanes % 4 == 0;
+  const int cap = min(lanes, vec ? kMaxLanesVec : kMaxLanesScalar);
+  int most = 0;
+  for (int lc = cap; lc >= 1 && most == 0; --lc) {  // quads first where L % 4 == 0
+    if ((!vec || lc % 4 == 0) && lanes_smem_bytes(vb, lanes, lc, kind) <= (size_t)limit) {
+      most = lc;
+    }
+  }
+  for (int lc = min(cap, 3); lc >= 1 && most == 0; --lc) {
+    if (lanes_smem_bytes(vb, lanes, lc, kind) <= (size_t)limit) most = lc;
+  }
+  if (most == 0) return 0;
   const int chunks = (lanes + most - 1) / most;
-  return (lanes + chunks - 1) / chunks;
+  int lc = (lanes + chunks - 1) / chunks;
+  if (vec && most % 4 == 0) lc = (lc + 3) / 4 * 4;  // <= most
+  return lc;
 }
 
 int gather_reduce_cores_launch(const void* payload, const void* word,
@@ -410,17 +623,32 @@ int gather_reduce_cores_launch(const void* payload, const void* word,
     gather_reduce_cores_kernel<<<dim3(r_blocks, p), kThreads, smem, s>>>(
         pay, w, w_hi, wts, cnt, fm, (uint32_t*)out, r_blocks, t_tiles, eb, vb,
         kind, is_f32, add, identity);
-  } else {
-    const size_t smem = lanes_smem_bytes(vb, lane_chunk, kind);
-    err = cudaFuncSetAttribute(gather_reduce_cores_lanes_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const int chunks = (lanes + lane_chunk - 1) / lane_chunk;
-    gather_reduce_cores_lanes_kernel<<<dim3(r_blocks, p, chunks), kThreads, smem, s>>>(
-        pay, w, w_hi, wts, cnt, fm, (uint32_t*)out, r_blocks, t_tiles, eb, vb,
-        lanes, lane_chunk, kind, is_f32, add, identity);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  // 16-B payload loads need a 16-B aligned payload (the wrapper sees to it)
+  if (lanes % 4 == 0 && ((uintptr_t)payload & 15u) != 0) return (int)cudaErrorMisalignedAddress;
+  const size_t smem = lanes_smem_bytes(vb, lanes, lane_chunk, kind);
+  const LaneShape sh = lane_shape(lanes, lane_chunk);
+#define LAUNCH_LANES(G_, V_, I_)                                                          \
+  launch_lanes<G_, V_, I_>(pay, w, w_hi, wts, cnt, fm, (uint32_t*)out, p, r_blocks,      \
+                           t_tiles, eb, vb, lanes, lane_chunk, kind, is_f32, add,        \
+                           identity, smem, s)
+  const int key = sh.vec * 100 + sh.group * 10 + sh.items;
+  switch (key) {
+    case 411: err = LAUNCH_LANES(1, 4, 1); break;
+    case 421: err = LAUNCH_LANES(2, 4, 1); break;
+    case 441: err = LAUNCH_LANES(4, 4, 1); break;
+    case 481: err = LAUNCH_LANES(8, 4, 1); break;
+    case 482: err = LAUNCH_LANES(8, 4, 2); break;
+    case 111: err = LAUNCH_LANES(1, 1, 1); break;
+    case 121: err = LAUNCH_LANES(2, 1, 1); break;
+    case 141: err = LAUNCH_LANES(4, 1, 1); break;
+    case 181: err = LAUNCH_LANES(8, 1, 1); break;
+    case 182: err = LAUNCH_LANES(8, 1, 2); break;
+    default: err = cudaErrorInvalidValue;
+  }
+#undef LAUNCH_LANES
+  return (int)err;
 }
 
 }  // extern "C"

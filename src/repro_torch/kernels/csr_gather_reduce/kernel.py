@@ -80,10 +80,14 @@ def smem_limit_rows() -> int:
 
 def lane_chunk(vb: int, lanes: int, kind: str) -> int:
     """Lanes one block of the kernel accumulates on the current CUDA device,
-    as its launcher picks them from the kernel's shared-memory layout: all
-    ``lanes`` when their (vb, lanes) accumulator fits one block, else the
-    even split into the fewest chunks that fit (each chunk re-reads its
-    tiles' words). Needs the built kernel, so a CUDA device."""
+    as its launcher picks them from the lane kernel's shared-memory layout
+    (the vb x Lc accumulator, rows an odd stride apart where Lc is no
+    multiple of 8, and for 'sum' two staged run pieces a thread group): all
+    ``lanes`` when they fit one block (at
+    most 64 lanes, 16 when ``lanes % 4 != 0``), else the even split into the
+    fewest chunks that fit, a multiple of 4 lanes when ``lanes % 4 == 0``
+    (each chunk re-reads its tiles' words). Needs the built kernel, so a
+    CUDA device."""
     from repro_torch.kernels.build import load_library
 
     fn = load_library(SOURCE)[0].gather_reduce_cores_lane_chunk
@@ -261,6 +265,8 @@ def _launch(payload, word, counts, word_hi, weights, fetch, num_rows, vb, kind, 
     lib, _ = load_library(SOURCE)
     p, r_blocks, t_tiles, eb = word.shape
     lanes = payload.shape[1] if payload.dim() == 2 else 1  # (G,) is (G, 1) in memory
+    if lanes % 4 == 0 and payload.data_ptr() % 16:  # the lane kernel's 16-B loads
+        payload = payload.clone()
     out = torch.empty((p, num_rows) + tuple(payload.shape[1:]), dtype=payload.dtype,
                       device=payload.device)
     fn = lib.gather_reduce_cores_launch

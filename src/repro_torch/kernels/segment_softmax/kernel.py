@@ -39,12 +39,31 @@ def reset_launch_counts() -> None:
     LAUNCHES.clear()
 
 
+def _ordered_segment_sums(vals: torch.Tensor, key: torch.Tensor):
+    """Sums of ``vals`` over equal ``key``s -> (distinct keys, sums). Each
+    segment is folded in one fixed pairwise order, a segmented doubling
+    scan over the stably sorted keys, so the bits are the same on every run,
+    thread count and device (no scatter adds, whose order is the runtime's)."""
+    key_s, order = torch.sort(key, stable=True)
+    x = vals[order]
+    d = 1
+    while d < x.shape[0]:
+        same = key_s[d:] == key_s[:-d]
+        if not bool(same.any()):
+            break
+        x = torch.cat([x[:d], torch.where(same, x[d:] + x[:-d], x[d:])])
+        d *= 2
+    last = torch.ones_like(key_s, dtype=torch.bool)
+    last[:-1] = key_s[1:] != key_s[:-1]
+    return key_s[last], x[last]
+
+
 def segment_softmax_tiles_plain(scores: torch.Tensor, dstb: torch.Tensor,
                                 valid: torch.Tensor, *, vb: int) -> torch.Tensor:
     """Plain PyTorch version on the same tile schedule: each row's max over
     its valid slots, then its sum of exponentials taken per tile and the
-    tile partials added in tile order (on the CPU ``index_add_`` adds in
-    index order), then the normalized weights."""
+    tile partials added up per row, both in a fixed pairwise order
+    (``_ordered_segment_sums``), then the normalized weights."""
     h, r_blocks, t_tiles, eb = scores.shape
     rows = (dstb.long() + vb * torch.arange(r_blocks, device=dstb.device).view(-1, 1, 1))
     rows = rows.expand(h, -1, -1, -1)
@@ -57,10 +76,10 @@ def segment_softmax_tiles_plain(scores: torch.Tensor, dstb: torch.Tensor,
     e = torch.exp(s - m[at])
     tile = torch.arange(t_tiles, device=dstb.device).view(1, 1, -1, 1).expand_as(scores)[live]
     key = at * t_tiles + tile  # (head, row, tile): tile partials, then their fold
-    uniq, inv = torch.unique(key, return_inverse=True)
-    part = torch.zeros(uniq.shape[0], dtype=scores.dtype, device=scores.device)
-    part.index_add_(0, inv, e)
-    l = torch.zeros_like(m).index_add_(0, uniq // t_tiles, part)
+    uniq, part = _ordered_segment_sums(e, key)
+    rows_u, sums = _ordered_segment_sums(part, uniq // t_tiles)
+    l = torch.zeros_like(m)
+    l[rows_u] = sums
     out = torch.zeros_like(scores)
     out[live] = e / torch.clamp(l[at], min=1e-30)
     return out

@@ -388,14 +388,19 @@ def test_lane_engine_on_card_matches_cpu(pname, direction, cuda_device):
 @pytest.mark.cuda
 def test_lane_chunk_splits_only_what_does_not_fit(cuda_device):
     """The gather launcher's lane chunk on the card (the kernel's own
-    shared-memory layout against the device's limit per block)."""
-    assert K.lane_chunk(1024, 16, "min") == 16  # 64 KiB: one block
-    assert K.lane_chunk(1024, 16, "sum") == 16  # 80 KiB with the staged values
+    shared-memory layout against the device's limit per block: vb rows of
+    Lc lanes, an odd stride apart where Lc is no multiple of 8, and for
+    'sum' two staged run pieces a thread group)."""
+    assert K.lane_chunk(1024, 16, "min") == 16  # 65 KiB: one block
+    assert K.lane_chunk(1024, 16, "sum") == 16  # 74 KiB with the staged run pieces
     assert K.lane_chunk(1024, 56, "min") == 56  # the most that fits at vb = 1024
+    assert K.lane_chunk(1024, 52, "min") == 52  # rows an odd stride (53) apart
+    assert K.lane_chunk(1024, 52, "sum") == 52  # the most for sum
     assert K.lane_chunk(1024, 44, "sum") == 44
     # K = 64 at vb = 1024 needs 256 KiB: two chunks of 32 lanes
     assert K.lane_chunk(1024, 64, "min") == 32
-    assert K.lane_chunk(1024, 48, "sum") == 24
+    assert K.lane_chunk(1024, 48, "sum") == 48
+    assert K.lane_chunk(64, 37, "min") == 13  # lanes one at a time: at most 16 a block
     for vb, lanes, kind in ((1024, 1024, "min"), (32, 1024, "sum"), (64, 3, "or")):
         lc = K.lane_chunk(vb, lanes, kind)
         chunks = -(-lanes // lc)
@@ -404,6 +409,104 @@ def test_lane_chunk_splits_only_what_does_not_fit(cuda_device):
     assert K.lane_chunk(K.smem_limit_rows(), 1, "sum") == 1
     with pytest.raises(ValueError, match="shared memory"):
         K.lane_chunk(1 << 16, 1, "min")
+
+
+def _run_layout(rng, blocks, eb, g_size):
+    """A 16-bit gather stream of one core from per-block row sequences in
+    slot order (each row's slots one run, as the partition lays them out):
+    word (1, R, T, Eb), counts (1, R), weights (1, R, T, Eb)."""
+    r_blocks = len(blocks)
+    t_tiles = max(1, max(-(-len(b) // eb) for b in blocks))
+    word = np.zeros((1, r_blocks, t_tiles * eb), np.uint32)
+    counts = np.zeros((1, r_blocks), np.int32)
+    for r, rows in enumerate(blocks):
+        rows = np.asarray(rows, np.uint32)
+        src = rng.integers(0, g_size, rows.size).astype(np.uint32)
+        word[0, r, : rows.size] = (1 << 31) | (rows << 16) | src
+        counts[0, r] = -(-rows.size // eb)
+    weights = rng.random(word.shape).astype(np.float32)
+    shape = (1, r_blocks, t_tiles, eb)
+    return (torch.from_numpy(word.view(np.int32).reshape(shape)), torch.from_numpy(counts),
+            torch.from_numpy(weights.reshape(shape)))
+
+
+def _edge_blocks(rng, vb):
+    """Row blocks that stress the lane kernel's runs: one hub row over many
+    tiles and warps among light rows, a block that is one row, rows of one
+    slot each, an empty block, and dst-sorted random rows."""
+    light = np.sort(rng.integers(8, 60, 90))
+    return [
+        [5] * 3000 + light.tolist() + [vb - 1] * 130,
+        [0] * 700,
+        rng.permutation(vb).tolist(),
+        [],
+        np.sort(rng.integers(0, vb, 900)).tolist(),
+    ]
+
+
+LANE_KINDS = {  # kind -> (payload kind, edge_op, identity)
+    "or": ("words", "none", 0.0),
+    "min_f32_add": ("dist", "add", INF_F32),
+    "sum_f32": ("rank", "none", 0.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["static", "fetch"])
+@pytest.mark.parametrize("lanes", [2, 3, 5, 16, 37, 64])
+@pytest.mark.parametrize("kind", list(LANE_KINDS))
+def test_cuda_lane_gather_runs(kind, lanes, arm, cuda_device):
+    """The lane kernel on hand-made runs at vb = 1024 (a hub row, a one-row
+    block, one-slot rows, an empty block): lanes one at a time (2, 3, 5, and
+    37 in chunks of 13, 13, 11), in quads (16) and in two chunks of 32 (64);
+    min and OR bit-equal, sum within SUM_TOL and the same bits twice."""
+    vb, eb, g_size = 1024, 128, 4096
+    rng = np.random.default_rng(lanes * 10 + len(kind))
+    word, counts, weights = _run_layout(rng, _edge_blocks(rng, vb), eb, g_size)
+    pkind, edge_op, identity = LANE_KINDS[kind]
+    kw = dict(num_rows=word.shape[1] * vb, vb=vb, src_bits=16, kind=kind.split("_")[0],
+              edge_op=edge_op, identity=identity)
+    if pkind == "words":  # reach words of 32 * lanes sources, 15% set
+        bits = rng.random((g_size, lanes, 32)) < 0.15
+        w = (bits.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(-1)
+        payload = u32.to_bits(w.astype(np.uint32))
+    else:
+        payload = _lane_payload(pkind, g_size, lanes, rng)
+    fetch = _fetch(counts, word.shape[2], rng, share=0.5) if arm == "fetch" else None
+    args = [payload, word, counts, None, weights if edge_op == "add" else None, fetch]
+    want = K.gather_reduce_cores(*args, **kw)
+    dev_args = _on(cuda_device, args)
+    got = K.gather_reduce_cores(*dev_args, **kw)
+    again = K.gather_reduce_cores(*dev_args, **kw)
+    torch.cuda.synchronize()
+    if kind == "sum_f32":
+        torch.testing.assert_close(got.cpu(), want, **SUM_TOL)
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    else:
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(LANE_KINDS))
+def test_cuda_lane_gather_without_the_run_property(kind, cuda_device):
+    """Rows whose slots come back after other rows (no layout of the port
+    does this): min and OR stay bit-equal (atomics), sum within SUM_TOL."""
+    vb, eb, g_size, lanes = 256, 64, 2048, 16
+    rng = np.random.default_rng(31)
+    blocks = [rng.integers(0, 40, 2000).tolist(), ([3, 4] * 300) + [3] * 50]
+    word, counts, weights = _run_layout(rng, blocks, eb, g_size)
+    pkind, edge_op, identity = LANE_KINDS[kind]
+    kw = dict(num_rows=word.shape[1] * vb, vb=vb, src_bits=16, kind=kind.split("_")[0],
+              edge_op=edge_op, identity=identity)
+    payload = (_lane_payload("words", g_size, 2, rng).repeat(1, 8) if pkind == "words"
+               else _lane_payload(pkind, g_size, lanes, rng))
+    args = [payload, word, counts, None, weights if edge_op == "add" else None, None]
+    want = K.gather_reduce_cores(*args, **kw)
+    got = K.gather_reduce_cores(*_on(cuda_device, args), **kw).cpu()
+    if kind == "sum_f32":
+        torch.testing.assert_close(got, want, **SUM_TOL)
+    else:
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -571,6 +674,65 @@ def test_cuda_segment_softmax_matches_plain(heads, r_blocks, t_tiles, eb, vb, fi
     assert not got.cpu()[:, ~torch.from_numpy(valid)].any()
     plain = SK.segment_softmax_tiles_plain(*[a.to(cuda_device) for a in args], vb=vb)
     torch.testing.assert_close(got, plain, **SOFTMAX_TOL)
+
+
+def _softmax_case(case, rng):
+    """(dstb, valid, vb) of a softmax layout with each row's slots in one run."""
+    if case == "gat_cora_layer1":  # (a): the Cora shape as GAT tiles it
+        from repro_torch.kernels.segment_softmax.ops import build_edge_tiles
+        from repro_torch.models.gnn.common import SOFTMAX_EB, softmax_vb
+
+        g = G.symmetrize(G.rmat(12, 2, seed=0))
+        pad = 16384 - g.num_edges
+        dst = np.concatenate([g.dst, np.zeros(pad, g.dst.dtype)])
+        mask = np.arange(16384) < g.num_edges
+        vb = softmax_vb(g.num_vertices)
+        t = build_edge_tiles(dst[rng.permutation(16384)], mask, g.num_vertices, vb=vb,
+                             eb=SOFTMAX_EB).tiles
+        return t.dstb.astype(np.int32), t.valid, vb
+    vb, eb = {"hub_100k": (64, 256), "one_row_blocks": (32, 64),
+              "one_slot_rows": (8192, 256), "empty_blocks": (16, 32)}[case]
+    if case == "hub_100k":  # one row of 100,000 slots among light rows
+        blocks = [[1] * 40 + [3] * 100_000 + [7] * 9 + [0] * 300]
+    elif case == "one_row_blocks":
+        blocks = [[0] * 5000, [17] * 3, [vb - 1] * 700]
+    elif case == "one_slot_rows":
+        blocks = [rng.permutation(vb).tolist(), rng.permutation(vb)[:5000].tolist()]
+    else:
+        blocks = [[], [2] * 40 + [5] * 3, [], [], [9] * 70, []]
+    t_tiles = max(1, max(-(-len(b) // eb) for b in blocks))
+    dstb = np.zeros((len(blocks), t_tiles * eb), np.int32)
+    valid = np.zeros(dstb.shape, bool)
+    for r, rows in enumerate(blocks):
+        dstb[r, : len(rows)] = rows
+        valid[r, : len(rows)] = True
+    shape = (len(blocks), t_tiles, eb)
+    return dstb.reshape(shape), valid.reshape(shape), vb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gat_cora_layer1", "hub_100k", "one_row_blocks",
+                                  "one_slot_rows", "empty_blocks"])
+def test_cuda_segment_softmax_runs(case, cuda_device):
+    """The kernel's fast path (each row's slots one run) against the plain
+    version at GAT's Cora shape with H = 8 and on hand-made runs: a
+    100,000-slot hub row, blocks that are one row, rows of one slot, empty
+    row blocks. Within SOFTMAX_TOL, the same bits twice, 0 on padding."""
+    from repro_torch.kernels.segment_softmax import kernel as SK
+
+    rng = np.random.default_rng(len(case))
+    dstb, valid, vb = _softmax_case(case, rng)
+    heads = 8 if case == "gat_cora_layer1" else 2
+    scores = ((rng.random((heads,) + dstb.shape) - 0.5) * 20).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (scores, dstb, valid)]
+    want = SK.segment_softmax_tiles(*args, vb=vb)
+    dev_args = [a.to(cuda_device) for a in args]
+    got = SK.segment_softmax_tiles(*dev_args, vb=vb)
+    again = SK.segment_softmax_tiles(*dev_args, vb=vb)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, **SOFTMAX_TOL)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert not got.cpu()[:, ~torch.from_numpy(valid)].any()
 
 
 @pytest.mark.cuda

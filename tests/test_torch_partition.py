@@ -168,3 +168,90 @@ def test_push_footprint_counts_the_built_stream(push_block):
     assert got["word_bytes"] == words
     assert got["coverage_bytes"] == built.push_coverage.nbytes
     assert got["real_tiles"] == int(built.push_counts.sum())
+
+
+# -- the run property the Hopper kernels lean on ------------------------------
+# The lane gather kernel and the segment-softmax kernel fold runs of equal
+# rows in registers and write each run once: in every layout the port
+# builds, each packed row's valid slots inside a row block form one run in
+# slot order (no other slot between its first and its last).
+
+
+def _rows_in_one_run(rows, valid):
+    """(..., N) rows and validity per row block: True iff in every block
+    each row's valid slots are one unbroken run of slots."""
+    rows = np.asarray(rows).reshape(-1, np.shape(rows)[-1])
+    valid = np.asarray(valid).reshape(rows.shape)
+    for rr, vv in zip(rows, valid):
+        at = np.nonzero(vv)[0]
+        if at.size == 0:
+            continue
+        seq = rr[at]
+        starts = np.r_[True, (seq[1:] != seq[:-1]) | (np.diff(at) != 1)]
+        if np.unique(seq[starts]).size != int(starts.sum()):
+            return False
+    return True
+
+
+def _pull_rows(pg):
+    """Rows and validity of the pull stream's slots, (p, l, R, T * Eb)."""
+    word = pg.tile_word
+    flat = word.shape[:3] + (-1,)
+    if pg.src_bits == 16:
+        rows, valid = (word >> 16) & 0x7FFF, word < 0
+    else:
+        rows, valid = pg.tile_word_hi & 0x7FFFFFFF, pg.tile_word_hi < 0
+    return rows.reshape(flat), valid.reshape(flat)
+
+
+def test_run_checker_sees_a_broken_layout():
+    rows = np.array([[1, 1, 2, 2, 0, 0], [3, 3, 3, 4, 3, 5]])
+    valid = np.array([[True] * 4 + [False] * 2, [True] * 6])
+    assert not _rows_in_one_run(rows, valid)  # row 3 comes back in block 1
+    assert _rows_in_one_run(rows[:1], valid[:1])
+    gap = np.array([[True, False, True, True, True, False]])  # padding inside row 1's slots
+    assert not _rows_in_one_run(np.array([[1, 1, 1, 2, 0, 0]]), gap)
+
+
+@pytest.mark.parametrize("name,cfg", CASES, ids=[f"{n}-{i}" for i, (n, _) in enumerate(CASES)])
+def test_cold_partition_keeps_each_row_in_one_run(name, cfg):
+    """Every cold layout of the case list (row packing, split hub rows, the
+    32-bit regime, the stride permutation)."""
+    pg = t_partition(_port_graph(_graph(name)), TConfig(**cfg))
+    assert _rows_in_one_run(*_pull_rows(pg))
+
+
+@pytest.mark.parametrize("name,cfg", [CASES[1], CASES[2], CASES[11], CASES[14]],
+                         ids=["pos-stride", "bits32", "split", "split-weighted"])
+def test_delta_flush_keeps_each_row_in_one_run(name, cfg):
+    """The same after apply_edge_deltas re-tiles the buckets a stream of
+    insertions dirties (hub rows gaining edges included)."""
+    from repro_torch.core.partition import apply_edge_deltas
+
+    g = _port_graph(_graph(name))
+    pg = t_partition(g, TConfig(**cfg))
+    rng = np.random.default_rng(3)
+    n = g.num_vertices
+    for _ in range(2):
+        k = 64
+        src = rng.integers(0, n, k).astype(np.uint32)
+        dst = np.where(rng.random(k) < 0.5, rng.integers(0, 4, k), rng.integers(0, n, k))
+        w = rng.random(k).astype(np.float32) if g.weights is not None else None
+        pg, _ = apply_edge_deltas(pg, src, dst.astype(np.uint32), w)
+        assert _rows_in_one_run(*_pull_rows(pg))
+
+
+@pytest.mark.parametrize("n,e,vb,hub", [(300, 4000, 64, 0), (4096, 16384, 512, 0),
+                                        (2000, 30000, 128, 9000), (50, 700, 64, 500)])
+def test_gat_layout_keeps_each_row_in_one_run(n, e, vb, hub):
+    """GAT's softmax layout (build_edge_tiles) on shuffled edges, masked
+    slots and one hub destination included."""
+    from repro_torch.kernels.segment_softmax.ops import build_edge_tiles
+
+    rng = np.random.default_rng(n + e)
+    dst = rng.integers(0, n, e)
+    dst[:hub] = 7
+    dst = dst[rng.permutation(e)]
+    valid = rng.random(e) < 0.9
+    t = build_edge_tiles(dst, valid, n, vb=vb, eb=256).tiles
+    assert _rows_in_one_run(t.dstb, t.valid)

@@ -6,12 +6,15 @@
 Builds the smoke's graph and partition (graph500 RMAT, edge factor 16, seed
 0, ``chip_smoke.CFG``), then, for each arm, launches the kernel once per
 phase over the l phase streams and reports the device time per launch
-(torch.profiler, the kernels' own events) and a SHA-256 of the outputs of
-every phase. The arms are the laneless variants (gather min_u32 and
-min_f32_add on a fetch map of every real tile, sum_f32 on the static
-counts; scatter min_u32 and min_f32_add) and the lane arms of the serving
-width (gather 'or' on one packed word, min_f32_add and sum_f32 at L=16,
-min_f32_add at L=64; scatter 'or' and min_f32_add at L=16).
+(CUDA events around ``--reps`` passes, the stream held while the host
+enqueues them) and a SHA-256 of the outputs of every phase. The arms are
+the laneless variants (gather min_u32 and min_f32_add on a fetch map of
+every real tile, sum_f32 on the static counts; scatter min_u32 and
+min_f32_add) and the lane arms of the serving width (gather 'or' on one
+and two packed words, min_f32_add and sum_f32 at L=16, min_f32_add at
+L=64; scatter 'or' and min_f32_add at L=16). Then the segment-softmax
+kernel at chip_smoke's two GAT layouts, H = 8 and seeded scores: (a) layer
+1 at the Cora shape (16,384 edge slots), (b) the smoke graph as one layout.
 
 ``--src`` imports ``repro_torch`` from another checkout's ``src`` (default:
 this one's), so that two versions of the kernels are timed and their outputs
@@ -41,6 +44,7 @@ ARMS = {
     "scatter[min_u32]": ("scatter", "min", "none", float(0xFFFFFFFF), 0, "labels", "fetch"),
     "scatter[min_f32_add]": ("scatter", "min", "add", INF_F32, 0, "dist", "fetch"),
     "gather[or_w1]": ("gather", "or", "none", 0.0, 1, "words", "fetch"),
+    "gather[or_w2]": ("gather", "or", "none", 0.0, 2, "words", "fetch"),
     "gather[min_f32_add_l16]": ("gather", "min", "add", INF_F32, 16, "dist", "fetch"),
     "gather[sum_f32_l16]": ("gather", "sum", "none", 0.0, 16, "rank", "counts"),
     "gather[min_f32_add_l64]": ("gather", "min", "add", INF_F32, 64, "dist", "fetch"),
@@ -59,8 +63,6 @@ def main() -> int:
 
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("kernel_arm_times: no CUDA device is available", file=sys.stderr)
@@ -72,6 +74,9 @@ def main() -> int:
     from repro_torch.core.partition import PartitionConfig, partition_2d
     from repro_torch.kernels.csr_gather_reduce import kernel as K
     from repro_torch.kernels.csr_gather_reduce import scatter as S
+    from repro_torch.kernels.segment_softmax import kernel as SK
+    from repro_torch.kernels.segment_softmax.ops import build_edge_tiles, device_tiles
+    from repro_torch.models.gnn.common import SOFTMAX_EB, softmax_vb
 
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -98,11 +103,13 @@ def main() -> int:
 
     def payload(pkind, lanes, rng):
         n, width = pg.gathered_size, max(lanes, 1)
-        if pkind == "words":  # K = 16 reach bits in one packed word
-            bits = rng.random((n, 32)) < 0.15
-            bits[:, 16:] = False
-            v = (bits.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(-1)
-            return u32.to_bits(v.astype(np.uint32).reshape(n, 1)).to(dev)
+        if pkind == "words":  # K = 16 (one word) or K = 40 (two) reach bits
+            k = 16 if width == 1 else 40
+            bits = rng.random((n, 32 * width)) < 0.15
+            bits[:, k:] = False
+            v = (bits.reshape(n, width, 32).astype(np.uint64)
+                 << np.arange(32, dtype=np.uint64)).sum(-1)
+            return u32.to_bits(v.astype(np.uint32)).to(dev)
         if pkind == "labels":
             v = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
             v[rng.random(n) < 0.1] = u32.U32_MAX
@@ -114,6 +121,24 @@ def main() -> int:
         else:
             v = (rng.random(shape) / n).astype(np.float32)
         return torch.from_numpy(v).to(dev)
+
+    def event_ms(fn, reps):
+        """Device ms per call of ``fn`` by CUDA events around ``reps`` calls,
+        a spin kernel holding the stream while the host enqueues them."""
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        hold_s = min(0.2, 1.5 * reps * (time.perf_counter() - t))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(hold_s * 2e9))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
 
     results = {}
     for name, (kern, kind, edge_op, identity, lanes, pkind, sched) in ARMS.items():
@@ -137,19 +162,37 @@ def main() -> int:
         for o in outs:
             digest.update(o.cpu().numpy().tobytes())
         del outs
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(args.reps):
-                launch_all()
-            torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        us = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-                 for e in evs if "reduce_cores" in e.key)
-        results[name] = dict(ms=us / 1e3 / (args.reps * pg.l), sha256=digest.hexdigest()[:16])
+        results[name] = dict(ms=event_ms(launch_all, args.reps) / pg.l,
+                             sha256=digest.hexdigest()[:16])
         del calls
+
+    # the segment softmax at chip_smoke's two GAT layouts, H = 8
+    gc = G.symmetrize(G.rmat(12, 2, seed=0))
+    cora_dst = np.concatenate([gc.dst, np.zeros(16384 - gc.num_edges, gc.dst.dtype)])
+    layouts = {
+        "a_cora_layer1": (cora_dst, np.arange(16384) < gc.num_edges, gc.num_vertices),
+        "b_smoke_graph": (g.dst, np.ones(g.num_edges, bool), g.num_vertices),
+    }
+    softmax = {}
+    for label, (dst, valid, n) in layouts.items():
+        dt = device_tiles(build_edge_tiles(dst, valid, n, vb=softmax_vb(n), eb=SOFTMAX_EB), dev)
+        srng = np.random.default_rng(7)
+        shape = (8,) + tuple(dt.dstb.shape)
+        scores = torch.from_numpy((srng.random(shape, dtype=np.float32) - 0.5) * 8).to(dev)
+
+        def launch(scores=scores, dt=dt):
+            return SK.segment_softmax_tiles(scores, dt.dstb, dt.valid, vb=dt.vb)
+
+        out = launch()
+        torch.cuda.synchronize()
+        softmax[label] = dict(ms=event_ms(launch, args.reps), vb=dt.vb, shape=list(shape),
+                              sha256=hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16])
+        del scores, out, dt
     line = dict(src=str(args.src), card=smi, scale=args.scale, config=CFG, reps=args.reps,
-                setup_seconds=setup_s, arms=results,
-                note="ms: device time per launch (profiler, events named *reduce_cores*), "
-                     "averaged over the l phase streams; sha256: of every phase's output")
+                setup_seconds=setup_s, arms=results, softmax=softmax,
+                note="ms: device time per launch by CUDA events around reps passes (the stream "
+                     "held while the host enqueues them), averaged over the l phase streams; "
+                     "softmax: one launch a pass; sha256: of every phase's output")
     print(json.dumps(line), flush=True)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
