@@ -21,12 +21,25 @@ Phases, one JSON line each (``{"phase": ..., "seconds": ...}``):
              gather only). Min must be bit-equal, sum within rtol=1e-5,
              atol=1e-9.
   timing     per variant, each kernel's and its plain version's device time
-             per launch over all l phases (profiler), with the byte bound at
-             3.35 TB/s; the gather min variants on the static counts, on a
-             fetch map of all real tiles (the main path's arm) and on the
-             ~30% map; the scatter variants with all real tiles active; the
-             oracle backend's time per phase (no single PyTorch call
-             computes either function)
+             per launch over all l phases (CUDA events), with the byte bound
+             at 3.35 TB/s; the gather min variants on the static counts, on
+             a fetch map of all real tiles (the main path's arm) and on the
+             ~30% map; the scatter variants with all real tiles active, with
+             the bytes a slot the scatter design moves (word streams once, a
+             payload row and an output row read per slot, the output written
+             twice) beside the bound's; the oracle backend's time per phase
+             (no single PyTorch call computes either function). The one-lane
+             gather kernel cuts a row block's listed slots into one range a
+             warp, each lane loading 4 slots with 16-B loads, folds runs of
+             one row in registers and joins them across the warp with a
+             segmented shuffle scan (min and OR: one shared atomic a run;
+             sum: a run inside a range added once, pieces across ranges
+             joined in warp order). The scatter kernel gives each slot a
+             group of threads (one at L = 1, four at L = 16), keeps a
+             source's payload row in registers along its run, reads the
+             destination row with 16-B loads and sends an atomic only for a
+             lane it lowers (float min: a signed min or an unsigned max on
+             the bits, by the sign bit)
   main_path  engine.run with the port's default options (dynamic tile skip,
              'auto' direction) for BFS (root 0), WCC, SSSP (root 0) and
              PageRank (twice), with iterations, seconds and MTEPS = E /
@@ -61,10 +74,10 @@ This slice's paths (multi-query lanes and graph serving, K = 16):
              OR bit-equal; sum within rtol=1e-5, atol=1e-9 and the same bits
              on a second launch. Device time per launch over the l phases,
              the byte bound with the L-wide payload and output, the bytes a
-             slot the design moves (word streams once a lane chunk, an
-             L-wide payload row gathered per slot, the output once) beside
-             the bound's, both as GB/s, and the laneless arm's time on the
-             same streams. The lane kernel gives each slot a group of
+             slot the design moves (gather: word streams once a lane chunk,
+             an L-wide payload row gathered per slot, the output once;
+             scatter as in timing) beside the bound's, both as GB/s, and the
+             laneless arm's time on the same streams. The lane kernel gives each slot a group of
              threads (4 at L = 16, a quad of lanes each by 16-B loads), walks
              contiguous stretches of the dst-sorted slots and folds each run
              of one row in registers: min and OR write one atomic per run
@@ -593,6 +606,19 @@ def main() -> int:
         return dict(bound_ms=max(bytes_ms, ops_ms), bound_bytes=nbytes,
                     bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
+    def scatter_design(p_slots, streams, lanes, row, extra):
+        """Bytes a slot of what the scatter design moves, beside the bound's,
+        and both as GB/s over row["ms"]: each real slot's word streams once,
+        an L-wide payload row and the destination's L-wide output row read
+        per slot (L2), and the output written twice (the fill, then the
+        lowered rows written back); ``extra``: counts and fetch map."""
+        design = (p_slots * 4 * streams + p_slots * lanes * 8
+                  + 2 * pg.p * pg.vertices_per_core * lanes * 4 + extra)
+        row.update(bytes_per_slot_design=design / p_slots,
+                   bytes_per_slot_bound=row["bound_bytes"] / p_slots,
+                   gbps_design=design / row["ms"] / 1e6,
+                   gbps_bound=row["bound_bytes"] / row["ms"] / 1e6)
+
     def laneless_paths():
         """The laneless paths of the earlier slices: returns the launch counts
         of their main path, the kernel-vs-plain errors and the timings. Their
@@ -718,6 +744,8 @@ def main() -> int:
                                                         "scatter_reduce_cores_kernel",
                                                         srow, "fetch")
                 srow.update(bound(p_slots, 1 + p_hi + p_w, common + fetch_bytes))
+                scatter_design(p_slots, 1 + p_hi + p_w, 1, srow,
+                               pg.push_counts[:, 0].nbytes + fetch_bytes)
                 srow["static_ms"], srow["static_plain_ms"] = time_arm(fn, plain, push, skw,
                                                                       "scatter_reduce_cores_kernel",
                                                                       srow,
@@ -732,8 +760,10 @@ def main() -> int:
                   "path takes (the fetch map with every real tile active for the min variants, "
                   "the static counts for sum_f32); fetch30: a seeded map keeping ~30% of real "
                   "tiles, bounded by the slots it runs; launch_wall_ms: CUDA-event time per "
-                  "launch with host launch gaps; no single PyTorch call computes either "
-                  "function (library_ms null)")
+                  "launch with host launch gaps; scatter bytes_per_slot_design: the word "
+                  "streams once, a payload row and an output row read per slot (L2), the output "
+                  "written twice (fill, write-back), beside the bound's; gbps_*: those bytes "
+                  "over ms; no single PyTorch call computes either function (library_ms null)")
 
         # -- main path: the port's engine, default options -------------------------
         runs = [("bfs", bfs(0)), ("wcc", wcc()), ("sssp", sssp(0)),
@@ -1042,6 +1072,9 @@ def main() -> int:
                         * pg.push_word.shape[3] * 4 + pg.gathered_size * lanes * 4
                         + pg.p * pg.vertices_per_core * lanes * 4)
             srow.update(bound(p_slots, 1 + p_hi + p_w, s_common, lanes))
+            scatter_design(p_slots, 1 + p_hi + p_w, lanes, srow,
+                           pg.push_counts[:, 0].nbytes
+                           + pg.push_counts[:, 0].size * pg.push_word.shape[3] * 4)
             lane_timing[("scatter", arm)] = srow
         emit("lanes_kernels", t0, max_abs_err={f"{k}[{a}]": e for (k, a), e in lane_errs.items()},
              per_launch={f"{k}[{a}]": r for (k, a), r in lane_timing.items()},
@@ -1055,8 +1088,9 @@ def main() -> int:
                   "chunks > 1: each lane chunk re-reads its tiles' words; laneless_ms: the laneless "
                   "arm's ms on the same streams (timing phase); bytes_per_slot_design: the word "
                   "streams once a lane chunk, an L-wide payload row gathered per slot (from L2) "
-                  "and the output once, over the real slots; gbps_*: those bytes and the bound's "
-                  "over ms")
+                  "and the output once, over the real slots (scatter: the word streams once, a "
+                  "payload row and an output row read per slot, the output written twice); "
+                  "gbps_*: those bytes and the bound's over ms")
         return lane_timing, lane_errs
 
     lane_timing, lane_errs = lane_kernel_phase()

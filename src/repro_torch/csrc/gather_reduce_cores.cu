@@ -22,7 +22,10 @@
 // 3.3x and 4.2x the bound): it moves about 105 B a slot (the word stream,
 // a 64-B payload row from L2, the output and the accumulator's
 // initialisation and write-out) at about 2.0-2.5 TB/s, with 24 warps an SM
-// waiting on the L2 gathers.
+// waiting on the L2 gathers. The one-lane kernel (min 0.016 ms, sum 0.016,
+// 2.5-4.3x the bound) pays a fixed cost a launch (the launch, each block's
+// accumulator set-up, tile list and write-out) beside the dependent chain
+// of each step (words, payload gathers, the warp's scan).
 //
 // Design:
 //   * One thread block per (core c, row block r): blockIdx = (r, c). A loop
@@ -39,18 +42,31 @@
 //     helpers below) and one launcher: gather_reduce_cores_kernel for one
 //     lane (a laneless (G,) payload, or one packed reach word), and
 //     gather_reduce_cores_lanes_kernel for a (G, L) payload with L >= 2.
-//     The one-lane kernel takes kThreads slots a step, one a thread, with
-//     coalesced word loads; an earlier lane kernel run at L = 1 gave the
-//     same bits but ran the sum 1.64x slower (H100 SXM, RMAT scale 20,
-//     tools/kernel_arm_times.py), so one lane keeps its own lean fold.
-//   * One lane, min: one shared-memory atomicMin per slot. uint32 labels use
-//     it directly; float32 values are mapped to an order-preserving uint32
-//     key first. sum: deterministic, so that PageRank gives the same bits on
-//     every run: within a warp, threads that hit the same row are grouped
-//     with __match_any_sync and their values added in thread order; the
-//     per-warp partials are staged in shared memory and added to the
-//     accumulator warp by warp, one warp's leaders (distinct rows) at a
-//     time, so the order of every add is fixed by the slot order alone.
+//     An earlier lane kernel run at L = 1 gave the same bits but ran the
+//     sum 1.64x slower (H100 SXM, RMAT scale 20,
+//     tools/kernel_arm_times.py), so one lane keeps its own kernel.
+//   * One lane: the listed slots of a block are cut into one contiguous
+//     range a warp, walked 128 slots a step, each lane 4 consecutive slots
+//     read with 16-B loads (word, word_hi, weight; where eb % 4 != 0, four
+//     scalar loads) and their 4 payload gathers issued before the fold.
+//     float32 min folds order-preserving uint32 keys. The slot stream is
+//     dst-sorted inside a row block (prepare_tiles keeps the sorted
+//     order), so a lane folds its runs in registers: a run that starts and
+//     ends inside the lane is finished there; the lanes' last runs are
+//     joined across the warp by a segmented inclusive shuffle scan, a
+//     lane's first run takes the scanned value of the lane before it, and
+//     the warp's last run is carried into its next step. Each run is
+//     written once, where it ends: min and OR by one shared atomic (none
+//     at the identity), a sum by one add.
+//   * One lane, sum: deterministic where each row's slots form one run in
+//     the block, which every layout the port builds keeps
+//     (tests/test_torch_partition.py), so that PageRank gives the same bits
+//     on every run: the scan's association is set by the slot order, a run
+//     inside a warp's range is added to the accumulator once, and the first
+//     and last run of each range are staged and joined in warp order by one
+//     thread after a block barrier. On a layout where a row has several
+//     runs the adds stay right, only their order (and so the last bits) may
+//     then vary from launch to launch.
 //   * Lanes: a group of G threads owns one slot's lanes, each thread a
 //     quad of lanes loaded as one 16-B uint4 (L % 4 == 0) or one lane (else),
 //     up to two such items: at L = 16, G = 4 and 8 slots a warp
@@ -155,6 +171,13 @@ __device__ __forceinline__ bool decode_slot(const int32_t* __restrict__ word,
   return w0 < 0;
 }
 
+// One lane's running value along a run: min keys, OR words or float sums.
+__device__ __forceinline__ uint32_t fold_value(uint32_t a, uint32_t v, int kind) {
+  if (kind == kMin) return min(a, v);
+  if (kind == kOr) return a | v;
+  return __float_as_uint(__uint_as_float(a) + __uint_as_float(v));
+}
+
 __global__ void __launch_bounds__(kThreads) gather_reduce_cores_kernel(
     const uint32_t* __restrict__ payload,  // (G,) uint32 or float32 bits
     const int32_t* __restrict__ word,      // (p, R, T, Eb)
@@ -164,27 +187,32 @@ __global__ void __launch_bounds__(kThreads) gather_reduce_cores_kernel(
     const int32_t* __restrict__ fetch,     // (p, R, T) fetch map or null
     uint32_t* __restrict__ out,            // (p, R * vb)
     int r_blocks, int t_tiles, int eb, int vb, int kind, int is_f32,
-    int add, uint32_t identity) {
+    int add, uint32_t identity, int vec_loads) {
+  constexpr unsigned kAll = 0xFFFFFFFFu;
+  constexpr int kS = 4;            // consecutive slots a lane takes a step (16 B)
+  constexpr int kStep = 32 * kS;   // slots a warp takes a step
   extern __shared__ uint32_t smem[];
-  uint32_t* acc = smem;                                 // vb rows
-  float* st_val = reinterpret_cast<float*>(smem + vb);  // kThreads
-  int* st_row = reinterpret_cast<int*>(st_val + kThreads);
-  float* st_part = reinterpret_cast<float*>(st_row + kThreads);
-  int* tiles = reinterpret_cast<int*>(st_part + kThreads);  // kThreads
-  int* warp_n = tiles + kThreads;                           // kWarps
+  uint32_t* acc = smem;                                   // vb rows
+  int* tiles = reinterpret_cast<int*>(smem + vb);         // kThreads
+  int* warp_n = tiles + kThreads;                         // kWarps
+  int* st_row = warp_n + kWarps;                          // sum: 2 pieces a warp
+  float* st_val = reinterpret_cast<float*>(st_row + 2 * kWarps);  // 2 kWarps
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const long long blk = (long long)blockIdx.y * r_blocks + blockIdx.x;
   const bool min_f32 = (kind == kMin) && is_f32;
-
   const uint32_t init = min_f32 ? f32_key(identity) : identity;
+  // a run's starting value: the identity of min and OR, +0 for a sum
+  const uint32_t start = kind == kSum ? 0u : init;
+
   for (int j = tid; j < vb; j += kThreads) acc[j] = init;
   __syncthreads();
 
   const long long base = blk * (long long)t_tiles * eb;
   const float ident_f = __uint_as_float(identity);
+  const bool use_w = add && weights != nullptr;
   const int32_t* fetch_blk = fetch != nullptr ? fetch + blk * t_tiles : nullptr;
   // the static arm only needs to look at the first counts[c, r] tiles
   const int n_cand = fetch != nullptr ? t_tiles : counts[blk];
@@ -193,58 +221,182 @@ __global__ void __launch_bounds__(kThreads) gather_reduce_cores_kernel(
     // n_slots is the same for every thread, so every thread runs every step
     // and the block-wide barriers below are safe.
     const int n_slots = list_running_tiles(t0, n_cand, fetch_blk, tiles, warp_n) * eb;
-    for (int s0 = 0; s0 < n_slots; s0 += kThreads) {
-      const int s = s0 + tid;
-      bool valid = false;
-      int row = 0;
-      uint32_t v = 0;
-      if (s < n_slots) {
-        const long long at = base + (long long)tiles[s / eb] * eb + s % eb;
-        int src;
-        valid = decode_slot(word, word_hi, at, row, src);
-        if (valid) {
-          v = __ldg(payload + src);
-          if (add) {  // saturating min-plus map; no weights = unit weights
-            const float x = __uint_as_float(v);
-            const float step = weights != nullptr ? __ldg(weights + at) : 1.0f;
-            v = __float_as_uint(x >= ident_f ? ident_f : x + step);
+    // each warp walks its own contiguous range, kStep slots (kS a lane) a step
+    const int len = ((n_slots + kWarps - 1) / kWarps + kStep - 1) / kStep * kStep;
+    const int s_end = min(n_slots, (warp + 1) * len);
+    int carry_row = -1;  // the run open at the end of the last step
+    uint32_t carry = start;
+    int first_row = -1;  // sum: the row of the range's first run (-1: none yet)
+    if (kind == kSum && lane == 0) {
+      st_row[2 * warp] = st_row[2 * warp + 1] = -1;
+      st_val[2 * warp] = 0.0f;
+    }
+    __syncwarp();
+
+    // a finished run: min and OR by one shared atomic (none at the identity);
+    // a sum is added once, the range's first run into its staged piece
+    auto finish = [&](int rr, uint32_t v) {
+      if (kind == kSum) {
+        atomicAdd(rr == first_row ? st_val + 2 * warp : reinterpret_cast<float*>(acc) + rr,
+                  __uint_as_float(v));
+      } else if (v != init) {
+        if (kind == kMin) {
+          atomicMin(acc + rr, v);
+        } else {
+          atomicOr(acc + rr, v);
+        }
+      }
+    };
+
+    for (int s = warp * len + kS * lane; s - kS * lane < s_end; s += kStep) {
+      // this lane's slots s .. s + kS - 1: row in the block (-1: none) and value
+      int row[kS], src[kS];
+      float wt[kS];
+#pragma unroll
+      for (int i = 0; i < kS; ++i) wt[i] = 1.0f;
+      if (vec_loads) {  // eb % 4 == 0: the 4 slots lie in one tile
+        int4 q = make_int4(0, 0, 0, 0), h = make_int4(0, 0, 0, 0);
+        if (s < s_end) {
+          const long long at = base + (long long)tiles[s / eb] * eb + s % eb;
+          q = __ldcs(reinterpret_cast<const int4*>(word + at));
+          if (word_hi != nullptr) h = __ldcs(reinterpret_cast<const int4*>(word_hi + at));
+          if (use_w) {
+            const float4 f = __ldcs(reinterpret_cast<const float4*>(weights + at));
+            wt[0] = f.x, wt[1] = f.y, wt[2] = f.z, wt[3] = f.w;
+          }
+        }
+        const int32_t w0[kS] = {q.x, q.y, q.z, q.w}, w1[kS] = {h.x, h.y, h.z, h.w};
+#pragma unroll
+        for (int i = 0; i < kS; ++i) {
+          if (word_hi != nullptr) {
+            row[i] = w1[i] < 0 ? (w1[i] & 0x7FFFFFFF) : -1;
+            src[i] = w0[i];
+          } else {
+            row[i] = w0[i] < 0 ? ((w0[i] >> 16) & 0x7FFF) : -1;
+            src[i] = w0[i] & 0xFFFF;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kS; ++i) {
+          row[i] = -1;
+          src[i] = 0;
+          if (s + i < s_end) {
+            const long long at = base + (long long)tiles[(s + i) / eb] * eb + (s + i) % eb;
+            int rr, sr;
+            if (decode_slot(word, word_hi, at, rr, sr)) {
+              row[i] = rr;
+              src[i] = sr;
+              if (use_w) wt[i] = __ldg(weights + at);
+            }
           }
         }
       }
-      if (kind == kMin) {
-        if (valid) atomicMin(acc + row, min_f32 ? f32_key(v) : v);
-        continue;
+      uint32_t val[kS];
+#pragma unroll
+      for (int i = 0; i < kS; ++i) val[i] = row[i] >= 0 ? __ldg(payload + src[i]) : start;
+#pragma unroll
+      for (int i = 0; i < kS; ++i) {
+        if (add) {  // saturating min-plus map; no weights = unit weights
+          const float x = __uint_as_float(val[i]);
+          val[i] = __float_as_uint(x >= ident_f ? ident_f : x + wt[i]);
+        }
+        if (min_f32) val[i] = f32_key(val[i]);
       }
-      if (kind == kOr) {
-        if (valid && v != 0u) atomicOr(acc + row, v);
-        continue;
+
+      // fold the lane's runs: the first (head), the last (tail), and the
+      // runs between them, which start and end in this lane (finished here)
+      int h_row = -1, t_row = -1, n_runs = 0;
+      uint32_t h_val = start, t_val = start;
+#pragma unroll
+      for (int i = 0; i < kS; ++i) {
+        if (row[i] < 0) continue;  // padding: the run goes on past it
+        if (row[i] == t_row) {
+          t_val = fold_value(t_val, val[i], kind);
+          continue;
+        }
+        if (n_runs == 1) {
+          h_row = t_row;
+          h_val = t_val;
+        } else if (n_runs > 1) {
+          finish(t_row, t_val);
+        }
+        t_row = row[i];
+        t_val = val[i];
+        ++n_runs;
       }
-      // deterministic sum: lane-ordered within a warp, warp-ordered across
-      st_val[tid] = valid ? __uint_as_float(v) : 0.0f;
-      const unsigned peers = __match_any_sync(0xFFFFFFFFu, valid ? row : -1 - lane);
-      __syncwarp();
-      const bool leader = valid && lane == __ffs(peers) - 1;
-      float part = 0.0f;
-      if (leader) {
-        for (unsigned m = peers; m != 0; m &= m - 1) {
-          part += st_val[(warp << 5) + __ffs(m) - 1];
+      const bool has = n_runs > 0;
+      const bool single = n_runs == 1;
+      const int h = single ? t_row : h_row;  // the lane's first row
+      if (kind == kSum && first_row < 0) {   // warp-uniform
+        const unsigned any = __ballot_sync(kAll, has);
+        if (any != 0u) first_row = __shfl_sync(kAll, h, __ffs(any) - 1);
+      }
+      // does the lane's first run go on from the lane before (lane 0: the carry)?
+      const int left_t = __shfl_up_sync(kAll, t_row, 1);
+      const bool joins = has && h == (lane == 0 ? carry_row : left_t);
+      // segmented inclusive scan of the tail runs, left to right; a lane that
+      // is one run joining its left neighbour's tail continues that run
+      uint32_t v = t_val;
+      bool head = !(single && joins);
+      if (lane == 0) {
+        if (single && joins) v = fold_value(carry, v, kind);
+        head = true;
+      }
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const uint32_t v_up = __shfl_up_sync(kAll, v, d);
+        const bool head_up = __shfl_up_sync(kAll, (int)head, d) != 0;
+        if (lane >= d && !head) {
+          v = fold_value(v_up, v, kind);
+          head = head_up;
         }
       }
-      st_row[tid] = leader ? row : -1;
-      st_part[tid] = part;
-      __syncthreads();
-      if (warp == 0) {
-        float* accf = reinterpret_cast<float*>(acc);
-        for (int w = 0; w < kWarps; ++w) {
-          // the leaders of one warp own distinct rows: no two lanes collide
-          const int rr = st_row[(w << 5) + lane];
-          if (rr >= 0) accf[rr] += st_part[(w << 5) + lane];
-          __syncwarp();
-        }
+      const uint32_t left_v = __shfl_up_sync(kAll, v, 1);
+      const bool next_joins = __shfl_down_sync(kAll, (int)joins, 1) != 0;
+      if (lane == 0 && carry_row >= 0 && !joins) finish(carry_row, carry);  // ended last step
+      if (has && !single) {  // the head run ends in this lane
+        finish(h_row, joins ? fold_value(lane == 0 ? carry : left_v, h_val, kind) : h_val);
       }
-      __syncthreads();
+      if (has && lane < 31 && !next_joins) finish(t_row, v);  // the tail ends here
+      carry_row = __shfl_sync(kAll, t_row, 31);
+      carry = __shfl_sync(kAll, v, 31);
     }
-    __syncthreads();  // the tile list and warp counts are rewritten next chunk
+    if (carry_row >= 0 && lane == 0) {  // the run open at the end of the range
+      if (kind != kSum) {
+        finish(carry_row, carry);
+      } else if (carry_row == first_row) {
+        atomicAdd(st_val + 2 * warp, __uint_as_float(carry));
+      } else {
+        st_row[2 * warp + 1] = carry_row;
+        st_val[2 * warp + 1] = __uint_as_float(carry);
+      }
+    }
+
+    if (kind == kSum) {
+      // the pieces at the ranges' edges, in range order: each chain of one
+      // row is added up and then once into the accumulator
+      if (lane == 0) st_row[2 * warp] = first_row;
+      __syncthreads();
+      if (tid == 0) {
+        float* accf = reinterpret_cast<float*>(acc);
+        int rr = -1;
+        float tot = 0.0f;
+        for (int q = 0; q < 2 * kWarps; ++q) {
+          const int r = st_row[q];
+          if (r < 0) continue;
+          if (r == rr) {
+            tot += st_val[q];
+            continue;
+          }
+          if (rr >= 0) accf[rr] += tot;
+          rr = r;
+          tot = st_val[q];
+        }
+        if (rr >= 0) accf[rr] += tot;
+      }
+    }
+    __syncthreads();  // the tile list, warp counts and pieces are rewritten next
   }
   __syncthreads();
 
@@ -266,13 +418,6 @@ __host__ __device__ __forceinline__ int acc_stride(int nl) {
 __device__ __forceinline__ int acc_swizzle(int nl) {
   const int p = min(nl & -nl, 32);
   return p >= 8 ? p - 1 : 0;
-}
-
-// One lane's running value along a run: min keys, OR words or float sums.
-__device__ __forceinline__ uint32_t fold_value(uint32_t a, uint32_t v, int kind) {
-  if (kind == kMin) return min(a, v);
-  if (kind == kOr) return a | v;
-  return __float_as_uint(__uint_as_float(a) + __uint_as_float(v));
 }
 
 // A group of G threads owns one slot's lanes: thread gt of the group holds
@@ -510,10 +655,10 @@ __global__ void __launch_bounds__(kThreads) gather_reduce_cores_lanes_kernel(
 }
 
 // Shared memory of the one-lane kernel for vb rows: the accumulator, the
-// sum's staged values, leader rows and partials, the tile list and the
-// warp counts.
+// tile list, the warp counts and the sum's two staged pieces (row, value) a
+// warp.
 size_t one_lane_smem_bytes(int vb) {
-  return sizeof(uint32_t) * ((size_t)vb + 4 * kThreads + kWarps);
+  return sizeof(uint32_t) * ((size_t)vb + kThreads + kWarps + 4 * kWarps);
 }
 
 // The lane kernel's shape for a chunk of lc lanes: lane items of 4 lanes
@@ -620,9 +765,12 @@ int gather_reduce_cores_launch(const void* payload, const void* word,
     err = cudaFuncSetAttribute(gather_reduce_cores_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
+    // 16-B loads of 4 slots where eb % 4 == 0 and the streams are on 16 B
+    const int vec_loads = eb % 4 == 0 && ((uintptr_t)w & 15u) == 0 &&
+                          ((uintptr_t)w_hi & 15u) == 0 && ((uintptr_t)wts & 15u) == 0;
     gather_reduce_cores_kernel<<<dim3(r_blocks, p), kThreads, smem, s>>>(
         pay, w, w_hi, wts, cnt, fm, (uint32_t*)out, r_blocks, t_tiles, eb, vb,
-        kind, is_f32, add, identity);
+        kind, is_f32, add, identity, vec_loads);
     return (int)cudaGetLastError();
   }
   // 16-B payload loads need a 16-B aligned payload (the wrapper sees to it)

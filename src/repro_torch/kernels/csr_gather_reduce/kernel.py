@@ -49,7 +49,7 @@ __all__ = [
 
 SOURCE = "gather_reduce_cores.cu"
 SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block can use
-_STAGING_WORDS = 1032  # the one-lane kernel's shared words beside its rows
+_STAGING_WORDS = 296  # the one-lane kernel's shared words beside its rows
 
 # kernel launches per variant (see ``variant_name``); incremented only where
 # the CUDA kernel is launched

@@ -78,6 +78,8 @@ def _launch(payload, word, counts, word_hi, weights, fetch, num_rows, kind, edge
     lib, _ = load_library(SOURCE)
     p, b_blocks, t_tiles, eb = word.shape
     lanes = payload.shape[1] if payload.dim() == 2 else 1  # (G,) is (G, 1) in memory
+    if lanes % 4 == 0 and payload.data_ptr() % 16:  # the kernel's 16-B payload loads
+        payload = payload.clone()
     out = torch.empty((p, num_rows) + tuple(payload.shape[1:]), dtype=payload.dtype,
                       device=payload.device)
     fn = lib.scatter_reduce_cores_launch

@@ -6,7 +6,10 @@ each lane arm of both (the word OR of packed reach words, vector min with
 the SSSP add, vector sum, and the lane-chunk path at vb=1024), and the
 engine with its default options (dynamic tile skip, 'auto' direction) and
 with forced push, laneless and K-lane, on the card against the CPU run; the
-embedding-bag kernel against its plain version (sum and mean, odd D, the
+scatter on hand-made source runs (hub sources, L = 1 to 64, both push
+regimes, odd tile widths) and on float min with -0.0, +0.0 and negatives
+against the key order, and the gather's one-lane kernel on hand-made runs;
+the embedding-bag kernel against its plain version (sum and mean, odd D, the
 DIN width D = 18, B = 1, all-padding bags, a cold-table shape at a small N,
 bit-stability) and DIN ``score`` / ``score_candidates`` on the card against
 the CPU run; the segment-softmax kernel against its plain version (heads,
@@ -542,6 +545,295 @@ def test_cuda_laneless_is_the_one_lane_case(variant, cuda_device):
             assert mod.LAUNCHES[lane_key] == before.get(lane_key, 0) + 1
             assert lane.shape == flat.shape + (1,)
             assert torch.equal(lane[..., 0].view(torch.int32), flat.view(torch.int32))
+
+
+# -- the push scatter and the one-lane gather on hand-made runs ----------------
+
+def _push_layout(rng, cores, eb, src_bits):
+    """A push stream of p cores from per-core lists of source blocks, each a
+    list of (src, dst) edges laid out sorted by (src, dst), as
+    prepare_push_tiles lays them: word, word_hi (32-bit regime, else None),
+    counts and weights, (p, B, T, Eb)."""
+    p, b_blocks = len(cores), max(len(c) for c in cores)
+    t_tiles = max(1, max(-(-len(e) // eb) for c in cores for e in c))
+    word = np.zeros((p, b_blocks, t_tiles * eb), np.uint32)
+    hi = np.zeros_like(word)
+    counts = np.zeros((p, b_blocks), np.int32)
+    for c, blocks in enumerate(cores):
+        for b, edges in enumerate(blocks):
+            e = np.asarray(edges, np.uint32).reshape(-1, 2)
+            e = e[np.lexsort((e[:, 1], e[:, 0]))]
+            k = e.shape[0]
+            if src_bits == 16:
+                word[c, b, :k] = (1 << 31) | (e[:, 1] << 16) | e[:, 0]
+            else:
+                word[c, b, :k] = e[:, 0]
+                hi[c, b, :k] = (1 << 31) | e[:, 1]
+            counts[c, b] = -(-k // eb)
+    shape = (p, b_blocks, t_tiles, eb)
+    weights = torch.from_numpy(rng.random(shape).astype(np.float32))
+    word_hi = torch.from_numpy(hi.view(np.int32).reshape(shape)) if src_bits == 32 else None
+    word = torch.from_numpy(word.view(np.int32).reshape(shape))
+    return word, word_hi, torch.from_numpy(counts), weights
+
+
+def _push_blocks(rng, g_size, num_rows):
+    """Two cores' source blocks that stress the scatter's source runs: a hub
+    source with 3,000 destinations (runs across warps and tiles) then short
+    runs, a row that 400 sources hit, one-slot runs, an empty block, and
+    random edges."""
+    bs = g_size // 4
+
+    def fan(srcs, lo, hi):
+        return [(s, int(d)) for s in srcs
+                for d in rng.choice(num_rows, int(rng.integers(lo, hi)), replace=False)]
+
+    hub = fan([5], 3000, 3001) + fan(range(6, 60), 1, 20)
+    many = [(s, 7) for s in range(bs, bs + 400)] + fan(range(bs, bs + 400), 1, 3)
+    one = [(s, int(rng.integers(0, num_rows))) for s in range(2 * bs, 2 * bs + 500)]
+    rand = [(int(s), int(d)) for s, d in zip(rng.integers(3 * bs, g_size, 2000),
+                                              rng.integers(0, num_rows, 2000))]
+    return [[hub, many, one, []], [[], rand, fan([bs + 1], 2500, 2501), many]]
+
+
+def _scatter_payload(pkind, n, lanes, rng):
+    """A (G,) payload for lanes == 1 (a (G, 1) one for packed words), else
+    (G, lanes): uint32 labels or reach words, or distances with negatives."""
+    width = max(lanes, 1)
+    if pkind == "words":  # 15% of the bits set
+        bits = rng.random((n, width, 32)) < 0.15
+        return u32.to_bits((bits.astype(np.uint64) << np.arange(32, dtype=np.uint64))
+                           .sum(-1).astype(np.uint32))
+    shape = (n,) if lanes == 1 else (n, width)
+    if pkind == "labels":
+        v = rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32)
+        v[rng.random(shape) < 0.2] = INF_U32
+        return u32.to_bits(v)
+    v = (rng.random(shape) * 60 - 10).astype(np.float32)
+    v[rng.random(shape) < 0.2] = INF_F32
+    return torch.from_numpy(v)
+
+
+SCATTER_KINDS = {  # kind -> (payload kind, reduce, edge_op, identity)
+    "min_u32": ("labels", "min", "none", float(INF_U32)),
+    "min_f32_add": ("dist", "min", "add", INF_F32),
+    "or": ("words", "or", "none", 0.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["static", "fetch", "empty_fetch"])
+@pytest.mark.parametrize("src_bits", [16, 32])
+@pytest.mark.parametrize("lanes", [1, 2, 3, 5, 16, 37, 64])
+@pytest.mark.parametrize("kind", list(SCATTER_KINDS))
+def test_cuda_scatter_runs(kind, lanes, src_bits, arm, cuda_device):
+    """The scatter kernel on hand-made source runs (a hub source with 3,000
+    destinations over warps and tiles, a row 400 sources hit, one-slot runs,
+    an empty block) in both push regimes: one lane a thread (1), one lane a
+    thread in groups of 2, 4 and 8 (2, 3, 5; 37 in three lane passes), a
+    quad a thread (16) and two quads a thread (64); an all-inactive fetch
+    map leaves the identity. Bit-equal to the plain version."""
+    g_size, num_rows, eb = 4096, 4096, 128
+    rng = np.random.default_rng(lanes * 7 + src_bits + len(kind))
+    word, hi, counts, weights = _push_layout(rng, _push_blocks(rng, g_size, num_rows), eb,
+                                             src_bits)
+    pkind, reduce, edge_op, identity = SCATTER_KINDS[kind]
+    payload = _scatter_payload(pkind, g_size, lanes, rng)
+    fetch = None
+    if arm == "fetch":
+        fetch = _fetch(counts, word.shape[2], rng, share=0.5)
+    elif arm == "empty_fetch":
+        fetch = torch.full(tuple(word.shape[:3]), -1, dtype=torch.int32)
+    args = [payload, word, counts, hi, weights if edge_op == "add" else None, fetch]
+    kw = dict(num_rows=num_rows, src_bits=src_bits, kind=reduce, edge_op=edge_op,
+              identity=identity)
+    want = S.scatter_reduce_cores(*args, **kw)
+    got = S.scatter_reduce_cores(*_on(cuda_device, args), **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+    if arm == "empty_fetch":  # nothing runs: every cell holds the identity
+        ident = (torch.full_like(want, identity) if want.dtype == torch.float32 else
+                 u32.to_bits(np.full(tuple(want.shape), int(identity), np.uint32)))
+        assert torch.equal(want, ident)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 3, 16])
+@pytest.mark.parametrize("kind", list(SCATTER_KINDS))
+def test_cuda_scatter_odd_tile_width(kind, lanes, cuda_device):
+    """Tiles of eb = 30 slots: no 16-B loads of 4 slots (the lane kernel's
+    scalar loads) and a pass shorter than a warp's 128 slots; bit-equal to
+    the plain version on the fetch arm."""
+    g_size, num_rows, eb = 4096, 4096, 30
+    rng = np.random.default_rng(lanes + len(kind))
+    word, hi, counts, weights = _push_layout(rng, _push_blocks(rng, g_size, num_rows), eb, 32)
+    pkind, reduce, edge_op, identity = SCATTER_KINDS[kind]
+    args = [_scatter_payload(pkind, g_size, lanes, rng), word, counts, hi,
+            weights if edge_op == "add" else None, _fetch(counts, word.shape[2], rng, share=0.5)]
+    kw = dict(num_rows=num_rows, src_bits=32, kind=reduce, edge_op=edge_op, identity=identity)
+    want = S.scatter_reduce_cores(*args, **kw)
+    got = S.scatter_reduce_cores(*_on(cuda_device, args), **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+
+
+def _key_order_min(vals, edges, num_rows, lanes):
+    """numpy reference: each row's min over its edges' float32 values in
+    f32_key order (negative floats reversed, -0.0 below +0.0), from INF_F32."""
+    bits = vals.view(np.uint32).reshape(vals.shape[0], lanes)
+    key = np.where(bits & 0x80000000, ~bits, bits | 0x80000000).astype(np.uint32)
+    inf = np.float32(INF_F32).view(np.uint32) | np.uint32(0x80000000)
+    out = np.full((num_rows, lanes), inf, np.uint32)
+    e = np.asarray(edges, np.int64).reshape(-1, 2)
+    np.minimum.at(out, e[:, 1], key[e[:, 0]])
+    back = np.where(out & 0x80000000, out & 0x7FFFFFFF, ~out).astype(np.uint32)
+    return back.view(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src_bits", [16, 32])
+@pytest.mark.parametrize("lanes", [1, 16])
+def test_cuda_scatter_float_min_order(lanes, src_bits, cuda_device):
+    """Float min with negative values, -0.0 and +0.0 (the sign-split
+    atomics): bit-equal to the plain version on every row that does not get
+    both -0.0 and +0.0, and on every row to a numpy min in f32_key order,
+    the order of the keyed kernel before it: -1.0 < -0.0 < +0.0."""
+    g_size, num_rows, eb = 4096, 4096, 128
+    rng = np.random.default_rng(41 + lanes + src_bits)
+    vals = (rng.random((g_size, lanes)) * 20 - 10).astype(np.float32)
+    vals[rng.random(vals.shape) < 0.1] = INF_F32
+    vals[0], vals[1], vals[2] = -0.0, 0.0, -1.0
+    vals[3] = np.float32(-1e-40)  # a negative denormal: below -0.0
+    vals[10:2030:2], vals[11:2030:2] = -1.0, -0.0
+    # rows whose slots read the identity in one batch and all lower it, -1.0
+    # before -0.0, so -0.0 must not win a signed min: a hot row, and rows
+    # fed by one pair of adjacent one-edge sources (decided by one batch)
+    hot = [(s, 4086) for s in range(10, 2010)]
+    pairs = [(s, 4040 + (s - 2010) // 2) for s in range(2010, 2030)]
+    rand = [(int(s), int(d)) for s, d in zip(rng.integers(2030, g_size, 6000),
+                                              rng.integers(0, 4000, 6000))]
+    hand = [(0, 4080), (1, 4080), (2, 4080),  # -1.0
+            (0, 4081), (1, 4081),             # -0.0 (mixes the zeros)
+            (1, 4082), (9, 4082),             # +0.0 or below
+            (0, 4083), (9, 4083),             # -0.0 or below
+            (3, 4084), (0, 4084), (1, 4084),  # the denormal
+            (1, 4085), (0, 4085)]             # -0.0 (mixes the zeros)
+    edges = rand + hand + hot + pairs
+    blocks = [[e for e in edges if e[0] // 1024 == b] for b in range(g_size // 1024)]
+    word, hi, counts, _ = _push_layout(rng, [blocks], eb, src_bits)
+    payload = torch.from_numpy(vals[:, 0].copy() if lanes == 1 else vals)
+    kw = dict(num_rows=num_rows, src_bits=src_bits, kind="min", edge_op="none",
+              identity=INF_F32)
+    args = [payload, word, counts, hi, None, None]
+    want = S.scatter_reduce_cores(*args, **kw)
+    got = S.scatter_reduce_cores(*_on(cuda_device, args), **kw).cpu()
+    ref = _key_order_min(vals, edges, num_rows, lanes).reshape(want.shape[1:])
+    assert torch.equal(got[0].view(torch.int32), torch.from_numpy(ref.view(np.int32)))
+    mixed = torch.zeros(num_rows, dtype=torch.bool)
+    mixed[[4081, 4085]] = True
+    assert torch.equal(got[0][~mixed].view(torch.int32), want[0][~mixed].view(torch.int32))
+    row = got[0].view(torch.int32).reshape(num_rows, lanes)[:, 0]
+    assert row[4080] == int(np.array(-1.0, np.float32).view(np.int32))
+    assert row[4081] == -(2 ** 31)  # -0.0
+    assert row[4085] == row[4081]
+    assert torch.all(row[[4086] + list(range(4040, 4050))] == row[4080])  # -1.0
+
+
+ONE_LANE_KINDS = {  # kind -> (payload kind, reduce, edge_op, identity)
+    "min_u32": ("labels", "min", "none", float(INF_U32)),
+    "min_f32_add": ("dist", "min", "add", INF_F32),
+    "sum_f32": ("rank", "sum", "none", 0.0),
+    "or_w1": ("words", "or", "none", 0.0),
+}
+
+
+def _one_lane_payload(pkind, n, rng):
+    if pkind == "rank":
+        return torch.from_numpy((rng.random(n) / n).astype(np.float32))
+    return _scatter_payload(pkind, n, 1, rng)
+
+
+def _one_lane_check(kind, args, kw, cuda_device):
+    want = K.gather_reduce_cores(*args, **kw)
+    dev_args = _on(cuda_device, args)
+    got = K.gather_reduce_cores(*dev_args, **kw)
+    again = K.gather_reduce_cores(*dev_args, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if kind == "sum_f32":
+        torch.testing.assert_close(got.cpu(), want, **SUM_TOL)
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    else:
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eb", [128, 30])
+@pytest.mark.parametrize("arm", ["static", "fetch"])
+@pytest.mark.parametrize("kind", list(ONE_LANE_KINDS))
+def test_cuda_one_lane_gather_runs(kind, arm, eb, cuda_device):
+    """The one-lane kernel on hand-made runs at vb = 1024: a 3,000-slot hub
+    row among light rows, a one-row block, one-slot rows, an empty block,
+    dst-sorted random rows, 6,000 slots of runs ~6 long (several steps a
+    warp, so runs end at thread, warp and step edges) and a 40,000-slot row
+    over more tiles than one tile list holds; eb = 30 takes the scalar
+    loads. min and OR bit-equal, sum within SUM_TOL and the same bits
+    twice."""
+    vb, g_size = 1024, 4096
+    rng = np.random.default_rng(eb + len(kind) + len(arm))
+    blocks = _edge_blocks(rng, vb) + [np.sort(rng.integers(0, vb, 6000)).tolist(),
+                                      [9] * 40000 + [10] * 5]
+    word, counts, weights = _run_layout(rng, blocks, eb, g_size)
+    pkind, reduce, edge_op, identity = ONE_LANE_KINDS[kind]
+    fetch = _fetch(counts, word.shape[2], rng, share=0.5) if arm == "fetch" else None
+    args = [_one_lane_payload(pkind, g_size, rng), word, counts, None,
+            weights if edge_op == "add" else None, fetch]
+    kw = dict(num_rows=word.shape[1] * vb, vb=vb, src_bits=16, kind=reduce, edge_op=edge_op,
+              identity=identity)
+    _one_lane_check(kind, args, kw, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(ONE_LANE_KINDS))
+def test_cuda_one_lane_gather_on_split_hub_rows(kind, cuda_device):
+    """A partition that splits a 3,000-edge hub row over virtual rows, every
+    phase: min and OR bit-equal, sum within SUM_TOL and the same bits twice."""
+    make, cfg = GRAPHS["hub_split"]
+    pg = partition_2d(make(), PartitionConfig(**cfg))
+    assert pg.tile_row_orig is not None  # the hub row was split
+    pkind, reduce, edge_op, identity = ONE_LANE_KINDS[kind]
+    rng = np.random.default_rng(23)
+    kw = dict(num_rows=pg.packed_rows_per_core, vb=pg.tile_vb, src_bits=pg.src_bits,
+              kind=reduce, edge_op=edge_op, identity=identity)
+    for m in range(pg.l):
+        w = pg.tile_weights[:, m] if edge_op == "add" else None
+        args = [_one_lane_payload(pkind, pg.gathered_size, rng),
+                torch.from_numpy(pg.tile_word[:, m].copy()),
+                torch.from_numpy(pg.tile_counts[:, m].copy()), None,
+                None if w is None else torch.from_numpy(w.copy()), None]
+        _one_lane_check(kind, args, kw, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(ONE_LANE_KINDS))
+def test_cuda_one_lane_gather_without_the_run_property(kind, cuda_device):
+    """Rows whose slots come back after other rows (no layout of the port
+    does this): min and OR stay bit-equal (atomics), sum within SUM_TOL."""
+    vb, eb, g_size = 256, 64, 2048
+    rng = np.random.default_rng(37)
+    blocks = [rng.integers(0, 40, 2000).tolist(), ([3, 4] * 300) + [3] * 50]
+    word, counts, weights = _run_layout(rng, blocks, eb, g_size)
+    pkind, reduce, edge_op, identity = ONE_LANE_KINDS[kind]
+    kw = dict(num_rows=word.shape[1] * vb, vb=vb, src_bits=16, kind=reduce, edge_op=edge_op,
+              identity=identity)
+    args = [_one_lane_payload(pkind, g_size, rng), word, counts, None,
+            weights if edge_op == "add" else None, None]
+    want = K.gather_reduce_cores(*args, **kw)
+    got = K.gather_reduce_cores(*_on(cuda_device, args), **kw).cpu()
+    if kind == "sum_f32":
+        torch.testing.assert_close(got, want, **SUM_TOL)
+    else:
+        assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------

@@ -255,3 +255,65 @@ def test_gat_layout_keeps_each_row_in_one_run(n, e, vb, hub):
     valid = rng.random(e) < 0.9
     t = build_edge_tiles(dst, valid, n, vb=vb, eb=256).tiles
     assert _rows_in_one_run(t.dstb, t.valid)
+
+
+def _push_blocks_sorted(pg):
+    """True iff in every (core, phase, source block) of the push stream the
+    valid slots come first and are sorted by (src, dst): the order the
+    scatter kernel's source runs lean on."""
+    flat = pg.push_word.shape[:3] + (-1,)
+    word = pg.push_word.reshape(flat)
+    if pg.push_src_bits == 16:
+        src, dst, valid = word & 0xFFFF, (word >> 16) & 0x7FFF, word < 0
+    else:
+        hi = pg.push_word_hi.reshape(flat)
+        src, dst, valid = word, hi & 0x7FFFFFFF, hi < 0
+    key = (src.astype(np.int64) << 32) | dst.astype(np.int64)
+    prefix = np.all(np.diff(valid.astype(np.int8), axis=-1) <= 0)
+    return bool(prefix and np.all((np.diff(key, axis=-1) >= 0) | ~valid[..., 1:]))
+
+
+_PUSH_CASES = [(i, c) for i, c in enumerate(CASES) if c[1].get("build_push", True)]
+
+
+def test_push_order_checker_sees_a_broken_layout():
+    pg = t_partition(_port_graph(_graph("rmat10")), TConfig(p=2, l=2, lane=4))
+    assert _push_blocks_sorted(pg)
+    word = pg.push_word.copy()
+    flat = word.reshape(word.shape[:3] + (-1,))
+    n = int((flat[0, 0, 0] < 0).sum())
+    assert n > 2
+    flat[0, 0, 0, [0, n - 1]] = flat[0, 0, 0, [n - 1, 0]]  # two slots swapped
+    assert not _push_blocks_sorted(dataclasses.replace(pg, push_word=word))
+    word = pg.push_word.copy()
+    word.reshape(flat.shape)[0, 0, 0, 0] = 0  # a padding slot before valid ones
+    assert not _push_blocks_sorted(dataclasses.replace(pg, push_word=word))
+
+
+@pytest.mark.parametrize("name,cfg", [c for _, c in _PUSH_CASES],
+                         ids=[f"{c[0]}-{i}" for i, c in _PUSH_CASES])
+def test_cold_push_stream_is_sorted_by_source(name, cfg):
+    """Every cold layout of the case list that builds the push stream (both
+    regimes, split hub rows, the stride permutation, weighted graphs)."""
+    pg = t_partition(_port_graph(_graph(name)), TConfig(**cfg))
+    assert pg.push_word is not None and _push_blocks_sorted(pg)
+
+
+@pytest.mark.parametrize("name,cfg", [CASES[1], CASES[2], CASES[11], CASES[14]],
+                         ids=["pos-stride", "bits32", "split", "split-weighted"])
+def test_delta_flush_keeps_the_push_stream_sorted_by_source(name, cfg):
+    """The same after apply_edge_deltas re-tiles the buckets a stream of
+    insertions dirties (hub rows gaining edges included)."""
+    from repro_torch.core.partition import apply_edge_deltas
+
+    g = _port_graph(_graph(name))
+    pg = t_partition(g, TConfig(**cfg))
+    rng = np.random.default_rng(5)
+    n = g.num_vertices
+    for _ in range(2):
+        k = 64
+        src = np.where(rng.random(k) < 0.5, rng.integers(0, 4, k), rng.integers(0, n, k))
+        dst = rng.integers(0, n, k)
+        w = rng.random(k).astype(np.float32) if g.weights is not None else None
+        pg, _ = apply_edge_deltas(pg, src.astype(np.uint32), dst.astype(np.uint32), w)
+        assert _push_blocks_sorted(pg)

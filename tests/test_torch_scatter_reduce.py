@@ -128,3 +128,88 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
                                src_bits=32)
     with pytest.raises(ValueError, match="word_hi"):
         S.scatter_reduce_cores(f32, word, counts, num_rows=8, src_bits=32)
+
+
+# -- the kernel's float min: sign-split atomics on float32 bits ----------------
+
+_SIGN = 0x80000000
+_MASK = 0xFFFFFFFF
+
+
+def _f32_key(bits):
+    """The kernels' order-preserving map float32 bits -> uint32 (negative
+    floats reversed, -0.0 below +0.0), on int64 tensors of uint32 bits."""
+    return torch.where((bits & _SIGN) != 0, ~bits & _MASK, bits | _SIGN)
+
+
+def _sign_split_min(cell, v):
+    """What the scatter kernel's atomic leaves in a cell holding the float32
+    bits ``cell`` when the value with bits ``v`` lowers it: a signed atomicMin
+    on the bits when v's sign bit is clear, an unsigned atomicMax when it is
+    set (int64 tensors of uint32 bits)."""
+    def signed(x):
+        return torch.where(x >= 1 << 31, x - (1 << 32), x)
+
+    as_int_min = torch.minimum(signed(cell), signed(v)) & _MASK
+    return torch.where((v & _SIGN) != 0, torch.maximum(cell, v), as_int_min)
+
+
+def _bits(values):
+    return torch.from_numpy(np.asarray(values, np.float32).view(np.uint32).astype(np.int64))
+
+
+_FAMILIES = {
+    "zeros": [0.0, -0.0],
+    "denormals": [1e-45, -1e-45, 1e-40, -1e-40, 1.1754942e-38, -1.1754942e-38],
+    "infinities": [np.inf, -np.inf],
+    "extremes": [INF_F32, -INF_F32, 1.0, -1.0],
+    "random": list(np.random.default_rng(3).standard_normal(40) * 1e3),
+}
+
+
+@pytest.mark.parametrize("family", list(_FAMILIES) + ["bit_patterns"])
+def test_sign_split_float_min_follows_the_key_order(family):
+    """For every pair of a cell and a value from a sweep of floats (or of
+    raw bit patterns, NaNs included), the sign-split atomic leaves the one of
+    the two that is smaller in f32_key order, which is what the keyed
+    kernel's atomicMin on keys gave."""
+    base = [0.0, -0.0, 1e-40, -1e-40, np.inf, -np.inf, INF_F32, 2.5, -2.5]
+    if family == "bit_patterns":
+        raw = np.random.default_rng(9).integers(0, 1 << 32, 300, dtype=np.uint64)
+        vals = torch.cat([_bits(base), torch.from_numpy(raw.astype(np.int64))])
+    else:
+        vals = _bits(base + _FAMILIES[family])
+    cell, v = torch.meshgrid(vals, vals, indexing="ij")
+    want = torch.where(_f32_key(v) < _f32_key(cell), v, cell)
+    assert torch.equal(_sign_split_min(cell, v), want)
+
+
+def test_sign_split_float_min_is_order_free():
+    """Lowering the identity by a set of values in any order leaves the value
+    of least key: -1.0 below -0.0 below +0.0, the negative denormal below
+    -0.0."""
+    vals = _bits([3.0, -0.0, 0.0, -1e-40, 7.5, -1.0, 0.0, -0.0])
+    rng = np.random.default_rng(4)
+    for _ in range(20):
+        cell = _bits([INF_F32])[0]
+        for i in rng.permutation(vals.numel()):
+            cell = _sign_split_min(cell, vals[i])
+        assert int(cell) == int(_bits([-1.0])[0])
+    for group, least in (([0.0, -0.0], -0.0), ([-0.0, -1e-40, 0.0], -1e-40), ([0.0, 2.0], 0.0)):
+        for order in (group, group[::-1]):
+            cell = _bits([INF_F32])[0]
+            for x in _bits(order):
+                cell = _sign_split_min(cell, x)
+            assert int(cell) == int(_bits([least])[0])
+
+
+def test_key_order_is_float_order_with_negative_zero_first():
+    """f32_key sorts non-NaN floats as their values sort, with -0.0 just
+    below +0.0: the order the kernel's float min reduces in."""
+    rng = np.random.default_rng(6)
+    vals = np.concatenate([rng.standard_normal(200) * 10.0 ** rng.integers(-40, 38, 200),
+                           [INF_F32, -INF_F32, np.inf, -np.inf, 1e-45, -1e-45]]).astype(np.float32)
+    vals = np.unique(vals[vals != 0])
+    keys = _f32_key(_bits(vals))
+    assert torch.equal(torch.argsort(keys), torch.arange(vals.size))
+    assert int(_f32_key(_bits([-0.0]))[0]) + 1 == int(_f32_key(_bits([0.0]))[0])

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time every arm of the port's two CUDA kernels on one partition.
 
-    python3 tools/kernel_arm_times.py [--src DIR] [--scale 20] [--out FILE]
+    python3 tools/kernel_arm_times.py [--src DIR] [--variant NAME] [--arms A,B]
+                                      [--scale 20] [--out FILE]
 
 Builds the smoke's graph and partition (graph500 RMAT, edge factor 16, seed
 0, ``chip_smoke.CFG``), then, for each arm, launches the kernel once per
@@ -12,16 +13,23 @@ the laneless variants (gather min_u32 and min_f32_add on a fetch map of
 every real tile, sum_f32 on the static counts; scatter min_u32 and
 min_f32_add) and the lane arms of the serving width (gather 'or' on one
 and two packed words, min_f32_add and sum_f32 at L=16, min_f32_add at
-L=64; scatter 'or' and min_f32_add at L=16). Then the segment-softmax
-kernel at chip_smoke's two GAT layouts, H = 8 and seeded scores: (a) layer
-1 at the Cora shape (16,384 edge slots), (b) the smoke graph as one layout.
+L=64; scatter 'or' on one and two packed words, min_f32_add at L=16 and
+L=64). Then the segment-softmax kernel at chip_smoke's two GAT layouts,
+H = 8 and seeded scores: (a) layer 1 at the Cora shape (16,384 edge
+slots), (b) the smoke graph as one layout.
 
 ``--src`` imports ``repro_torch`` from another checkout's ``src`` (default:
 this one's), so that two versions of the kernels are timed and their outputs
 compared on the same card; run it once per checkout on one machine, in the
 order A, B, B, A. Payloads come from a fixed seed, so the hashes of two
-checkouts agree iff their kernels give the same bits. One JSON line goes to
-stdout (and to ``--out``). Needs a CUDA device.
+checkouts agree iff their kernels give the same bits. ``--variant NAME``
+times a copy of those sources with the text edits of ``VARIANTS[NAME]`` in
+``tools/arm_variants.py`` applied (built under ``build/arm_variants/``): a
+design question answered in the same call as the kernels as they are.
+``--arms`` keeps the arms whose names start with one of the comma-separated
+prefixes (``scatter``, ``gather[sum``, ``softmax``; default: every arm and
+the softmax). One JSON line goes to stdout (and to ``--out``). Needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -49,8 +57,31 @@ ARMS = {
     "gather[sum_f32_l16]": ("gather", "sum", "none", 0.0, 16, "rank", "counts"),
     "gather[min_f32_add_l64]": ("gather", "min", "add", INF_F32, 64, "dist", "fetch"),
     "scatter[or_w1]": ("scatter", "or", "none", 0.0, 1, "words", "fetch"),
+    "scatter[or_w2]": ("scatter", "or", "none", 0.0, 2, "words", "fetch"),
     "scatter[min_f32_add_l16]": ("scatter", "min", "add", INF_F32, 16, "dist", "fetch"),
+    "scatter[min_f32_add_l64]": ("scatter", "min", "add", INF_F32, 64, "dist", "fetch"),
 }
+
+
+def variant_tree(src: Path, name: str) -> Path:
+    """A copy of ``src``'s ``repro_torch`` with the edits of variant ``name``
+    applied to its kernel sources; returns the copy's ``src``."""
+    import shutil
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    from arm_variants import VARIANTS
+
+    dst = ROOT / "build" / "arm_variants" / name / "src"
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src / "repro_torch", dst / "repro_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    for source, old, new in VARIANTS[name]:
+        path = dst / "repro_torch" / "csrc" / source
+        text = path.read_text()
+        if old not in text:
+            raise SystemExit(f"variant {name}: its edit does not apply to {source}")
+        path.write_text(text.replace(old, new))
+    return dst
 
 
 def main() -> int:
@@ -59,7 +90,12 @@ def main() -> int:
     ap.add_argument("--scale", type=int, default=20)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", type=Path)
+    ap.add_argument("--variant", help="a name of tools/arm_variants.py's VARIANTS")
+    ap.add_argument("--arms", help="comma-separated prefixes of the arms to time")
     args = ap.parse_args()
+    keep = tuple(args.arms.split(",")) if args.arms else ("",)
+    if args.variant:
+        args.src = variant_tree(args.src, args.variant)
 
     import numpy as np
     import torch
@@ -142,6 +178,8 @@ def main() -> int:
 
     results = {}
     for name, (kern, kind, edge_op, identity, lanes, pkind, sched) in ARMS.items():
+        if not name.startswith(keep):
+            continue
         rng = np.random.default_rng(7)
         pay = payload(pkind, lanes, rng)
         fn = K.gather_reduce_cores if kern == "gather" else S.scatter_reduce_cores
@@ -174,7 +212,7 @@ def main() -> int:
         "b_smoke_graph": (g.dst, np.ones(g.num_edges, bool), g.num_vertices),
     }
     softmax = {}
-    for label, (dst, valid, n) in layouts.items():
+    for label, (dst, valid, n) in layouts.items() if "softmax".startswith(keep) else ():
         dt = device_tiles(build_edge_tiles(dst, valid, n, vb=softmax_vb(n), eb=SOFTMAX_EB), dev)
         srng = np.random.default_rng(7)
         shape = (8,) + tuple(dt.dstb.shape)
@@ -188,8 +226,8 @@ def main() -> int:
         softmax[label] = dict(ms=event_ms(launch, args.reps), vb=dt.vb, shape=list(shape),
                               sha256=hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16])
         del scores, out, dt
-    line = dict(src=str(args.src), card=smi, scale=args.scale, config=CFG, reps=args.reps,
-                setup_seconds=setup_s, arms=results, softmax=softmax,
+    line = dict(src=str(args.src), variant=args.variant, card=smi, scale=args.scale, config=CFG,
+                reps=args.reps, setup_seconds=setup_s, arms=results, softmax=softmax,
                 note="ms: device time per launch by CUDA events around reps passes (the stream "
                      "held while the host enqueues them), averaged over the l phase streams; "
                      "softmax: one launch a pass; sha256: of every phase's output")
