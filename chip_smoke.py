@@ -317,6 +317,9 @@ FLASH_F32_TOL = dict(rtol=2e-5, atol=2e-5)
 FLASH_BF16_TOL = dict(rtol=2 ** -7, atol=1e-6)
 FLASH_REPS = 20  # back-to-back launches a CUDA-event reading
 HOLD_MAX_S = 0.2  # the longest the stream is held while the host enqueues a timed run
+# launches enqueued a hold: well inside the launch queue, which on the card
+# blocks the host somewhere below 1,280 queued launches (tools/kernel_arm_times.py)
+QUEUED_LAUNCHES = 256
 SPIN_CYCLES_PER_S = 2e9  # torch.cuda._sleep cycles a second: at most the SM clock
 # LM at published width in bf16, relative L2 error ||a - b|| / ||b||: the
 # kernel path against a plain-attention run (attention outputs that differ
@@ -537,11 +540,16 @@ def main() -> int:
         _, evs = profiled(lambda: x.add_(1.0))
         return sum(e.count for e in evs)
 
+    hold = {}  # whether the last device_ms run's holds outlasted its enqueues
+
     def device_ms(fn, reps, calls=1):
-        """Device time per call by CUDA events around ``reps`` back-to-back
-        runs of ``fn`` (each making ``calls`` calls). A spin kernel holds the
-        stream while the host enqueues them, so host launch gaps are not
-        counted, except after a sync inside ``fn`` (a plain version's)."""
+        """Device time per call by CUDA events around back-to-back runs of
+        ``fn`` (each making ``calls`` calls), ``reps`` in all. A spin kernel
+        holds the stream while the host enqueues them, so host launch gaps
+        are not counted, except after a sync inside ``fn`` (a plain
+        version's). The host enqueues at most QUEUED_LAUNCHES launches a
+        hold: past the launch queue's depth it would block until the device
+        drains it, and the device would then wait on the host's refill."""
         fn()
         sync()
         if dev.type != "cuda":
@@ -552,15 +560,25 @@ def main() -> int:
         t = time.perf_counter()
         fn()
         sync()
-        hold_s = min(HOLD_MAX_S, 1.5 * reps * (time.perf_counter() - t))
+        call_s = time.perf_counter() - t
+        per_hold = max(1, QUEUED_LAUNCHES // calls)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(hold_s * SPIN_CYCLES_PER_S))
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / (reps * calls)
+        total_ms, done, covered = 0.0, 0, True
+        while done < reps:
+            n = min(per_hold, reps - done)
+            hold_s = min(HOLD_MAX_S, 1.5 * n * call_s)
+            torch.cuda._sleep(int(hold_s * SPIN_CYCLES_PER_S))
+            start.record()
+            t = time.perf_counter()
+            for _ in range(n):
+                fn()
+            covered &= time.perf_counter() - t < hold_s
+            end.record()
+            torch.cuda.synchronize()
+            total_ms += start.elapsed_time(end)
+            done += n
+        hold["hold_covered"] = covered
+        return total_ms / (reps * calls)
 
     def kernel_ms(fn, reps, launches_per_call, name):
         """Per launch of the kernel named ``name`` over ``reps`` calls of
@@ -572,10 +590,11 @@ def main() -> int:
         if dev.type != "cuda":
             return dict(ms=ms, ms_from="host_clock", profiler_ms=None, events_seen=None,
                         events_expected=reps * launches_per_call)
+        covered = hold["hold_covered"]
         _, evs = profiled(lambda: [fn() for _ in range(reps)])
         hits = [e for e in evs if name in e.key]
         seen = sum(e.count for e in hits)
-        return dict(ms=ms, ms_from="cuda_events",
+        return dict(ms=ms, ms_from="cuda_events", hold_covered=covered,
                     profiler_ms=sum(event_us(e) for e in hits) / seen / 1e3 if seen else None,
                     events_seen=seen, events_expected=reps * launches_per_call)
 
@@ -1337,7 +1356,12 @@ def main() -> int:
         once); one add per real id and column at the float32 rate."""
         d = table.shape[1]
         row_bytes = d * 4
-        real = ids[ids >= 0].long().unique()
+        every = ids[ids >= 0].long()
+        # the 32-B sectors of every real id's row, a row read again counted
+        # again: what the loads move out of L2 where the table sits there
+        sector_bytes = int(((every * row_bytes + row_bytes - 1) // 32
+                            - every * row_bytes // 32 + 1).sum()) * 32
+        real = every.unique()
         first, last = real * row_bytes // 32, (real * row_bytes + row_bytes - 1) // 32
         span = torch.arange((row_bytes + 31) // 32 + 1, device=ids.device)
         sec = first[:, None] + span[None, :]
@@ -1347,6 +1371,7 @@ def main() -> int:
         ops_ms = int((ids >= 0).sum()) * d / F32_OPS_PER_S * 1e3
         return dict(bound_ms=max(bytes_ms, ops_ms), bound_bytes=nbytes,
                     distinct_rows=int(real.numel()), sectors=n_sec,
+                    row_sector_bytes_every_id=sector_bytes,
                     bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
     def library_call(table, ids, mode):
@@ -1397,11 +1422,14 @@ def main() -> int:
                       f"bag {shape} {mode}: shape {tuple(got.shape)}")
                 check(torch.allclose(got, want, **BAG_TOL),
                       f"bag {shape} {mode}: kernel disagrees with plain version (max err {err})")
+                check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                      f"bag {shape} {mode}: not the plain version's bits")
                 check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
                       f"bag {shape} {mode}: two launches gave different bits")
                 errs[mode] = max(errs[mode], err)
                 row = dict(bags=ids0.shape[0], length=ids0.shape[1], table_rows=table.shape[0],
                            d=table.shape[1], id_sets=len(id_sets), max_abs_err=err,
+                           plain_bits_equal=True,
                            library_max_abs_err=float((lib - want).abs().max()),
                            padding_share=float((ids0 < 0).float().mean()))
                 bounds = [bag_bound(table, ids) for ids in id_sets]
@@ -1448,7 +1476,9 @@ def main() -> int:
                   "id_sets; plain: L takes added in id order (serial); library: F.embedding_bag "
                   "(clamped ids, the validity mask as per_sample_weights), / max(count, 1) for "
                   "mean; bound_ms: ids + output + distinct 32-B row sectors at 3.35 TB/s, "
-                  "averaged over the id sets")
+                  "averaged over the id sets; row_sector_bytes_every_id: the row sectors of "
+                  "every real id, reckoned from the shape (what the loads move out of L2 "
+                  "where the table sits there); the kernel's bits are the plain version's")
         return rows, errs
 
     bag_rows, bag_errs = bag_kernel_phase()

@@ -30,7 +30,7 @@ from repro_torch.kernels.csr_gather_reduce.kernel import (
 )
 
 __all__ = ["gather_reduce_bucket", "gather_reduce_bucket_plain", "LAUNCHES",
-           "reset_launch_counts"]
+           "reset_launch_counts", "max_rows"]
 
 SOURCE = "gather_reduce.cu"
 _KIND_CODES = {"min": 0, "sum": 1}
@@ -42,6 +42,17 @@ LAUNCHES: dict = {}
 
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
+
+
+def max_rows() -> int:
+    """The most rows (vb) one block of the CUDA kernel holds on the current
+    device (its shared-memory accumulator); needs the card."""
+    from repro_torch.kernels.build import load_library
+
+    lib, _ = load_library(SOURCE)
+    fn = lib.gather_reduce_max_vb
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
 
 
 def gather_reduce_bucket_plain(payload, src, dstb, valid, weights=None, *, num_rows, vb,

@@ -11,12 +11,17 @@ regimes, odd tile widths) and on float min with -0.0, +0.0 and negatives
 against the key order, and the gather's one-lane kernel on hand-made runs;
 the embedding-bag kernel against its plain version (sum and mean, odd D, the
 DIN width D = 18, B = 1, all-padding bags, a cold-table shape at a small N,
-bit-stability) and DIN ``score`` / ``score_candidates`` on the card against
-the CPU run; the segment-softmax kernel against its plain version (heads,
+bit-stability, and bit for bit over B = 1 to 512, L = 1 to 100, D = 1 to
+130, tables and ids off their aligned bases) and DIN ``score`` /
+``score_candidates`` on the card against the CPU run; the segment-softmax kernel against its plain version (heads,
 vb up to 8192, empty rows, all-invalid tiles, bit-stability) and GAT's
 forward and backward on the card against the CPU run; the one-bucket
 gather kernel against its plain version (every arm, plain, packed, split
-and empty layouts, both sizes of source offset, T = 0); the flash-attention
+and empty layouts, both sizes of source offset, T = 0) and, bit for bit,
+against the emulation of its schedule in ``tests/_bucket_order.py`` on
+hand-made runs (a hub row over several warp ranges, one-slot rows, whole
+16-slot groups of padding, odd tile widths, unaligned operands), a split
+hub row's partition and vb at the row limit; the flash-attention
 kernel against its plain version and the float32 oracle (the reference's
 sweep cases, ragged S, D = 12 to 128, a GQA group of 5, S = 1; float32 and
 bf16), LM smoke configs' forward and grads on the card against the CPU run
@@ -31,6 +36,8 @@ machine that has only the port's dependencies:
 
 (``--noconftest``: the shared conftest imports the JAX reference.)
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -852,6 +859,8 @@ BAG_TOL = dict(rtol=1e-5, atol=1e-7)  # both sum in id order: in fact the same b
     ("one_bag", 10_000, 18, 1, 32, 0.3),
     ("cold_table_small_n", 200_003, 18, 256, 100, 0.0),  # scattered rows past L2 reuse
     ("long_bags", 5000, 18, 9, 1000, 0.5),
+    ("bulk", 10_000, 18, 20_000, 32, 0.3),  # past 4 waves of warps: half the loads in flight
+    ("bulk_wide", 1000, 64, 9000, 33, 0.3),  # the same with float4 rows and scalar ids
 ])
 def test_cuda_embedding_bag_matches_plain(case, n, d, b, length, pad, mode, cuda_device):
     rng = np.random.default_rng(len(case) * 31 + d)
@@ -896,6 +905,44 @@ def test_cuda_embedding_bag_edges(cuda_device):
                                **BAG_TOL)
     with pytest.raises(ValueError, match="contiguous"):
         embedding_bag(table.t().contiguous().t(), ids.clamp(max=17))
+
+
+BAG_SWEEP_B = [1, 2, 3, 31, 33, 512]
+BAG_SWEEP_L = [1, 31, 32, 33, 100]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 18, 64, 130])
+def test_cuda_embedding_bag_sweep(d, mode, cuda_device):
+    """Every B of BAG_SWEEP_B x L of BAG_SWEEP_L at width d, with a third of
+    the ids padding and one bag all padding: bit-equal to the plain version
+    (both add each column in id order from +0), on an aligned table, on a
+    table one float past an aligned base (one float a load) and with the ids
+    one int past an aligned base (scalar id loads)."""
+    rng = np.random.default_rng(d * 7 + len(mode))
+    n = 3000
+    base = torch.from_numpy(rng.standard_normal(n * d + 1).astype(np.float32)).to(cuda_device)
+    tables = {"aligned": base[:n * d].view(n, d), "offset": base[1:].view(n, d)}
+    for b in BAG_SWEEP_B:
+        for length in BAG_SWEEP_L:
+            ids = rng.integers(0, n, (b, length)).astype(np.int32)
+            ids[rng.random(ids.shape) < 0.3] = -1
+            ids[b // 2] = -1
+            id_base = torch.full((b * length + 1,), -1, dtype=torch.int32, device=cuda_device)
+            id_base[1:].copy_(torch.from_numpy(ids.reshape(-1)).to(cuda_device))
+            id_views = {"aligned": torch.from_numpy(ids).to(cuda_device),
+                        "offset": id_base[1:].view(b, length)}
+            for tname, iname in (("aligned", "aligned"), ("offset", "aligned"),
+                                 ("aligned", "offset")):
+                table, idv = tables[tname], id_views[iname]
+                got = embedding_bag(table, idv, mode=mode)
+                want = embedding_bag_reference(table, idv, mode)
+                torch.cuda.synchronize()
+                where = f"B={b} L={length} table {tname} ids {iname}"
+                assert got.shape == (b, d), where
+                assert torch.equal(got.view(torch.int32), want.view(torch.int32)), where
+                assert not got[b // 2].any(), where
 
 
 @pytest.mark.cuda
@@ -1139,6 +1186,168 @@ def test_cuda_gather_bucket_without_tiles_writes_the_identity(cuda_device):
     with pytest.raises(RuntimeError, match="launch failed"):  # vb rows past shared memory
         B.gather_reduce_bucket(torch.ones(16, device=cuda_device), tall, tall, tall.bool(),
                                num_rows=1 << 17, vb=1 << 17)
+
+
+def _bucket_arrays(rng, blocks, eb, g_size):
+    """(R, T, Eb) src, dstb, valid and weights from each row block's rows in
+    slot order (-1: a padding slot, which gets a random src and row 0)."""
+    t_tiles = max([1] + [-(-len(b) // eb) for b in blocks])
+    n = t_tiles * eb
+    src = rng.integers(0, g_size, (len(blocks), n)).astype(np.int32)
+    dstb = np.zeros((len(blocks), n), np.int32)
+    valid = np.zeros((len(blocks), n), bool)
+    for r, b in enumerate(blocks):
+        b = np.asarray(b, np.int64)
+        valid[r, :b.size] = b >= 0
+        dstb[r, :b.size] = np.maximum(b, 0)
+    weights = rng.random((len(blocks), n)).astype(np.float32)
+    shape = (len(blocks), t_tiles, eb)
+    return src.reshape(shape), dstb.reshape(shape), valid.reshape(shape), weights.reshape(shape)
+
+
+def _bucket_payload(dtype, kind, g_size, rng):
+    if dtype == np.uint32:
+        v = rng.integers(0, 1 << 32, g_size, dtype=np.uint64).astype(np.uint32)
+        v[rng.random(g_size) < 0.2] = INF_U32
+        return v
+    v = (rng.random(g_size) * (50 if kind == "min" else 1.0 / g_size)).astype(np.float32)
+    if kind == "min":
+        v[rng.random(g_size) < 0.2] = INF_F32
+    return v
+
+
+def _on_card(a, dev, offset):
+    """A tensor on the card holding ``a``; ``offset``: a view one element
+    past an aligned base (not 16-B aligned: the kernel's scalar loads)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if not offset:
+        return t.to(dev)
+    base = torch.zeros(t.numel() + 1, dtype=t.dtype, device=dev)
+    base[1:].copy_(t.reshape(-1).to(dev))
+    return base[1:].view(t.shape)
+
+
+def _bucket_check(variant, payload, arrays, vb, cuda_device, offset=False):
+    """The kernel on one bucket against the plain version (min bit-equal,
+    sum within SUM_TOL) and the emulation of its schedule (the same bits),
+    and the same bits on a second launch."""
+    from _bucket_order import emulate_bucket
+    from repro_torch.kernels.csr_gather_reduce import bucket as B
+
+    dtype, kind, edge_op, identity, weighted = BUCKET_VARIANTS[variant]
+    src, dstb, valid, weights = arrays
+    weights = weights if weighted else None
+    pay = u32.to_bits(payload) if dtype == np.uint32 else torch.from_numpy(payload)
+    kw = dict(num_rows=src.shape[0] * vb, vb=vb, kind=kind, edge_op=edge_op, identity=identity)
+    host = [torch.from_numpy(np.ascontiguousarray(a)) if a is not None else None
+            for a in (src, dstb, valid, weights)]
+    want = B.gather_reduce_bucket_plain(pay, *host, **kw)
+    dev = [_on_card(a, cuda_device, offset) if a is not None else None
+           for a in (src, dstb, valid, weights)]
+    key = K.variant_name(pay.dtype, kind, edge_op)
+    before = B.LAUNCHES.get(key, 0)
+    got = B.gather_reduce_bucket(pay.to(cuda_device), *dev, **kw)
+    again = B.gather_reduce_bucket(pay.to(cuda_device), *dev, **kw)
+    torch.cuda.synchronize()
+    assert B.LAUNCHES[key] == before + 2
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    emu_w = weights if weights is not None else (np.ones(src.shape, np.float32)
+                                                  if edge_op == "add" else None)
+    emu = emulate_bucket(payload, src, dstb, valid, emu_w, vb=vb, kind=kind, edge_op=edge_op,
+                         identity=identity)
+    got_np = got.cpu().numpy().view(np.uint32 if dtype == np.uint32 else np.float32)
+    assert got_np.tobytes() == emu.tobytes()  # the schedule's association, bit for bit
+    if kind == "sum":
+        torch.testing.assert_close(got.cpu(), want, **SUM_TOL)
+    else:
+        assert torch.equal(got.cpu(), want)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(BUCKET_VARIANTS))
+@pytest.mark.parametrize("layout", ["runs", "odd_width", "misaligned"])
+def test_cuda_gather_bucket_runs(layout, variant, cuda_device):
+    """Hand-made row blocks at vb = 1024: a 10,000-slot hub row over several
+    warp ranges and steps with its block's last run ending in the last slot,
+    a one-row block, one-slot rows, an empty block, dst-sorted random rows,
+    runs separated by whole 16-slot groups of padding (and a block of
+    padding groups alone), and rows that end at a block's first slots.
+    "odd_width": Eb = 30 (T * Eb % 4 != 0, scalar loads); "misaligned":
+    every operand one element past an aligned base (scalar loads)."""
+    vb, g_size = 1024, 1 << 17
+    eb = 30 if layout == "odd_width" else 128
+    rng = np.random.default_rng(len(layout) * 17 + len(variant))
+    light = np.sort(rng.integers(8, vb, 240)).tolist()
+    padded = []
+    for k in range(60):
+        padded += [k] * int(rng.integers(1, 40))
+        padded += [-1] * (16 - len(padded) % 16 + 16)  # whole 16-slot groups of padding
+    blocks = [[7] * 10000 + light, [3] * 5, list(range(1000)), [],
+              np.sort(rng.integers(0, vb, 6000)).tolist(), padded, [-1] * 512 + [9] * 3,
+              [0, 1, 1, 2] + [-1] * 60]
+    arrays = _bucket_arrays(rng, blocks, eb, g_size)
+    dtype, kind = BUCKET_VARIANTS[variant][:2]
+    _bucket_check(variant, _bucket_payload(dtype, kind, g_size, rng), arrays, vb,
+                  cuda_device, offset=layout == "misaligned")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(BUCKET_VARIANTS))
+def test_cuda_gather_bucket_on_split_hub_rows(variant, cuda_device):
+    """Every bucket of a partition that splits a 3,000-edge hub row, tiled as
+    chip_smoke.py's bucket phase tiles it: the raw kernel against the plain
+    version and the emulation, and ops.gather_reduce (the level-2 fold) on
+    the card against the CPU."""
+    from repro_torch.core.partition import _bucket_split_threshold
+    from repro_torch.kernels.csr_gather_reduce import ops as BO
+
+    make, cfg = GRAPHS["hub_split"]
+    pg = partition_2d(make(), PartitionConfig(**cfg))
+    c, vpc, vb, eb = pg.config, pg.vertices_per_core, pg.tile_vb, pg.tile_word.shape[4]
+    dtype, kind, edge_op, identity, weighted = BUCKET_VARIANTS[variant]
+    rng = np.random.default_rng(29)
+    split = 0
+    for i in range(pg.p):
+        for m in range(pg.l):
+            tl = BO.prepare_tiles(
+                pg.src_gidx[i, m], pg.dst_lidx[i, m], pg.valid[i, m], num_rows=vpc, vb=vb,
+                eb=eb, weights=pg.weights[i, m], balance_rows=c.degree_aware_tiles,
+                split_threshold=_bucket_split_threshold(c, int(pg.valid[i, m].sum()), vpc // vb))
+            split += tl.row_orig is not None
+            payload = _bucket_payload(dtype, kind, pg.gathered_size, rng)
+            _bucket_check(variant, payload, (tl.src, tl.dstb, tl.valid, tl.weights), vb,
+                          cuda_device)
+            pay = u32.to_bits(payload) if dtype == np.uint32 else torch.from_numpy(payload)
+            kw = dict(kind=kind, edge_op=edge_op, identity=identity)
+            tw = tl if weighted else dataclasses.replace(tl, weights=None)
+            want = BO.gather_reduce(pay, tw, **kw)
+            got = BO.gather_reduce(pay.to(cuda_device), BO.layout_to(tw, cuda_device), **kw)
+            if kind == "sum":
+                torch.testing.assert_close(got.cpu(), want, **SUM_TOL)
+            else:
+                assert torch.equal(got.cpu(), want)
+    assert split > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["min_u32", "sum_f32"])
+def test_cuda_gather_bucket_at_the_row_limit(variant, cuda_device):
+    """vb at the most rows one block holds (the shared-memory accumulator):
+    rows at both ends of the block reached; one row more is refused."""
+    from repro_torch.kernels.csr_gather_reduce import bucket as B
+
+    vb = B.max_rows()
+    assert vb >= 1024
+    rng = np.random.default_rng(41)
+    rows = [0] * 3 + np.sort(rng.integers(1, vb - 1, 3000)).tolist() + [vb - 1] * 5
+    arrays = _bucket_arrays(rng, [rows, [vb - 1]], 128, 4096)
+    dtype, kind = BUCKET_VARIANTS[variant][:2]
+    _bucket_check(variant, _bucket_payload(dtype, kind, 4096, rng), arrays, vb, cuda_device)
+    src = torch.zeros(1, 1, 8, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        B.gather_reduce_bucket(torch.ones(16, device=cuda_device), src, src, src.bool(),
+                               num_rows=vb + 1, vb=vb + 1)
 
 
 # -- the flash-attention kernel and the LM -----------------------------------

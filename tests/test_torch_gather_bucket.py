@@ -201,3 +201,71 @@ def test_wrapper_checks():
     with pytest.raises(ValueError, match="weights"):
         gather_reduce_bucket(pay, s, s, ok, torch.zeros(2, 3), num_rows=8, vb=4,
                              edge_op="add")
+
+
+# -- the CUDA kernel's schedule, emulated on the CPU -------------------------
+# tests/_bucket_order.py repeats gather_reduce.cu's schedule step by step
+# (warp ranges, slots a lane, runs folded in registers, the segmented
+# shuffle scan, the staged pieces joined in warp order). The card tests hold
+# the kernel's bits to it; here it is held to the plain version: min
+# bit-equal (the run bookkeeping loses and repeats nothing), sum within the
+# kernel's tolerance against the plain version (another association).
+
+from _bucket_order import KERNEL_SLOTS, KERNEL_THREADS, emulate_bucket  # noqa: E402
+
+from repro_torch.kernels.csr_gather_reduce.bucket import gather_reduce_bucket_plain  # noqa: E402
+
+KERNEL_SUM_TOL = dict(rtol=1e-5, atol=1e-9)  # tests/test_torch_cuda.py's SUM_TOL
+EMULATED_LAYOUTS = {  # name -> (v, e, vb, eb, balance_rows, split_threshold, weighted, hub)
+    "natural": (256, 6000, 64, 32, False, None, False, 1500),
+    "row_pos": (256, 6000, 64, 32, True, None, False, 0),
+    "split_weighted": (256, 6000, 64, 32, True, 32, True, 2000),
+    "multiway_split": (16, 1050, 8, 8, True, 8, False, 1000),
+}
+EMULATED_FORMS = {  # variant -> (payload dtype, kind, edge_op, identity)
+    "min_u32": (np.uint32, "min", "none", INF_U32),
+    "min_f32_add": (np.float32, "min", "add", INF_F32),
+    "sum_f32": (np.float32, "sum", "none", 0.0),
+}
+
+
+@pytest.mark.parametrize("threads,slots", [(KERNEL_THREADS, KERNEL_SLOTS), (64, 4), (64, 16)])
+@pytest.mark.parametrize("variant", list(EMULATED_FORMS))
+@pytest.mark.parametrize("layout", list(EMULATED_LAYOUTS))
+def test_kernel_schedule_emulation_matches_plain(layout, variant, threads, slots):
+    """The kernel's schedule at its own block shape and at two small ones
+    (2 warps: runs cross warp ranges and steps), on prepare_tiles' layouts:
+    natural rows with a hub row, row packing, weighted hub-row splits."""
+    v, e, vb, eb, balance, split, weighted, hub = EMULATED_LAYOUTS[layout]
+    dtype, kind, edge_op, identity = EMULATED_FORMS[variant]
+    rng = np.random.default_rng(v + e + len(variant))
+    dst = np.sort(np.concatenate([np.full(hub, 5), rng.integers(0, v, e - hub)]))
+    g = 512
+    w = rng.random(e).astype(np.float32) if weighted else None
+    t = prepare_tiles(rng.integers(0, g, e).astype(np.int32), dst.astype(np.int32),
+                      rng.random(e) < 0.9, num_rows=v, vb=vb, eb=eb, weights=w,
+                      balance_rows=balance, split_threshold=split)
+    if dtype == np.uint32:
+        payload = rng.integers(0, 1 << 32, g, dtype=np.uint64).astype(np.uint32)
+        payload[rng.random(g) < 0.2] = 0xFFFFFFFF
+    else:
+        payload = (rng.random(g) * (50 if kind == "min" else 1.0 / g)).astype(np.float32)
+        if kind == "min":
+            payload[rng.random(g) < 0.2] = INF_F32
+    weights = t.weights if edge_op == "add" else None
+    if edge_op == "add" and weights is None:
+        weights = np.ones(t.src.shape, np.float32)
+    got = emulate_bucket(payload, t.src, t.dstb, t.valid, weights, vb=vb, kind=kind,
+                         edge_op=edge_op, identity=identity, threads=threads, slots=slots)
+    r_blocks = t.src.shape[0]
+    want = gather_reduce_bucket_plain(
+        _payload(payload), torch.from_numpy(t.src), torch.from_numpy(t.dstb),
+        torch.from_numpy(t.valid), None if weights is None else torch.from_numpy(weights),
+        num_rows=r_blocks * vb, vb=vb, kind=kind, edge_op=edge_op, identity=identity)
+    want = _back(want, payload.dtype)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if kind == "min":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, **KERNEL_SUM_TOL)
+        assert (got != 0).sum() > r_blocks  # rows were reached

@@ -257,6 +257,62 @@ def test_gat_layout_keeps_each_row_in_one_run(n, e, vb, hub):
     assert _rows_in_one_run(t.dstb, t.valid)
 
 
+# The one-bucket kernel (csrc/gather_reduce.cu) leans on the same property
+# in the uncompressed (R, T, Eb) arrays prepare_tiles builds for one bucket.
+BUCKET_SWEEP = {  # name -> (v, e, vb, eb, balance_rows, split_threshold, weighted, hub edges)
+    "natural": (64, 300, 8, 16, False, None, False, 0),
+    "natural_hub": (256, 4000, 64, 32, False, None, False, 1500),
+    "row_pos": (128, 1000, 16, 32, True, None, False, 0),
+    "row_pos_weighted": (128, 1000, 16, 32, True, None, True, 300),
+    "split": (32, 800, 8, 8, True, 64, False, 600),
+    "multiway_split": (16, 1050, 8, 8, True, 8, False, 1000),
+    "split_weighted": (256, 6000, 64, 32, True, 32, True, 2000),
+    "one_block": (64, 64, 64, 8, False, None, False, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(BUCKET_SWEEP))
+def test_bucket_layouts_keep_each_row_in_one_run(case):
+    """prepare_tiles over a dst-sorted bucket: natural rows, row packing
+    (row_pos), hub-row splits (row_orig), weighted buckets; padding slots
+    (valid False) dropped."""
+    v, e, vb, eb, balance, split, weighted, hub = BUCKET_SWEEP[case]
+    rng = np.random.default_rng(v + e)
+    dst = np.sort(np.concatenate([np.full(hub, 3), rng.integers(0, v, e - hub)]))
+    w = rng.random(e).astype(np.float32) if weighted else None
+    t = t_ops.prepare_tiles(rng.integers(0, 4 * v, e).astype(np.int32), dst.astype(np.int32),
+                            rng.random(e) < 0.9, num_rows=v, vb=vb, eb=eb, weights=w,
+                            balance_rows=balance, split_threshold=split)
+    assert (t.row_orig is not None) == (split is not None and hub > split)
+    assert (t.row_pos is not None) == (balance and split is None and v > vb)
+    r_blocks = t.src.shape[0]
+    assert _rows_in_one_run(t.dstb.reshape(r_blocks, -1), t.valid.reshape(r_blocks, -1))
+
+
+@pytest.mark.parametrize("name,cfg", [CASES[0], CASES[6], CASES[11], CASES[14]],
+                         ids=["rmat", "weighted-bits32", "split", "split-weighted"])
+def test_partition_buckets_keep_each_row_in_one_run(name, cfg):
+    """Every (core, phase) bucket of a partition, tiled as chip_smoke.py's
+    bucket phase tiles it (the partition's row packing and split rule)."""
+    from repro_torch.core.partition import _bucket_split_threshold
+
+    pg = t_partition(_port_graph(_graph(name)), TConfig(**cfg))
+    c = pg.config
+    vpc, vb, eb = pg.vertices_per_core, pg.tile_vb, pg.tile_word.shape[4]
+    split = 0
+    for i in range(pg.p):
+        for m in range(pg.l):
+            t = t_ops.prepare_tiles(
+                pg.src_gidx[i, m], pg.dst_lidx[i, m], pg.valid[i, m], num_rows=vpc, vb=vb,
+                eb=eb, weights=pg.weights[i, m] if pg.weights is not None else None,
+                balance_rows=c.degree_aware_tiles,
+                split_threshold=_bucket_split_threshold(c, int(pg.valid[i, m].sum()), vpc // vb))
+            split += t.row_orig is not None
+            r_blocks = t.src.shape[0]
+            assert _rows_in_one_run(t.dstb.reshape(r_blocks, -1), t.valid.reshape(r_blocks, -1))
+    assert split > 0 or name != "hub"
+
+
 def _push_blocks_sorted(pg):
     """True iff in every (core, phase, source block) of the push stream the
     valid slots come first and are sorted by (src, dst): the order the

@@ -14,9 +14,13 @@ every real tile, sum_f32 on the static counts; scatter min_u32 and
 min_f32_add) and the lane arms of the serving width (gather 'or' on one
 and two packed words, min_f32_add and sum_f32 at L=16, min_f32_add at
 L=64; scatter 'or' on one and two packed words, min_f32_add at L=16 and
-L=64). Then the segment-softmax kernel at chip_smoke's two GAT layouts,
-H = 8 and seeded scores: (a) layer 1 at the Cora shape (16,384 edge
-slots), (b) the smoke graph as one layout.
+L=64). Then the one-bucket gather kernel's three forms (min_u32,
+min_f32_add with the edge weights, sum_f32) over the partition's 64 (core,
+phase) buckets, each tiled as ``chip_smoke.py``'s ``bucket`` phase tiles it
+(``prepare_tiles``), one launch a bucket, with a SHA-256 of the 64 outputs
+and whether a second pass gave the same bits. Then the segment-softmax
+kernel at chip_smoke's two GAT layouts, H = 8 and seeded scores: (a) layer
+1 at the Cora shape (16,384 edge slots), (b) the smoke graph as one layout.
 
 ``--src`` imports ``repro_torch`` from another checkout's ``src`` (default:
 this one's), so that two versions of the kernels are timed and their outputs
@@ -27,9 +31,9 @@ times a copy of those sources with the text edits of ``VARIANTS[NAME]`` in
 ``tools/arm_variants.py`` applied (built under ``build/arm_variants/``): a
 design question answered in the same call as the kernels as they are.
 ``--arms`` keeps the arms whose names start with one of the comma-separated
-prefixes (``scatter``, ``gather[sum``, ``softmax``; default: every arm and
-the softmax). One JSON line goes to stdout (and to ``--out``). Needs a CUDA
-device.
+prefixes (``scatter``, ``gather[sum``, ``bucket``, ``softmax``; default:
+every arm, the bucket forms and the softmax). One JSON line goes to stdout
+(and to ``--out``). Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 CFG = dict(p=4, l=16, tile_vb=1024, tile_eb=128, build_push=True, push_block=65536)
 INF_F32 = 3.4028234663852886e38
+QUEUED_LAUNCHES = 256  # launches enqueued a hold, well inside the launch queue
 # arm -> (kernel, kind, edge_op, identity, lanes (0: laneless), payload kind, schedule)
 ARMS = {
     "gather[min_u32]": ("gather", "min", "none", float(0xFFFFFFFF), 0, "labels", "fetch"),
@@ -60,6 +65,12 @@ ARMS = {
     "scatter[or_w2]": ("scatter", "or", "none", 0.0, 2, "words", "fetch"),
     "scatter[min_f32_add_l16]": ("scatter", "min", "add", INF_F32, 16, "dist", "fetch"),
     "scatter[min_f32_add_l64]": ("scatter", "min", "add", INF_F32, 64, "dist", "fetch"),
+}
+# one-bucket kernel form -> (kind, edge_op, identity, payload kind)
+BUCKET_ARMS = {
+    "bucket[min_u32]": ("min", "none", float(0xFFFFFFFF), "labels"),
+    "bucket[min_f32_add]": ("min", "add", INF_F32, "dist"),
+    "bucket[sum_f32]": ("sum", "none", 0.0, "rank"),
 }
 
 
@@ -158,23 +169,40 @@ def main() -> int:
             v = (rng.random(shape) / n).astype(np.float32)
         return torch.from_numpy(v).to(dev)
 
-    def event_ms(fn, reps):
-        """Device ms per call of ``fn`` by CUDA events around ``reps`` calls,
-        a spin kernel holding the stream while the host enqueues them."""
+    hold = {}  # whether the last event_ms call's holds outlasted its enqueues
+
+    def event_ms(fn, reps, launches=1):
+        """Device ms per call of ``fn`` (``launches`` kernel launches) by
+        CUDA events around ``reps`` calls, a spin kernel holding the stream
+        while the host enqueues them, at most QUEUED_LAUNCHES launches a
+        hold: past the launch queue's depth the host blocks until the device
+        drains it, and the device then waits on the host's refill (a pass of
+        64 launches timed 20 times a hold measured an empty kernel at 8-13
+        us a launch)."""
         fn()
         torch.cuda.synchronize()
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        hold_s = min(0.2, 1.5 * reps * (time.perf_counter() - t))
+        call_s = time.perf_counter() - t
+        per_hold = max(1, QUEUED_LAUNCHES // launches)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(hold_s * 2e9))
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
+        total_ms, done, covered = 0.0, 0, True
+        while done < reps:
+            n = min(per_hold, reps - done)
+            hold_s = min(0.2, 1.5 * n * call_s)
+            torch.cuda._sleep(int(hold_s * 2e9))
+            start.record()
+            t = time.perf_counter()
+            for _ in range(n):
+                fn()
+            covered &= time.perf_counter() - t < hold_s
+            end.record()
+            torch.cuda.synchronize()
+            total_ms += start.elapsed_time(end)
+            done += n
+        hold["hold_covered"] = covered
+        return total_ms / reps
 
     results = {}
     for name, (kern, kind, edge_op, identity, lanes, pkind, sched) in ARMS.items():
@@ -200,9 +228,51 @@ def main() -> int:
         for o in outs:
             digest.update(o.cpu().numpy().tobytes())
         del outs
-        results[name] = dict(ms=event_ms(launch_all, args.reps) / pg.l,
-                             sha256=digest.hexdigest()[:16])
+        results[name] = dict(ms=event_ms(launch_all, args.reps, pg.l) / pg.l,
+                             sha256=digest.hexdigest()[:16], **hold)
         del calls
+
+    # the one-bucket kernel over every (core, phase) bucket, tiled as the
+    # smoke's bucket phase tiles it
+    bucket_setup_s = None
+    if any(name.startswith(keep) for name in BUCKET_ARMS):
+        from repro_torch.core.partition import _bucket_split_threshold
+        from repro_torch.kernels.csr_gather_reduce import bucket as B
+        from repro_torch.kernels.csr_gather_reduce import ops as BO
+
+        t = time.perf_counter()
+        cfg = PartitionConfig(**CFG)
+        vpc, vb, eb = pg.vertices_per_core, pg.tile_vb, pg.tile_word.shape[4]
+        layouts = [BO.layout_to(BO.prepare_tiles(
+            pg.src_gidx[i, m], pg.dst_lidx[i, m], pg.valid[i, m], num_rows=vpc, vb=vb, eb=eb,
+            weights=pg.weights[i, m] if pg.weights is not None else None,
+            balance_rows=cfg.degree_aware_tiles,
+            split_threshold=_bucket_split_threshold(cfg, int(pg.valid[i, m].sum()), vpc // vb)),
+            dev) for i in range(pg.p) for m in range(pg.l)]
+        bucket_setup_s = time.perf_counter() - t
+        for name, (kind, edge_op, identity, pkind) in BUCKET_ARMS.items():
+            if not name.startswith(keep):
+                continue
+            rng = np.random.default_rng(7)
+            pays = [payload(pkind, 0, rng) for _ in range(pg.l)]
+            calls = [((pays[k % pg.l], tl.src, tl.dstb, tl.valid,
+                       tl.weights if edge_op == "add" else None),
+                      dict(num_rows=tl.src.shape[0] * vb, vb=vb, kind=kind, edge_op=edge_op,
+                           identity=identity)) for k, tl in enumerate(layouts)]
+
+            def launch_all(calls=calls):
+                return [B.gather_reduce_bucket(*a, **kw) for a, kw in calls]
+
+            outs, again = launch_all(), launch_all()
+            torch.cuda.synchronize()
+            digest = hashlib.sha256()
+            for o in outs:
+                digest.update(o.cpu().numpy().tobytes())
+            same = all(torch.equal(a, b) for a, b in zip(outs, again))
+            del outs, again
+            results[name] = dict(ms=event_ms(launch_all, args.reps, len(calls)) / len(calls),
+                                 sha256=digest.hexdigest()[:16], same_bits_twice=same, **hold)
+        del layouts
 
     # the segment softmax at chip_smoke's two GAT layouts, H = 8
     gc = G.symmetrize(G.rmat(12, 2, seed=0))
@@ -223,14 +293,18 @@ def main() -> int:
 
         out = launch()
         torch.cuda.synchronize()
-        softmax[label] = dict(ms=event_ms(launch, args.reps), vb=dt.vb, shape=list(shape),
+        softmax[label] = dict(ms=event_ms(launch, args.reps), **hold, vb=dt.vb,
+                              shape=list(shape),
                               sha256=hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16])
         del scores, out, dt
     line = dict(src=str(args.src), variant=args.variant, card=smi, scale=args.scale, config=CFG,
-                reps=args.reps, setup_seconds=setup_s, arms=results, softmax=softmax,
+                reps=args.reps, setup_seconds=setup_s, bucket_setup_seconds=bucket_setup_s,
+                arms=results, softmax=softmax,
                 note="ms: device time per launch by CUDA events around reps passes (the stream "
-                     "held while the host enqueues them), averaged over the l phase streams; "
-                     "softmax: one launch a pass; sha256: of every phase's output")
+                     "held while the host enqueues them, at most 256 launches a hold), "
+                     "averaged over the l phase streams (bucket: over the p * l buckets); "
+                     "softmax: one launch a pass; sha256: of every phase's output; "
+                     "hold_covered: every hold outlasted its enqueue")
     print(json.dumps(line), flush=True)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
