@@ -112,7 +112,15 @@ parameters drawn on the card from a seeded generator:
              library call (F.embedding_bag with the validity mask as
              per_sample_weights, / max(count, 1) for mean); the byte bound
              at 3.35 TB/s: ids + output + the distinct 32-B sectors of the
-             rows the real ids touch
+             rows the real ids touch. Since the DIN training slice also (e)
+             DIN's profile bag at train_batch (B = 65,536, L = 32), and the
+             backward kernel at (e) and (a), sum and mean: bit for bit the
+             plain version's run on the CPU, the same bits on a second
+             launch; ms of the whole backward (stable sort, run starts, the
+             kernel) and of the kernel alone, the plain version on the card
+             (index_add_), the library call (the CUDA backward of one
+             F.embedding_bag on the valid ids), the bound (grad_out + ids +
+             the gradient + 24 B a slot of sort traffic at 3.35 TB/s)
   din        pointwise score on recsys_batch(batch=512) and retrieval
              score_candidates on retrieval_batch(n_candidates=4096) in
              chunks of 512, as the reference CLI runs them (the item rows
@@ -122,6 +130,17 @@ parameters drawn on the card from a seeded generator:
              kernel's launches (counted) equal the calls; the scores within
              rtol=1e-5, atol=1e-6 of a run whose bag is the plain version;
              three profiled calls of each
+  din_train  DIN training at the published width on train_batch (B =
+             65,536), the item rows by a take: the first step's loss and
+             every gradient within DIN_TOL of the same step with the bag's
+             forward and backward through both plain versions on the card,
+             cate_table's gradient unlike the one with the bag's output
+             detached; 10 AdamW steps (lr 1e-3, the trainer CLI's schedule)
+             on recsys_batch(0, i): exactly one forward and one backward bag
+             launch a step (counted), step 0's batch re-scored after them
+             below its first loss; ms a step (median, min, max), steps/s,
+             peak device memory, one profiled step's busy and idle share and
+             the backward kernel's share
   serve      a GraphService over the built partition at K = 16 with a
              RecommendScorer at the published DIN config (pool 64, top 8,
              the crossbar lookup at one shard): 128 queries of
@@ -153,6 +172,23 @@ The one-bucket gather kernel (after lanes_engine, on the same partition):
              again. Device time per launch over the 64 buckets, plain ms, the
              byte bound, and the stream's bytes per edge beside the fused
              kernel's packed 4 B
+
+The out-of-core build (after serve_equivalence, its partitions freed):
+
+  stream_build  (i) partition_2d_streaming(coo_edge_chunks(g)) of the smoke
+             graph with CFG: every IDENTITY_FIELDS array's SHA-256 and the
+             scalars equal to partition_2d's; build seconds and the peak
+             VmRSS rise beside partition_2d's. (ii) a symmetric RMATStream at
+             --stream-scale (21: p * sub_size = 131,072, past the 16-bit
+             source regime), edge factor 16, seed 0, into np.memmap files
+             under build/stream_build with CFG and the push_block of
+             STREAM_PUSH_BLOCKS whose stacked push words and coverage
+             stream_push_footprint counts least: src_bits 32, E, build
+             seconds, peak RSS, device bytes per edge; BFS from 0 on the card
+             with the default options (kernel launches counted, = iterations
+             x l), the static schedule and the oracle backend (the flat
+             bucket arrays, not the packed words), labels and iterations
+             bit-equal, MTEPS of each
 
 GAT and the GNN trainer (after serve, whose partitions are freed first),
 gat-cora at its published width (get("gat-cora").model: 2 layers, 8
@@ -229,7 +265,8 @@ floors.
 
 Then a ``{"kernels": [...]}`` line (the laneless variants' launches from
 main_path, the lane variants' from lanes_engine, the embedding bag's from
-din and serve, timed at shape (a); the bucket kernel's from bucket; the
+din, din_train and serve, timed at shape (a); the bag backward's from
+din_train, timed at shape (e); the bucket kernel's from bucket; the
 softmax kernel's from gnn's timed train steps and forwards, timed at shape
 (a); the flash kernel's from lm's counted prefills and train steps, timed
 at shape (a)) and, last, ``{"ok": true, "device": ...}``.
@@ -247,10 +284,15 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
+import hashlib
 import itertools
 import json
+import os
+import shutil
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -298,6 +340,9 @@ SERVE_QUERIES = 128
 SERVE_INSERTS = 512
 EMBAG = dict(source="src/repro_torch/csrc/embedding_bag.cu",
              replaces="src/repro/kernels/embedding_bag/kernel.py:75")
+EMBAG_BWD = dict(source="src/repro_torch/csrc/embedding_bag_backward.cu",
+                 replaces="none: no TPU counterpart (the reference differentiates its XLA bag, "
+                          "src/repro/models/recsys/din.py:84)")
 BUCKET = dict(source="src/repro_torch/csrc/gather_reduce.cu",
               replaces="src/repro/kernels/csr_gather_reduce/kernel.py:159")
 SOFTMAX = dict(source="src/repro_torch/csrc/segment_softmax.cu",
@@ -337,6 +382,19 @@ LM_OTHER = (("granite-moe-1b-a400m", None), ("llama3-8b", None), ("qwen3-14b", N
             ("qwen3-moe-30b-a3b", 12))  # (arch, layers cut to)
 BAG_ROUNDS = 2  # bag timing: (sum, mean, mean, sum) this many times per shape
 COLD_SETS = 8  # id sets of shape (c) in rotation: ~160 MB of row sectors, past the 50 MB L2
+DIN_TRAIN_STEPS = 10
+# the sort's traffic a bag-backward id slot: the stable sort writes a key (4 B)
+# and a position (8 B), read back once by the run starts and the kernel
+SORT_BYTES_PER_ID = 24
+# the partition fields whose bytes define streaming == in-memory
+IDENTITY_FIELDS = (
+    "src_gidx", "dst_lidx", "valid", "weights", "bucket_sizes",
+    "tile_word", "tile_word_hi", "tile_counts", "tile_weights",
+    "tile_coverage", "tile_row_pos", "tile_row_orig", "tile_split_map",
+    "push_word", "push_word_hi", "push_counts", "push_weights",
+    "push_coverage",
+)
+STREAM_PUSH_BLOCKS = (65536, 131072)  # push_block candidates of the scale-21 stream
 
 
 def emit(phase: str, t0: float, **kw) -> None:
@@ -347,6 +405,58 @@ class SmokeFailure(RuntimeError):
     pass
 
 
+class RssPeak:
+    """This process's resident set (VmRSS of /proc/self/status) while a block
+    runs, sampled every 5 ms: its value at entry, its peak and the peak's
+    rise. A memmap build's written file pages count in it."""
+
+    def __enter__(self):
+        self.base = self.peak = self._now()
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._watch, daemon=True)
+        self.thread.start()
+        return self
+
+    @staticmethod
+    def _now() -> int:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        raise SmokeFailure("/proc/self/status has no VmRSS")
+
+    def _watch(self):
+        while not self.stop.wait(0.005):
+            self.peak = max(self.peak, self._now())
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+        self.peak = max(self.peak, self._now())
+
+    def report(self) -> dict:
+        return dict(rss_before_bytes=self.base, rss_peak_bytes=self.peak,
+                    rss_peak_delta_bytes=self.peak - self.base)
+
+
+def field_digests(pg) -> dict:
+    """SHA-256 of each IDENTITY_FIELDS array's dtype, shape and bytes (None
+    where absent), the fields hashed in parallel (hashlib releases the GIL)."""
+    import numpy as np
+
+    def digest(name):
+        a = getattr(pg, name)
+        if a is None:
+            return None
+        a = np.ascontiguousarray(a)
+        h = hashlib.sha256(f"{a.dtype.str}{a.shape}".encode())
+        h.update(memoryview(a.reshape(-1).view(np.uint8)))
+        return h.hexdigest()
+
+    with ThreadPoolExecutor(8) as pool:
+        return dict(zip(IDENTITY_FIELDS, pool.map(digest, IDENTITY_FIELDS)))
+
+
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
@@ -355,6 +465,9 @@ def check(cond: bool, msg: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scale", type=int, default=20)
+    ap.add_argument("--stream-scale", type=int, default=21,
+                    help="RMAT scale of stream_build's out-of-core build (21: the first past "
+                         "the 16-bit source regime at the smoke's config)")
     ap.add_argument("--cpu-rehearsal", action="store_true")
     args = ap.parse_args()
 
@@ -382,7 +495,9 @@ def main() -> int:
         EngineOptions, _edge_constants, channel_phase_reduce, channel_phase_reduce_oracle,
         make_iteration, phase_consts_at, prepare_labels, run, run_frontier_trace,
     )
-    from repro_torch.core.partition import PartitionConfig, partition_2d
+    from repro_torch.core.partition import (
+        PartitionConfig, coo_edge_chunks, partition_2d, partition_2d_streaming,
+    )
     from repro_torch.core.problems import (
         bfs, bfs_multi, pagerank, ppr_multi, sssp, sssp_multi, wcc,
     )
@@ -394,7 +509,9 @@ def main() -> int:
     from repro_torch.kernels.build import build_library, cuda_tool, load_library
     from repro_torch.kernels.csr_gather_reduce import kernel as K
     from repro_torch.kernels.csr_gather_reduce import scatter as S
-    from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_reference
+    from repro_torch.kernels.embedding_bag import (
+        embedding_bag, embedding_bag_backward_reference, embedding_bag_reference,
+    )
     from repro_torch.kernels.csr_gather_reduce import bucket as B
     from repro_torch.kernels.csr_gather_reduce import ops as BO
     from repro_torch.kernels.embedding_bag import kernel as EB
@@ -423,15 +540,16 @@ def main() -> int:
     # -- build: one nvcc per source, all started together ----------------------
     t0 = time.perf_counter()
     if not rehearsal:
-        sources = (K.SOURCE, S.SOURCE, EB.SOURCE, B.SOURCE, SK.SOURCE, FK.SOURCE)
+        sources = (K.SOURCE, S.SOURCE, EB.SOURCE, EB.BACKWARD_SOURCE, B.SOURCE, SK.SOURCE,
+                   FK.SOURCE)
         with ThreadPoolExecutor(len(sources)) as pool:
             logs = dict(zip(sources, pool.map(lambda s: build_library(s)[1], sources)))
         for s in sources:
             load_library(s)
         ptxas = {s: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
                  for s, log in logs.items()}
-        emit("build", t0, sources=[m["source"] for m in (GATHER, SCATTER, EMBAG, BUCKET, SOFTMAX,
-                                                         FLASH)],
+        emit("build", t0, sources=[m["source"] for m in (GATHER, SCATTER, EMBAG, EMBAG_BWD, BUCKET,
+                                                         SOFTMAX, FLASH)],
              ptxas=ptxas)
 
     # -- graph ----------------------------------------------------------------
@@ -444,9 +562,18 @@ def main() -> int:
 
     # -- partition ------------------------------------------------------------
     t0 = time.perf_counter()
-    pg = partition_2d(g, PartitionConfig(**CFG))
+    with RssPeak() as partition_rss:
+        pg = partition_2d(g, PartitionConfig(**CFG))
+    partition_s = time.perf_counter() - t0
     rep = pg.memory_report()
-    emit("partition", t0, config=CFG, src_bits=pg.src_bits, sub_size=pg.sub_size,
+    t = time.perf_counter()
+    pg_digests = field_digests(pg)  # stream_build's identity check, after pg is retired
+    pg_scalars = {k: getattr(pg, k) for k in ("p", "l", "sub_size", "num_vertices", "num_edges",
+                                              "src_bits", "split_rows", "push_block",
+                                              "push_src_bits", "t_max_unsplit")}
+    digest_s = time.perf_counter() - t
+    emit("partition", t0, config=CFG, build_seconds=partition_s, digest_seconds=digest_s,
+         rss=partition_rss.report(), src_bits=pg.src_bits, sub_size=pg.sub_size,
          tile_word_shape=list(pg.tile_word.shape), split_rows=pg.split_rows,
          row_map="split" if pg.tile_split_map is not None else "row_pos",
          skipped_tile_fraction=pg.skipped_tile_fraction,
@@ -542,17 +669,28 @@ def main() -> int:
 
     hold = {}  # whether the last device_ms run's holds outlasted its enqueues
 
-    def device_ms(fn, reps, calls=1):
-        """Device time per call by CUDA events around back-to-back runs of
-        ``fn`` (each making ``calls`` calls), ``reps`` in all. A spin kernel
-        holds the stream while the host enqueues them, so host launch gaps
-        are not counted, except after a sync inside ``fn`` (a plain
-        version's). The host enqueues at most QUEUED_LAUNCHES launches a
-        hold: past the launch queue's depth it would block until the device
-        drains it, and the device would then wait on the host's refill."""
+    def device_launches(fn, tries=3):
+        """Device launches (kernels, copies, fills) one run of ``fn`` makes:
+        the most the profiler sees over ``tries`` runs, as it drops events."""
         fn()
         sync()
         if dev.type != "cuda":
+            return None
+        return max(sum(e.count for e in profiled(fn)[1]) for _ in range(tries))
+
+    def device_ms(fn, reps, calls=1, launches=None):
+        """Device time per call by CUDA events around back-to-back runs of
+        ``fn`` (each making ``calls`` calls and ``launches`` device launches,
+        ``calls`` where not given), ``reps`` in all. A spin kernel holds the
+        stream while the host enqueues them, so host launch gaps are not
+        counted, except after a sync inside ``fn`` (a plain version's). The
+        host enqueues at most QUEUED_LAUNCHES launches a hold: past the
+        launch queue's depth it would block until the device drains it, and
+        the device would then wait on the host's refill."""
+        fn()
+        sync()
+        if dev.type != "cuda":
+            hold["hold_covered"] = None
             t = time.perf_counter()
             for _ in range(reps):
                 fn()
@@ -561,7 +699,7 @@ def main() -> int:
         fn()
         sync()
         call_s = time.perf_counter() - t
-        per_hold = max(1, QUEUED_LAUNCHES // calls)
+        per_hold = max(1, QUEUED_LAUNCHES // (launches or calls))
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         total_ms, done, covered = 0.0, 0, True
         while done < reps:
@@ -580,13 +718,14 @@ def main() -> int:
         hold["hold_covered"] = covered
         return total_ms / (reps * calls)
 
-    def kernel_ms(fn, reps, launches_per_call, name):
+    def kernel_ms(fn, reps, launches_per_call, name, launches=None):
         """Per launch of the kernel named ``name`` over ``reps`` calls of
-        ``fn`` (each making ``launches_per_call`` launches): ``ms`` by CUDA
-        events (``device_ms``, the whole launch), and beside it the mean of
-        the profiler's events of that kernel (one a launch) with the count it
-        saw of those expected."""
-        ms = device_ms(fn, reps, launches_per_call)
+        ``fn`` (each making ``launches_per_call`` launches of it, and
+        ``launches`` device launches in all where that is more): ``ms`` by
+        CUDA events (``device_ms``, the whole launch), and beside it the mean
+        of the profiler's events of that kernel (one a launch) with the count
+        it saw of those expected."""
+        ms = device_ms(fn, reps, launches_per_call, launches)
         if dev.type != "cuda":
             return dict(ms=ms, ms_from="host_clock", profiler_ms=None, events_seen=None,
                         events_expected=reps * launches_per_call)
@@ -1344,6 +1483,7 @@ def main() -> int:
 
     # -- DIN at the published width: parameters drawn on the card from the seed
     din_cfg = get_arch("din").smoke() if rehearsal else get_arch("din").model
+    din_train_batch = 1024 if rehearsal else get_arch("din").shape("train_batch").dims["batch"]
     t0 = time.perf_counter()
     din_params = din.init(din_cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
     sync()
@@ -1407,6 +1547,8 @@ def main() -> int:
                              [recsys(4096, 2 + k, "hist_items") for k in range(COLD_SETS)]),
             "d_one_bag": (din_params["cate_table"],
                           [torch.from_numpy(one["profile_bag"]).to(dev)]),
+            "e_train_batch": (din_params["cate_table"],
+                              [recsys(din_train_batch, 10, "profile_bag")]),
         }
         rows, errs = {}, {"sum": 0.0, "mean": 0.0}
         for shape, (table, id_sets) in shapes.items():
@@ -1466,6 +1608,9 @@ def main() -> int:
             z = embedding_bag(din_params["cate_table"], pad, mode)
             sync()
             check(not bool(z.any()), f"bag all-padding {mode}: not zero")
+        bwd_rows, bwd_errs = bag_backward_rows({k: shapes[k][1][0] for k in ("e_train_batch",
+                                                                             "a_serve_p99")},
+                                               din_params["cate_table"], reps)
         emit("bag_kernel", t0, per_launch=rows, max_abs_err=errs, tolerance=BAG_TOL,
              all_padding_bag_zero=True,
              note="ms, plain_ms, library_ms: device time per launch by CUDA events around "
@@ -1478,10 +1623,118 @@ def main() -> int:
                   "mean; bound_ms: ids + output + distinct 32-B row sectors at 3.35 TB/s, "
                   "averaged over the id sets; row_sector_bytes_every_id: the row sectors of "
                   "every real id, reckoned from the shape (what the loads move out of L2 "
-                  "where the table sits there); the kernel's bits are the plain version's")
+                  "where the table sits there); the kernel's bits are the plain version's",
+             backward_per_launch=bwd_rows, backward_max_abs_err=bwd_errs,
+             backward_note="the table's gradient at (e) and (a) from a seeded grad_out: ms: the "
+                           "whole backward (stable sort of the ids, run starts, counts for mean, "
+                           "the kernel) by CUDA events, the stream held; kernel_ms: the kernel "
+                           "alone on precomputed runs; plain_ms: the plain version on the card "
+                           "(index_add_, atomics); library_ms: the CUDA backward of one "
+                           "F.embedding_bag on the valid ids with bag offsets (torch.autograd."
+                           "grad, the forward done once); launches_per_call: the device "
+                           "launches of one call of each (the profiler's count), which sizes "
+                           "each hold to at most QUEUED_LAUNCHES launches; *hold_covered: "
+                           "whether each hold outlasted its enqueues; bound_ms: the "
+                           "function's, grad_out + ids + the gradient at 3.35 TB/s, or one "
+                           "add a real id and column (and a division for mean) at the float32 "
+                           "rate; bound_ms_with_sort: the same with SORT_BYTES_PER_ID (24 B) a "
+                           "slot of the design's sort traffic (sort_bytes) added, a "
+                           "diagnostic; plain_cpu_bits_equal: the kernel's "
+                           "output bit for bit the plain version's run on the CPU on the same "
+                           "inputs; plain_card_bits_equal: the same against the plain version "
+                           "on the card, whose order varies")
+        return rows, errs, bwd_rows, bwd_errs
+
+    def bag_backward_rows(id_sets, table, reps):
+        """The backward kernel against its plain version at the given shapes,
+        sum and mean: bits, ms, bound, plain and library ms."""
+        import torch.nn.functional as Fn
+
+        n, d = table.shape
+        grng = np.random.default_rng(SEED + 9)
+        rows, errs = {}, {"sum": 0.0, "mean": 0.0}
+        for shape, ids in id_sets.items():
+            bsz, length = ids.shape
+            g_out = torch.from_numpy(grng.standard_normal((bsz, d)).astype(np.float32)).to(dev)
+            valid = ids >= 0
+            n_valid = int(valid.sum())
+            flat = ids.reshape(-1)
+            lib_in = flat[flat >= 0].long()
+            lib_off = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                                 valid.sum(dim=1).cumsum(0)[:-1]])
+            for mode in ("sum", "mean"):
+                if dev.type == "cuda":
+                    def backward(mode=mode):
+                        return EB.embedding_bag_backward_cuda(g_out, ids, n, mode)
+                    order, start = EB.backward_runs(ids, n)
+                    counts = valid.sum(dim=1, dtype=torch.int32) if mode == "mean" else None
+
+                    def kernel_only(order=order, start=start, counts=counts, mode=mode):
+                        return EB.launch_backward(g_out, order, start, counts, length, mode)
+                else:
+                    def backward(mode=mode):
+                        return embedding_bag_backward_reference(g_out, ids, n, mode)
+                    kernel_only = None
+                got, again = backward(), backward()
+                sync()
+                want = embedding_bag_backward_reference(g_out.cpu(), ids.cpu(), n, mode)
+                plain_card = embedding_bag_backward_reference(g_out, ids, n, mode)
+                sync()
+                err = float((got.cpu() - want).abs().max())
+                check(got.shape == (n, d) and got.dtype == torch.float32,
+                      f"bag backward {shape} {mode}: shape {tuple(got.shape)} {got.dtype}")
+                check(torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)),
+                      f"bag backward {shape} {mode}: not the bits of the plain version on the "
+                      f"CPU (max err {err})")
+                check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+                      f"bag backward {shape} {mode}: two launches gave different bits")
+                errs[mode] = max(errs[mode], err)
+                t = table.detach().clone().requires_grad_(True)
+                lib_out = Fn.embedding_bag(lib_in, t, lib_off, mode=mode)
+
+                def library(t=t, lib_out=lib_out):
+                    return torch.autograd.grad(lib_out, t, g_out, retain_graph=True)[0]
+
+                lib_err = float((library() - got).abs().max())
+
+                def plain(mode=mode):
+                    return embedding_bag_backward_reference(g_out, ids, n, mode)
+
+                launches = {k: device_launches(f) for k, f in (
+                    ("whole", backward), ("plain", plain), ("library", library))}
+                kr = kernel_ms(backward, reps, 1, "embedding_bag_backward", launches["whole"])
+                timed = {}
+                for key, f, r in (("kernel", kernel_only, reps),
+                                  ("plain", plain, max(1, reps // 5)),
+                                  ("library", library, reps)):
+                    timed[key] = (device_ms(f, r, 1, launches.get(key)), hold["hold_covered"]) \
+                        if f is not None else (None, None)
+                nbytes = (g_out.numel() + ids.numel() + n * d) * 4
+                sort_bytes = SORT_BYTES_PER_ID * ids.numel()
+                ops = n_valid * d * (2 if mode == "mean" else 1)
+                bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+                rows[f"{shape}[{mode}]"] = dict(
+                    bags=bsz, length=length, table_rows=n, d=d, real_ids=n_valid,
+                    max_abs_err=err, plain_cpu_bits_equal=True,
+                    plain_card_bits_equal=bool(torch.equal(got.view(torch.int32),
+                                                           plain_card.view(torch.int32))),
+                    plain_card_max_abs_err=float((got - plain_card).abs().max()),
+                    library_max_abs_err=lib_err,
+                    ms=kr["ms"], ms_from=kr["ms_from"], hold_covered=kr.get("hold_covered"),
+                    launches_per_call=launches,
+                    profiler_ms=kr["profiler_ms"], events_seen=kr["events_seen"],
+                    events_expected=kr["events_expected"],
+                    kernel_ms=timed["kernel"][0], kernel_hold_covered=timed["kernel"][1],
+                    plain_ms=timed["plain"][0], plain_hold_covered=timed["plain"][1],
+                    library_ms=timed["library"][0], library_hold_covered=timed["library"][1],
+                    bound_ms=max(bytes_ms, ops_ms), bound_bytes=nbytes,
+                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                    sort_bytes=sort_bytes,
+                    bound_ms_with_sort=max((nbytes + sort_bytes) / HBM_BYTES_PER_S * 1e3,
+                                           ops_ms))
         return rows, errs
 
-    bag_rows, bag_errs = bag_kernel_phase()
+    bag_rows, bag_errs, bag_bwd_rows, bag_bwd_errs = bag_kernel_phase()
 
     def din_phase():
         """DIN pointwise and retrieval scoring at the published width, as the
@@ -1565,10 +1818,148 @@ def main() -> int:
 
     din_launches = din_phase()
 
+    def _leaf_names(tree, prefix=()):
+        """Leaf paths in ``tree_flatten``'s order (dict keys sorted)."""
+        if isinstance(tree, dict):
+            return [n for k in sorted(tree) for n in _leaf_names(tree[k], prefix + (k,))]
+        if isinstance(tree, (list, tuple)):
+            return [n for i, v in enumerate(tree) for n in _leaf_names(v, prefix + (i,))]
+        return [prefix]
+
+    class PlainBag(torch.autograd.Function):
+        """The bag through both plain versions (forward and backward), on
+        the tensors' device."""
+
+        @staticmethod
+        def forward(ctx, table, ids, mode):
+            ctx.save_for_backward(ids)
+            ctx.mode, ctx.n = mode, table.shape[0]
+            return embedding_bag_reference(table, ids, mode)
+
+        @staticmethod
+        def backward(ctx, g):
+            (ids,) = ctx.saved_tensors
+            return embedding_bag_backward_reference(g.contiguous(), ids, ctx.n, ctx.mode), \
+                None, None
+
+    @contextlib.contextmanager
+    def din_bag(swap):
+        """DIN's profile bag swapped for ``swap(table, ids, mode)``."""
+        kernel_bag = din.embedding_bag
+        din.embedding_bag = swap
+        try:
+            yield
+        finally:
+            din.embedding_bag = kernel_bag
+
+    def din_train_phase():
+        """DIN training at the published width on train_batch: the first
+        step's loss and grads against plain bags and against a detached bag,
+        DIN_TRAIN_STEPS counted AdamW steps, the held batch's loss falling.
+        Returns the bag's launches over the counted steps."""
+        from repro_torch.train import steps as train_steps
+        from repro_torch.train.optim import AdamWConfig, tree_flatten
+
+        t0 = time.perf_counter()
+        c = din_cfg
+        n_steps = 3 if rehearsal else DIN_TRAIN_STEPS
+        ocfg = AdamWConfig(lr=1e-3, total_steps=n_steps, warmup_steps=min(20, n_steps))
+        t = time.perf_counter()
+        batches = [din.batch_to(recsys_batch(SEED, i, din_train_batch, c.seq_len, c.item_vocab,
+                                             c.cate_vocab, c.profile_bag_len), dev)
+                   for i in range(n_steps + 1)]  # the last for the profiled step
+        sync()
+        batch_s = time.perf_counter() - t
+        held = batches[0]
+        loss_fn = train_steps.make_din_loss(c)
+        # the first step: the kernels' bag against both plain versions, and
+        # against a bag whose output is detached (the fault this slice fixed)
+        loss_k, grads_k = train_steps.value_and_grad(loss_fn, din_params, held)
+        with din_bag(lambda table, ids, mode: PlainBag.apply(table, ids, mode)):
+            loss_p, grads_p = train_steps.value_and_grad(loss_fn, din_params, held)
+        with din_bag(lambda table, ids, mode: embedding_bag(table, ids, mode).detach()):
+            _, grads_d = train_steps.value_and_grad(loss_fn, din_params, held)
+        sync()
+        names = [".".join(map(str, k)) for k in _leaf_names(grads_k)]
+        gk, gp = tree_flatten(grads_k)[0], tree_flatten(grads_p)[0]
+        grad_err = {nm: float((a - b).abs().max()) for nm, a, b in zip(names, gk, gp)}
+        check(torch.allclose(loss_k, loss_p, **DIN_TOL),
+              f"din train first step: loss {float(loss_k)} vs plain bags {float(loss_p)}")
+        for nm, a, b in zip(names, gk, gp):
+            check(torch.allclose(a, b, **DIN_TOL),
+                  f"din train first step: grad {nm} differs from plain bags by {grad_err[nm]}")
+        cate_k, cate_d = grads_k["cate_table"], grads_d["cate_table"]
+        bag_part = float((cate_k - cate_d).abs().max())
+        check(not torch.equal(cate_k, cate_d),
+              "din train: cate_table's gradient equals the detached bag's (no bag backward)")
+        del grads_k, grads_p, grads_d, gk, gp, cate_k, cate_d
+        step = train_steps.make_din_train_step(c, ocfg)
+        state = train_steps.init_train_state(din_params, ocfg)
+        state, _ = step(state, held)  # warm (not counted)
+        state = train_steps.init_train_state(din_params, ocfg)
+        sync()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        EB.reset_launch_counts()
+        lat, losses = [], []
+        t_all = time.perf_counter()
+        for i in range(n_steps):
+            t = time.perf_counter()
+            state, m = step(state, batches[i])
+            losses.append(float(m["loss"]))  # waits for the step
+            lat.append((time.perf_counter() - t) * 1e3)
+        wall = time.perf_counter() - t_all
+        launches = dict(EB.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+        with torch.no_grad():
+            held_after = float(loss_fn(state["params"], held))
+        check(all(np.isfinite(losses)), f"din train: non-finite losses {losses}")
+        check(held_after < float(loss_k),
+              f"din train: the held batch's loss did not fall ({float(loss_k)} -> {held_after})")
+        if not rehearsal:
+            check(launches == {"sum": n_steps, "sum_backward": n_steps},
+                  f"din train: bag launches {launches} != one forward and one backward a step "
+                  f"over {n_steps} steps")
+        wall_us, evs = profiled(lambda: step(state, batches[n_steps]))
+        dev_us = sum(event_us(e) for e in evs)
+        bwd_us = sum(event_us(e) for e in evs if "embedding_bag_backward" in e.key)
+        top = sorted(evs, key=event_us, reverse=True)[:8]
+        emit("din_train", t0, config={k: (str(v) if k == "dtype" else v)
+                                      for k, v in dataclasses.asdict(c).items() if k != "lookup"},
+             lookup="take", batch=din_train_batch, steps=n_steps, batch_seconds=batch_s,
+             optimizer=dict(lr=ocfg.lr, warmup_steps=ocfg.warmup_steps,
+                            total_steps=ocfg.total_steps, weight_decay=ocfg.weight_decay),
+             ms_per_step=dict(median=float(np.median(lat)), min=min(lat), max=max(lat)),
+             steps_per_s=n_steps / wall, samples_per_s=n_steps * din_train_batch / wall,
+             losses=losses, held_batch_loss=[float(loss_k), held_after],
+             first_step_loss=[float(loss_k), float(loss_p)], first_step_grad_max_abs_diff=grad_err,
+             tolerance=DIN_TOL, cate_grad_bag_part_max_abs=bag_part, launches=launches,
+             expected_launches={"sum": n_steps, "sum_backward": n_steps},
+             peak_memory_bytes=peak,
+             profiled_step=dict(wall_us=wall_us, device_busy_us=dev_us,
+                                device_idle_share=1.0 - dev_us / wall_us if wall_us else None,
+                                device_events=sum(e.count for e in evs),
+                                bag_backward_us=bwd_us,
+                                bag_backward_share=bwd_us / dev_us if dev_us else None,
+                                top_device_us={e.key[:80]: [event_us(e), e.count] for e in top}),
+             note="the first step against a run whose bag runs both plain versions on the card "
+                  "(forward: L takes in id order; backward: index_add_) within DIN_TOL, and "
+                  "against a detached bag (cate_grad_bag_part_max_abs: the bag's part of "
+                  "cate_table's gradient); steps on recsys_batch(0, i) made on the device "
+                  "before the timed loop; ms_per_step: host clock around a step ending in the "
+                  "loss's read; held_batch_loss: step 0's batch before the steps and "
+                  "re-scored after them; profiled_step: one more step under torch.profiler, "
+                  "device events only (floors)")
+        del state, batches, held
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return launches
+
+    din_train_launches = din_train_phase()
+
     # -- the serving path: GraphService over the built partition --------------
     t0 = time.perf_counter()
-    import gc
-
     from repro_torch.launch.serve import _serve_events, check_replay_equivalence
     from repro_torch.serve import GraphService, LoopConfig, RecommendScorer, RequestLoop
 
@@ -1662,6 +2053,132 @@ def main() -> int:
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+
+    def stream_build_phase():
+        """(i) the smoke graph through partition_2d_streaming, every field's
+        SHA-256 against partition_2d's; (ii) a symmetric RMATStream at
+        --stream-scale into memmap files under build/, its push_block sized
+        by stream_push_footprint, then BFS on the card with the default
+        options, the static schedule and the oracle backend. Returns the
+        kernels' launches of (ii)'s default run."""
+        from repro_torch.core.engine import evict_from_cache
+        from repro_torch.data import RMATStream
+        from repro_torch.kernels.csr_gather_reduce.ops import SRC16_LIMIT
+        from repro_torch.push_footprint import stream_push_footprint
+
+        t0 = time.perf_counter()
+        gc.collect()
+        t = time.perf_counter()
+        with RssPeak() as rss_i:
+            ps = partition_2d_streaming(coo_edge_chunks(g), g.num_vertices, PartitionConfig(**CFG))
+        build_i = time.perf_counter() - t
+        digests = field_digests(ps)
+        differ = [k for k in IDENTITY_FIELDS if digests[k] != pg_digests[k]]
+        scalars = {k: getattr(ps, k) for k in pg_scalars}
+        check(not differ and scalars == pg_scalars,
+              f"stream_build (i): fields {differ} or scalars {scalars} differ from partition_2d's")
+        del ps
+        gc.collect()
+        smoke_graph = dict(scale=scale, edges=n_edges, build_seconds=build_i,
+                           partition_2d_build_seconds=partition_s, rss=rss_i.report(),
+                           partition_2d_rss=partition_rss.report(), fields_identical=True,
+                           sha256={k: v[:16] if v else None for k, v in digests.items()})
+
+        st_scale = min(args.stream_scale, 13) if rehearsal else args.stream_scale
+        stream = RMATStream(scale=st_scale, edge_factor=16, seed=SEED, symmetric=True)
+        nv = stream.num_vertices
+        t = time.perf_counter()
+        foot = stream_push_footprint(stream, nv, PartitionConfig(**CFG), STREAM_PUSH_BLOCKS,
+                                     CFG["tile_eb"])
+        foot_s = time.perf_counter() - t
+        best = min(foot, key=lambda r: r["word_bytes"] + r["coverage_bytes"])
+        cfg_ii = {**CFG, "push_block": best["block_sources"]}
+        mdir = ROOT / "build" / "stream_build"
+        shutil.rmtree(mdir, ignore_errors=True)
+        t = time.perf_counter()
+        with RssPeak() as rss_ii:
+            pm = partition_2d_streaming(stream, nv, PartitionConfig(**cfg_ii), memmap_dir=str(mdir))
+        build_ii = time.perf_counter() - t
+        rep_ii = pm.memory_report()
+        gathered = pm.p * pm.sub_size
+        check(isinstance(pm.tile_word, np.memmap), "stream_build (ii): not memmap-backed")
+        check(pm.num_edges == stream.num_edges, f"stream_build (ii): {pm.num_edges} edges")
+        check(pm.src_bits == (32 if gathered > SRC16_LIMIT else 16),
+              f"stream_build (ii): src_bits {pm.src_bits} at p * sub_size = {gathered}")
+        if not rehearsal:
+            check(pm.src_bits == 32, f"stream_build (ii): src_bits {pm.src_bits}, not 32")
+        push_bytes = sum(rep_ii["device"].get(k, 0) for k in ("push_word", "push_word_hi"))
+        check(push_bytes == best["word_bytes"]
+              and list(pm.push_word.shape) == best["shape"],
+              f"stream_build (ii): push stream {list(pm.push_word.shape)} / {push_bytes} B, "
+              f"stream_push_footprint said {best['shape']} / {best['word_bytes']} B")
+        g_ii = G.COOGraph(src=np.zeros(0, np.uint32), dst=np.zeros(0, np.uint32),
+                          num_vertices=nv)  # BFS's labels need only the vertex count
+        runs_ii = {}
+        for label, opts in (("default", EngineOptions()),
+                            ("static", EngineOptions(dynamic_tile_skip=False)),
+                            ("oracle", EngineOptions(backend="oracle"))):
+            make_iteration(bfs(0), pm, opts, device=dev)  # upload (set-up)
+            labels = prepare_labels(bfs(0), g_ii, pm, device=dev)
+            sync()
+            K.reset_launch_counts()
+            S.reset_launch_counts()
+            t = time.perf_counter()
+            res = run(bfs(0), g_ii, pm, opts, labels=labels, device=dev)
+            sync()
+            sec = time.perf_counter() - t
+            check(res.converged, f"stream_build (ii) bfs {label}: did not converge")
+            runs_ii[label] = (res, dict(iterations=res.iterations, run_seconds=sec,
+                                        mteps=pm.num_edges / sec / 1e6,
+                                        reached=int((res.labels["label"] != 0xFFFFFFFF).sum()),
+                                        launches={"gather_reduce_cores": dict(K.LAUNCHES),
+                                                  "scatter_reduce_cores": dict(S.LAUNCHES)}))
+        a, b, o = (runs_ii[k][0] for k in ("default", "static", "oracle"))
+        check(a.iterations == b.iterations
+              and np.array_equal(a.labels["label"], b.labels["label"]),
+              "stream_build (ii): the default BFS differs from the static schedule's")
+        check(a.iterations == o.iterations
+              and np.array_equal(a.labels["label"], o.labels["label"]),
+              "stream_build (ii): the default BFS differs from the oracle backend's")
+        launches_ii = runs_ii["default"][1]["launches"]
+        if not rehearsal:
+            check(sum(launches_ii["gather_reduce_cores"].values())
+                  + sum(launches_ii["scatter_reduce_cores"].values())
+                  == a.iterations * pm.l,
+                  f"stream_build (ii): launches {launches_ii} != iterations * l")
+        emit("stream_build", t0, smoke_graph=smoke_graph,
+             rmat=dict(scale=st_scale, edge_factor=16, seed=SEED, symmetric=True,
+                       chunk_edges=stream.chunk_edges, vertices=nv, edges=pm.num_edges,
+                       gathered=gathered, src_bits=pm.src_bits, push_src_bits=pm.push_src_bits,
+                       config=cfg_ii, push_footprint=foot, push_footprint_seconds=foot_s,
+                       push_stream_bytes=push_bytes, build_seconds=build_ii,
+                       rss=rss_ii.report(), memmap_dir=str(mdir.relative_to(ROOT)),
+                       device_bytes=rep_ii["device"], device_total_bytes=rep_ii["device_total_bytes"],
+                       device_bytes_per_edge=rep_ii["device_bytes_per_edge"],
+                       host_flat_total_bytes=rep_ii["host_flat_total_bytes"],
+                       tile_word_shape=list(pm.tile_word.shape),
+                       push_word_shape=list(pm.push_word.shape), split_rows=pm.split_rows,
+                       bfs={k: v[1] for k, v in runs_ii.items()}, labels_bit_equal=True,
+                       oracle_labels_bit_equal=True),
+             note="smoke_graph: partition_2d_streaming(coo_edge_chunks(g)) in RAM, every "
+                  "IDENTITY_FIELDS array's SHA-256 (dtype, shape, bytes) and the scalars equal "
+                  "to partition_2d's (sha256: the first 16 hex digits); rss: the process's "
+                  "VmRSS (/proc/self/status) sampled every 5 ms, its peak less its value at "
+                  "entry (a memmap build's written file pages count); "
+                  "rmat: the push_block of STREAM_PUSH_BLOCKS whose stacked words and coverage "
+                  "are least, the build into memmap files, BFS from 0 with the default options "
+                  "(launches counted), the static schedule and the oracle backend (the flat "
+                  "bucket arrays, no packed word), labels and iterations bit-equal; mteps: "
+                  "edges over run seconds, label init apart (the oracle's launches are zero)")
+        evict_from_cache(pm)
+        del pm, runs_ii, a, b, o
+        gc.collect()
+        shutil.rmtree(mdir, ignore_errors=True)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return launches_ii
+
+    stream_launches = stream_build_phase()
 
     # -- GAT's segment softmax: the kernel against its plain version ----------
     from repro_torch.data.synthetic import batched_molecules, graph_batch_from_coo
@@ -2349,12 +2866,22 @@ def main() -> int:
     ] + [
         # the main path's bag: DIN's profile bag at serve_p99, shape (a)
         dict(name="embedding_bag[sum]", route="cuda", **EMBAG,
-             launches=din_launches.get("sum", 0) + serve_launches["embedding_bag"].get("sum", 0),
+             launches=din_launches.get("sum", 0) + serve_launches["embedding_bag"].get("sum", 0)
+             + din_train_launches.get("sum", 0),
              max_abs_err=bag_errs["sum"], ms=bag_rows["a_serve_p99[sum]"]["ms"],
              plain_ms=bag_rows["a_serve_p99[sum]"]["plain_ms"],
              bound_ms=bag_rows["a_serve_p99[sum]"]["bound_ms"],
              bound_by=bag_rows["a_serve_p99[sum]"]["bound_by"],
              library_ms=bag_rows["a_serve_p99[sum]"]["library_ms"])
+    ] + [
+        # the trainer's bag backward: DIN's profile bag at train_batch, shape (e)
+        dict(name="embedding_bag_backward[sum]", route="cuda", **EMBAG_BWD,
+             launches=din_train_launches.get("sum_backward", 0),
+             max_abs_err=bag_bwd_errs["sum"], ms=bag_bwd_rows["e_train_batch[sum]"]["ms"],
+             plain_ms=bag_bwd_rows["e_train_batch[sum]"]["plain_ms"],
+             bound_ms=bag_bwd_rows["e_train_batch[sum]"]["bound_ms"],
+             bound_by=bag_bwd_rows["e_train_batch[sum]"]["bound_by"],
+             library_ms=bag_bwd_rows["e_train_batch[sum]"]["library_ms"])
     ] + [
         dict(name=f"gather_reduce[{v}]", route="cuda", **BUCKET,
              launches=bucket_launches.get(v, 0), max_abs_err=bucket_errs[v],

@@ -6,6 +6,7 @@ Module paths mirror ``repro``: ``core.graph``, ``core.problems``,
 ``serve``, ``models.{layers,transformer}`` (the LM family),
 ``models.gnn``, ``models.recsys.din``, ``configs`` (the LM, GNN and DIN
 archs), ``dist.embedding`` (the crossbar lookup), ``data.synthetic``,
+``data.rmat`` (the chunked RMAT stream the out-of-core build reads),
 ``train`` and ``launch.{serve,train}``. The package imports torch and numpy
 only — never jax and never ``repro``.
 """

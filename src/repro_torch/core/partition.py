@@ -1,11 +1,12 @@
 """Two-dimensional graph partitioning (paper §III-C) + stride mapping.
 
-Counterpart of ``repro.core.partition``: the in-memory build and the
-delta ingest of streamed edge insertions (``apply_edge_deltas``, which
-re-tiles only the dirty (core, phase) buckets); the streaming out-of-core
-build is not ported yet. Host numpy, a copy of the reference, so every
-array is byte-identical to ``repro``'s for the same graph, config and
-insertions.
+Counterpart of ``repro.core.partition``: the in-memory build, the
+out-of-core streaming build (``partition_2d_streaming``: two passes over a
+replayable chunk stream, optionally into ``np.memmap`` files) and the delta
+ingest of streamed edge insertions (``apply_edge_deltas``, which re-tiles
+only the dirty (core, phase) buckets). Host numpy, a copy of the reference,
+so every array is byte-identical to ``repro``'s for the same graph, config
+and insertions.
 
 Dimension 1: the (padded) vertex set is split into ``p`` equal intervals
 ``I_q`` — one per graph core; core ``q`` owns all edges whose *destination*
@@ -41,6 +42,7 @@ tiles so the kernel never touches all-padding tiles.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Union
 
 import numpy as np
@@ -54,6 +56,9 @@ __all__ = [
     "stride_permutation",
     "apply_permutation",
     "partition_2d",
+    "coo_edge_chunks",
+    "count_edge_stream",
+    "partition_2d_streaming",
     "DeltaFlushReport",
     "bucket_coords",
     "apply_edge_deltas",
@@ -592,6 +597,7 @@ def _build_tile_layouts(p, l, vpc, src_gidx, dst_lidx, valid, weights, cfg, sub_
     split, ``tile_row_orig``/``tile_split_map`` replace ``tile_row_pos`` and
     the engine runs the two-level reduce."""
     from repro_torch.kernels.csr_gather_reduce.ops import (
+        auto_push_block,
         choose_src_bits,
         prepare_push_tiles,
         prepare_tiles,
@@ -691,13 +697,9 @@ def _build_tile_layouts(p, l, vpc, src_gidx, dst_lidx, valid, weights, cfg, sub_
         peb = cfg.push_eb if cfg.push_eb is not None else eb
         push_block = cfg.push_block
         if push_block is None:
-            # auto-size: ~2 full push-tile widths of the average bucket
-            # degree per block, 32-aligned, clamped to one gathered block
-            total_edges = int(np.asarray(valid).sum())
-            avg_deg = total_edges / max(p * l, 1) / max(gathered, 1)
-            want = 2.0 * peb / max(avg_deg, 1e-9)
-            push_block = 32 * max(1, int(round(want / 32.0)))
-            push_block = min(push_block, 32 * ((gathered + 31) // 32))
+            push_block = auto_push_block(
+                int(np.asarray(valid).sum()), p, l, gathered, peb
+            )
         push_layouts = [
             prepare_push_tiles(
                 src_gidx[i, m], dst_lidx[i, m], valid[i, m],
@@ -749,6 +751,486 @@ def _build_tile_layouts(p, l, vpc, src_gidx, dst_lidx, valid, weights, cfg, sub_
         split_rows=split_rows,
         t_max_unsplit=t_max_unsplit,
         **push,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Out-of-core streaming build: chunked COO ingestion, two passes, bounded RSS.
+# ---------------------------------------------------------------------------
+
+
+def coo_edge_chunks(g: COOGraph, chunk_edges: int = 1 << 18):
+    """Re-iterable chunk factory over a resident COOGraph — the adapter that
+    lets ``partition_2d_streaming`` consume a graph the in-memory path builds
+    from, which is how the bit-identity tests compare the two. Each chunk is
+    ``(src, dst)`` or ``(src, dst, weights)`` slices of ``chunk_edges`` edges
+    (views, no copies). A zero-edge graph still yields one empty chunk so the
+    weighted/unweighted signature survives the trip."""
+    if chunk_edges <= 0:
+        raise ValueError(f"chunk_edges must be positive, got {chunk_edges}")
+
+    def factory():
+        n = int(g.num_edges)
+        for s in range(0, n, chunk_edges) or (0,):
+            e = min(s + chunk_edges, n)
+            if g.weights is not None:
+                yield g.src[s:e], g.dst[s:e], g.weights[s:e]
+            else:
+                yield g.src[s:e], g.dst[s:e]
+
+    return factory
+
+
+def _chunk_iter(chunks):
+    """Open one pass over the chunk stream. The builder reads the stream
+    TWICE (count pass + placement pass), so a one-shot generator is rejected
+    up front instead of silently producing an empty second pass."""
+    if callable(chunks):
+        return iter(chunks())
+    if isinstance(chunks, (list, tuple)):
+        return iter(chunks)
+    raise TypeError(
+        "chunks must be a callable chunk factory or a list/tuple of chunks; "
+        "a bare generator cannot be replayed for the placement pass "
+        "(wrap it: chunks=lambda: make_gen())"
+    )
+
+
+def _as_chunk(chunk):
+    """Normalize one chunk to (src, dst, weights|None) int64/float32 1-D."""
+    if not isinstance(chunk, (tuple, list)) or len(chunk) not in (2, 3):
+        raise TypeError(
+            "each chunk must be a (src, dst) or (src, dst, weights) tuple"
+        )
+    s = np.asarray(chunk[0]).astype(np.int64, copy=False)
+    d = np.asarray(chunk[1]).astype(np.int64, copy=False)
+    if s.ndim != 1 or s.shape != d.shape:
+        raise ValueError(
+            f"chunk src/dst must be equal-length 1-D: {s.shape} vs {d.shape}"
+        )
+    w = None
+    if len(chunk) == 3:
+        w = np.asarray(chunk[2], dtype=np.float32)
+        if w.shape != s.shape:
+            raise ValueError(
+                f"chunk weights shape {w.shape} != edge shape {s.shape}"
+            )
+    return s, d, w
+
+
+@dataclasses.dataclass
+class StreamCounts:
+    """What one counting pass over a chunk stream learns (the streaming
+    build's pass 1): edges a (core, phase) bucket ``sizes`` (p, l), a bucket's
+    destination row ``row_counts`` (p, l, vpc) and a bucket's gathered source
+    ``src_counts`` (p, l, gathered), each None unless asked for; ``total``
+    edges and whether the chunks carry ``weighted`` edges."""
+
+    sizes: np.ndarray
+    row_counts: Optional[np.ndarray]
+    src_counts: Optional[np.ndarray]
+    total: int
+    weighted: bool
+
+
+def count_edge_stream(
+    chunks, num_vertices: int, cfg: PartitionConfig, *, rows: bool, sources: bool
+) -> StreamCounts:
+    """One pass over ``chunks`` (see ``partition_2d_streaming``), binning
+    each edge to its bucket as ``partition_2d`` does (after the stride
+    permutation when ``cfg.stride`` is set): bucket sizes always, the
+    per-row counts when ``rows`` and the per-source counts when ``sources``.
+    No edge is kept."""
+    p, l, sub_size, vpc = _resolve_dims(num_vertices, cfg)
+    gathered = p * sub_size
+    perm = None
+    if cfg.stride is not None and cfg.stride > 1:
+        perm = stride_permutation(num_vertices, cfg.stride)
+    sizes = np.zeros((p, l), dtype=np.int64)
+    row_counts = np.zeros((p, l, vpc), dtype=np.int64) if rows else None
+    src_counts = np.zeros((p, l, gathered), dtype=np.int64) if sources else None
+    total = 0
+    weighted = None
+    for chunk in _chunk_iter(chunks):
+        s, d, w = _as_chunk(chunk)
+        if weighted is None:
+            weighted = w is not None
+        elif weighted != (w is not None):
+            raise ValueError("all chunks must agree on carrying weights")
+        if s.size == 0:
+            continue
+        lo = min(int(s.min()), int(d.min()))
+        hi = max(int(s.max()), int(d.max()))
+        if lo < 0 or hi >= num_vertices:
+            raise ValueError(
+                f"edge endpoints out of range [0, {num_vertices}): "
+                f"chunk range [{lo}, {hi}]"
+            )
+        if perm is not None:
+            s, d = perm[s], perm[d]
+        b = (d // vpc) * l + (s % vpc) // sub_size
+        sizes += np.bincount(b, minlength=p * l).reshape(p, l)
+        if row_counts is not None:
+            row_counts += np.bincount(
+                b * vpc + d % vpc, minlength=p * l * vpc
+            ).reshape(p, l, vpc)
+        if src_counts is not None:
+            gx = (s // vpc) * sub_size + (s % sub_size)
+            src_counts += np.bincount(
+                b * gathered + gx, minlength=p * l * gathered
+            ).reshape(p, l, gathered)
+        total += int(s.size)
+    return StreamCounts(sizes, row_counts, src_counts, total, bool(weighted))
+
+
+def partition_2d_streaming(
+    chunks,
+    num_vertices: int,
+    cfg: PartitionConfig,
+    *,
+    memmap_dir: Optional[str] = None,
+) -> PartitionedGraph:
+    """Out-of-core ``partition_2d``: same output, bounded host memory.
+
+    ``chunks`` is a callable returning an iterator of ``(src, dst[, weights])``
+    edge chunks (or a re-iterable list/tuple of such chunks); the stream must
+    replay DETERMINISTICALLY because the builder reads it twice:
+
+      pass 1 (count): per-(core, phase) bucket sizes, per-row edge counts and
+        per-source counts are accumulated chunk by chunk — O(p·l·Vl) state,
+        independent of E. From the counts alone, ``plan_tiles`` /
+        ``plan_push_tiles`` fix every layout decision (src_bits regime,
+        per-bucket 'auto' split thresholds, hub-row chunking, LPT placement,
+        stacked R/T/B/Tp, row-map mode) and the full output buffers are
+        preallocated — optionally ``np.memmap``-backed under ``memmap_dir``.
+
+      pass 2 (place): each chunk is binned straight into the preallocated
+        flat bucket arrays at per-bucket cursors; buckets are then finalized
+        one at a time (stable lidx sort, tile binning, word packing,
+        coverage), so peak transient RAM is O(chunk + largest bucket), never
+        O(E).
+
+    Output is bit-identical to ``partition_2d`` on the same edge list: the
+    global stable sort by (bucket, lidx) the in-memory path does decomposes
+    into chunk-order bucket insertion (stream order within a bucket ==
+    global input order) followed by a per-bucket stable sort on lidx, and
+    every shape/placement decision comes from the same count-only planners
+    (see docs/tile_layout.md §11 for the full invariants).
+
+    ``memmap_dir``: when given, the large outputs (flat bucket arrays and
+    packed word/weight/coverage streams) are ``np.memmap`` files under that
+    directory (mode='w+'); small metadata (counts, row maps) stays in RAM.
+    The returned arrays remain valid only while the files exist — the caller
+    owns the directory's lifetime. Memmapped partitions feed the engines and
+    ``apply_edge_deltas`` unchanged (a delta flush returns plain in-RAM
+    arrays; the files are then garbage)."""
+    p, l, sub_size, vpc = _resolve_dims(num_vertices, cfg)
+    gathered = p * sub_size
+    perm = inv = None
+    if cfg.stride is not None and cfg.stride > 1:
+        perm = stride_permutation(num_vertices, cfg.stride)
+        inv = np.argsort(perm)
+
+    # ---- pass 1: count. O(p*l*vpc + p*gathered) accumulators, no edge kept.
+    counts = count_edge_stream(
+        chunks, num_vertices, cfg, rows=True,
+        sources=cfg.build_tiles and cfg.build_push,
+    )
+    sizes, row_counts, src_counts = counts.sizes, counts.row_counts, counts.src_counts
+    total, weighted = counts.total, counts.weighted
+
+    # ---- plan: every shape decision from counts alone (plan_tiles mirrors
+    # prepare_tiles bit for bit — same thresholds, chunking, LPT placement).
+    e_pad = max(_round_up(int(sizes.max()), cfg.edge_pad), cfg.edge_pad)
+
+    if memmap_dir is not None:
+        os.makedirs(memmap_dir, exist_ok=True)
+
+    def _alloc(name, shape, dtype):
+        if memmap_dir is None:
+            return np.zeros(shape, dtype=dtype)
+        path = os.path.join(memmap_dir, f"{name}.bin")
+        return np.memmap(path, dtype=dtype, mode="w+", shape=shape)
+
+    src_gidx = _alloc("src_gidx", (p, l, e_pad), np.int32)
+    dst_lidx = _alloc("dst_lidx", (p, l, e_pad), np.int32)
+    valid = _alloc("valid", (p, l, e_pad), bool)
+    weights = _alloc("weights", (p, l, e_pad), np.float32) if weighted else None
+
+    tiles: dict = {}
+    plans = {}
+    if cfg.build_tiles:
+        from repro_torch.kernels.csr_gather_reduce.ops import (
+            auto_push_block,
+            choose_src_bits,
+            plan_push_tiles,
+            plan_tiles,
+        )
+
+        vb = cfg.tile_vb if cfg.tile_vb is not None else sub_size
+        assert vpc % vb == 0, (vpc, vb)
+        eb = cfg.tile_eb
+        src_bits = (
+            cfg.pack_src_bits
+            if cfg.pack_src_bits is not None
+            else choose_src_bits(gathered, vb)
+        )
+        for i in range(p):
+            for m in range(l):
+                plans[(i, m)] = plan_tiles(
+                    row_counts[i, m], num_rows=vpc, vb=vb, eb=eb,
+                    balance_rows=cfg.degree_aware_tiles,
+                    split_threshold=_bucket_split_threshold(
+                        cfg, int(sizes[i, m]), vpc // vb
+                    ),
+                )
+        r_max = max(pl.r_blocks for pl in plans.values())
+        t_max = max(pl.t_tiles for pl in plans.values())
+        wc = -(-(p * (-(-sub_size // 32))) // 32)
+        tile_word = _alloc("tile_word", (p, l, r_max, t_max, eb), np.int32)
+        tile_word_hi = (
+            _alloc("tile_word_hi", (p, l, r_max, t_max, eb), np.int32)
+            if src_bits == 32
+            else None
+        )
+        tile_counts = np.zeros((p, l, r_max), np.int32)
+        tile_weights = (
+            _alloc("tile_weights", (p, l, r_max, t_max, eb), np.float32)
+            if weighted
+            else None
+        )
+        tile_coverage = _alloc(
+            "tile_coverage", (p, l, r_max, t_max, wc), np.uint32
+        )
+        # row-map mode is a GLOBAL property, decidable from the plans before
+        # a single edge is placed (cold-path rule: any split bucket => every
+        # bucket runs in row_orig/split-map mode).
+        any_split = any(pl.row_orig is not None for pl in plans.values())
+        tile_row_pos = tile_row_orig = tile_split_map = None
+        if any_split:
+            tile_row_orig = np.full((p, l, r_max * vb), -1, dtype=np.int32)
+            s_max = max(pl.s_max for pl in plans.values())
+            tile_split_map = np.full((p, l, vpc, s_max), -1, dtype=np.int32)
+        else:
+            any_packed = any(pl.row_pos is not None for pl in plans.values())
+            if any_packed:
+                tile_row_pos = np.tile(
+                    np.arange(vpc, dtype=np.int32), (p, l, 1)
+                )
+        push_shapes = None
+        if cfg.build_push:
+            push_src_bits = (
+                cfg.pack_src_bits
+                if cfg.pack_src_bits is not None
+                else choose_src_bits(gathered, vpc)
+            )
+            peb = cfg.push_eb if cfg.push_eb is not None else eb
+            push_block = cfg.push_block
+            if push_block is None:
+                push_block = auto_push_block(total, p, l, gathered, peb)
+            push_shapes = [
+                plan_push_tiles(
+                    src_counts[i, m], gathered_size=gathered,
+                    block_sources=push_block, eb=peb,
+                )
+                for i in range(p)
+                for m in range(l)
+            ]
+            b_blocks = push_shapes[0][0]
+            tp_max = max(t for _, t in push_shapes)
+            push_word = _alloc(
+                "push_word", (p, l, b_blocks, tp_max, peb), np.int32
+            )
+            push_word_hi = (
+                _alloc("push_word_hi", (p, l, b_blocks, tp_max, peb), np.int32)
+                if push_src_bits == 32
+                else None
+            )
+            push_counts = np.zeros((p, l, b_blocks), np.int32)
+            push_weights = (
+                _alloc(
+                    "push_weights", (p, l, b_blocks, tp_max, peb), np.float32
+                )
+                if weighted
+                else None
+            )
+            push_coverage = _alloc(
+                "push_coverage", (p, l, b_blocks, tp_max, wc), np.uint32
+            )
+
+    # ---- pass 2: place. Chunks are binned straight into the flat bucket
+    # arrays at per-bucket cursors; within a bucket the arrival order is the
+    # global input order (per-chunk bucket grouping is a stable sort).
+    cursors = np.zeros(p * l, dtype=np.int64)
+    seen = 0
+    for chunk in _chunk_iter(chunks):
+        s, d, w = _as_chunk(chunk)
+        if s.size == 0:
+            continue
+        if perm is not None:
+            s, d = perm[s], perm[d]
+        b = (d // vpc) * l + (s % vpc) // sub_size
+        gx = (s // vpc) * sub_size + (s % sub_size)
+        lx = d % vpc
+        order = np.argsort(b, kind="stable")
+        b_s, g_s, l_s = b[order], gx[order], lx[order]
+        w_s = w[order] if w is not None else None
+        uniq, starts = np.unique(b_s, return_index=True)
+        ends = np.append(starts[1:], b_s.size)
+        for bk, ss, ee in zip(uniq, starts, ends):
+            i, m = divmod(int(bk), l)
+            n = int(ee - ss)
+            c = int(cursors[bk])
+            src_gidx[i, m, c : c + n] = g_s[ss:ee]
+            dst_lidx[i, m, c : c + n] = l_s[ss:ee]
+            if weights is not None:
+                weights[i, m, c : c + n] = w_s[ss:ee]
+            cursors[bk] += n
+        seen += int(s.size)
+    if seen != total or not np.array_equal(cursors.reshape(p, l), sizes):
+        raise ValueError(
+            "chunk stream did not replay identically between the count and "
+            f"placement passes (counted {total} edges, placed {seen}); the "
+            "chunk factory must be deterministic"
+        )
+
+    # ---- finalize one bucket at a time: stable lidx sort (reproducing the
+    # in-memory path's global (bucket, lidx) stable sort), then tile binning
+    # and word packing into the preallocated stacked buffers. Transient RAM
+    # here is O(largest bucket).
+    if cfg.build_tiles:
+        from repro_torch.kernels.csr_gather_reduce.ops import (
+            pack_edge_words,
+            prepare_push_tiles,
+            prepare_tiles,
+            split_map_from_row_orig,
+            tile_coverage_words,
+        )
+    split_rows = 0
+    for i in range(p):
+        for m in range(l):
+            n = int(sizes[i, m])
+            ga = np.asarray(src_gidx[i, m, :n])
+            la = np.asarray(dst_lidx[i, m, :n])
+            oo = np.argsort(la, kind="stable")
+            src_gidx[i, m, :n] = ga[oo]
+            dst_lidx[i, m, :n] = la[oo]
+            dst_lidx[i, m, n:] = vpc - 1  # padding keeps dst sorted
+            valid[i, m, :n] = True
+            if weights is not None:
+                weights[i, m, :n] = np.asarray(weights[i, m, :n])[oo]
+            if not cfg.build_tiles:
+                continue
+            plan = plans[(i, m)]
+            t = prepare_tiles(
+                src_gidx[i, m], dst_lidx[i, m], valid[i, m],
+                num_rows=vpc, vb=vb, eb=eb,
+                weights=weights[i, m] if weights is not None else None,
+                balance_rows=cfg.degree_aware_tiles,
+                split_threshold=_bucket_split_threshold(
+                    cfg, n, vpc // vb
+                ),
+                plan=plan,
+            )
+            rr, tt = t.src.shape[:2]
+            assert (rr, tt) == (plan.r_blocks, plan.t_tiles), (
+                (rr, tt), (plan.r_blocks, plan.t_tiles)
+            )
+            w0, w1 = pack_edge_words(t.src, t.dstb, t.valid, src_bits=src_bits)
+            tile_word[i, m, :rr, :tt] = w0
+            if tile_word_hi is not None:
+                tile_word_hi[i, m, :rr, :tt] = w1
+            tile_counts[i, m, :rr] = t.tile_counts
+            if tile_weights is not None and t.weights is not None:
+                tile_weights[i, m, :rr, :tt] = t.weights
+            tile_coverage[i, m] = tile_coverage_words(
+                np.asarray(tile_word[i, m]),
+                np.asarray(tile_word_hi[i, m])
+                if tile_word_hi is not None
+                else None,
+                src_bits=src_bits, p=p, sub_size=sub_size,
+            )
+            if any_split:
+                if t.row_orig is not None:
+                    ro = t.row_orig
+                elif t.row_pos is not None:
+                    ro = np.full(vpc, -1, dtype=np.int32)
+                    ro[t.row_pos] = np.arange(vpc, dtype=np.int32)
+                else:
+                    ro = np.arange(vpc, dtype=np.int32)
+                tile_row_orig[i, m, : ro.shape[0]] = ro
+                sm = split_map_from_row_orig(tile_row_orig[i, m], vpc)
+                tile_split_map[i, m, :, : sm.shape[1]] = sm
+                split_rows += t.num_split_rows
+            elif tile_row_pos is not None and t.row_pos is not None:
+                tile_row_pos[i, m] = t.row_pos
+            if cfg.build_push:
+                pt = prepare_push_tiles(
+                    src_gidx[i, m], dst_lidx[i, m], valid[i, m],
+                    gathered_size=gathered, block_sources=push_block,
+                    num_rows=vpc, eb=peb,
+                    weights=weights[i, m] if weights is not None else None,
+                )
+                bb, pt_t = pt.src.shape[:2]
+                assert bb == b_blocks, (bb, b_blocks)
+                pw0, pw1 = pack_edge_words(
+                    pt.src, pt.dst, pt.valid, src_bits=push_src_bits
+                )
+                push_word[i, m, :, :pt_t] = pw0
+                if push_word_hi is not None:
+                    push_word_hi[i, m, :, :pt_t] = pw1
+                push_counts[i, m] = pt.tile_counts
+                if push_weights is not None and pt.weights is not None:
+                    push_weights[i, m, :, :pt_t] = pt.weights
+                push_coverage[i, m] = tile_coverage_words(
+                    np.asarray(push_word[i, m]),
+                    np.asarray(push_word_hi[i, m])
+                    if push_word_hi is not None
+                    else None,
+                    src_bits=push_src_bits, p=p, sub_size=sub_size,
+                )
+
+    if cfg.build_tiles:
+        tiles = dict(
+            tile_word=tile_word,
+            tile_word_hi=tile_word_hi,
+            tile_counts=tile_counts,
+            tile_weights=tile_weights,
+            tile_row_pos=tile_row_pos,
+            tile_coverage=tile_coverage,
+            tile_vb=vb,
+            src_bits=src_bits,
+            tile_row_orig=tile_row_orig,
+            tile_split_map=tile_split_map,
+            split_rows=split_rows,
+            t_max_unsplit=max(pl.t_tiles_unsplit for pl in plans.values()),
+        )
+        if cfg.build_push:
+            tiles.update(
+                push_word=push_word,
+                push_word_hi=push_word_hi,
+                push_counts=push_counts,
+                push_weights=push_weights,
+                push_coverage=push_coverage,
+                push_src_bits=push_src_bits,
+                push_block=push_block,
+            )
+
+    return PartitionedGraph(
+        p=p,
+        l=l,
+        sub_size=sub_size,
+        num_vertices=num_vertices,
+        num_edges=total,
+        src_gidx=src_gidx,
+        dst_lidx=dst_lidx,
+        valid=valid,
+        weights=weights,
+        perm=perm,
+        inv_perm=inv,
+        bucket_sizes=sizes,
+        config=cfg,
+        **tiles,
     )
 
 

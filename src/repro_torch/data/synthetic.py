@@ -1,8 +1,8 @@
 """Synthetic data: serving traffic (query streams, edge-insertion streams),
 LM token batches, recsys batches and graph batches.
 
-Counterpart of the serving, LM, recsys and graph generators of
-``repro.data.synthetic``: the same numpy RNG calls in the same order, so the
+Counterpart of the serving, skewed-graph, LM, recsys and graph generators
+of ``repro.data.synthetic``: the same numpy RNG calls in the same order, so the
 same seed gives the same arrays in both packages. Everything is drawn on the
 host with numpy; the graph generators wrap the arrays in a ``GraphBatch`` of
 CPU tensors (``GraphBatch.to`` moves it).
@@ -14,6 +14,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.graph import COOGraph
 from repro_torch.models.gnn.common import GraphBatch
 
 __all__ = [
@@ -23,6 +24,7 @@ __all__ = [
     "mixed_query_workload",
     "edge_insertion_stream",
     "admission_batches",
+    "skewed_graph",
     "lm_batch",
     "recsys_batch",
     "retrieval_batch",
@@ -166,6 +168,59 @@ def admission_batches(roots: np.ndarray, lanes: int) -> list:
             )
         out.append((chunk, served))
     return out
+
+
+def skewed_graph(
+    n: int,
+    *,
+    kind: str = "star",
+    hub_in_degree: int | None = None,
+    num_hubs: int = 1,
+    avg_degree: int = 2,
+    zipf_a: float = 1.6,
+    seed: int = 0,
+):
+    """Skew-heavy COOGraph generator for the hub-row-splitting perf path.
+
+    The engine pulls along IN-edges, so the load of a kernel row is a
+    vertex's in-degree — skew is therefore injected on the DESTINATION side
+    (unlike ``graph.star``, whose hub has out-degree n-1 but in-degree 0).
+
+      kind='star':     ``num_hubs`` hub vertices (ids 0..num_hubs-1) each
+                       receive ``hub_in_degree`` edges from uniform sources
+                       (duplicates kept: a multigraph, so hub in-degree can
+                       exceed n), plus a uniform background of n*avg_degree
+                       edges. wiki-talk-like: one row dwarfs the rest.
+      kind='powerlaw': in-degrees follow a Zipf(``zipf_a``) rank profile
+                       capped at ``hub_in_degree`` — RMAT-like heavy tail
+                       with tunable hub mass.
+
+    Deterministic in ``seed``. Returns a ``core.graph.COOGraph``.
+    """
+    rng = np.random.default_rng(np.random.SeedSequence([seed, n, num_hubs]))
+    if hub_in_degree is None:
+        hub_in_degree = n // 2
+    if kind == "star":
+        hub_dst = np.repeat(
+            np.arange(num_hubs, dtype=np.uint32), hub_in_degree
+        )
+        hub_src = rng.integers(0, n, hub_dst.shape[0]).astype(np.uint32)
+        bg_src = rng.integers(0, n, n * avg_degree).astype(np.uint32)
+        bg_dst = rng.integers(0, n, n * avg_degree).astype(np.uint32)
+        src = np.concatenate([hub_src, bg_src])
+        dst = np.concatenate([hub_dst, bg_dst])
+    elif kind == "powerlaw":
+        ranks = np.arange(1, n + 1, dtype=np.float64)
+        deg = np.minimum(
+            np.maximum((hub_in_degree / ranks**zipf_a), 1.0).astype(np.int64),
+            hub_in_degree,
+        )
+        dst = np.repeat(np.arange(n, dtype=np.uint32), deg)
+        src = rng.integers(0, n, dst.shape[0]).astype(np.uint32)
+    else:
+        raise ValueError(f"kind must be 'star' or 'powerlaw', got {kind!r}")
+    order = rng.permutation(src.shape[0])
+    return COOGraph(src=src[order], dst=dst[order], num_vertices=n)
 
 
 def lm_batch(seed: int, step: int, batch: int, seq: int, vocab: int) -> Dict[str, np.ndarray]:

@@ -31,6 +31,9 @@ __all__ = [
     "TilePlan",
     "PushTileLayout",
     "plan_tiles",
+    "plan_push_tiles",
+    "push_block_edges",
+    "auto_push_block",
     "prepare_tiles",
     "prepare_push_tiles",
     "choose_src_bits",
@@ -487,6 +490,46 @@ def plan_tiles(
         num_split_rows=0, s_max=1, row_pos=row_pos, row_orig=None,
         n_chunks=None, virt_base=None, virt_pos=None,
     )
+
+
+def plan_push_tiles(
+    src_counts: np.ndarray,  # (gathered_size,) real edges per gathered source
+    *,
+    gathered_size: int,
+    block_sources: int,
+    eb: int,
+) -> tuple[int, int]:
+    """Push-stream shape from per-source counts alone: ``(B, Tp)`` matching
+    what ``prepare_push_tiles`` will produce for the same bucket."""
+    counts = push_block_edges(src_counts, gathered_size=gathered_size,
+                              block_sources=block_sources)
+    return counts.shape[-1], max(1, int(-(-int(counts.max()) // eb)))
+
+
+def push_block_edges(
+    src_counts: np.ndarray, *, gathered_size: int, block_sources: int
+) -> np.ndarray:
+    """Real edges per source block of ``block_sources`` gathered sources,
+    from per-source counts on the last axis (``(..., gathered_size)`` ->
+    ``(..., B)``), the last block zero-padded."""
+    n_blocks = max(1, -(-gathered_size // block_sources))
+    src_counts = np.asarray(src_counts, dtype=np.int64)
+    pad = n_blocks * block_sources - src_counts.shape[-1]
+    if pad:
+        src_counts = np.concatenate(
+            [src_counts, np.zeros(src_counts.shape[:-1] + (pad,), np.int64)], axis=-1
+        )
+    return src_counts.reshape(src_counts.shape[:-1] + (n_blocks, block_sources)).sum(axis=-1)
+
+
+def auto_push_block(total_edges: int, p: int, l: int, gathered: int, peb: int) -> int:
+    """The partitioner's ``push_block=None`` rule: about two full push tiles
+    of the average bucket degree per block, 32-aligned, at most one gathered
+    block."""
+    avg_deg = total_edges / max(p * l, 1) / max(gathered, 1)
+    want = 2.0 * peb / max(avg_deg, 1e-9)
+    block = 32 * max(1, int(round(want / 32.0)))
+    return min(block, 32 * ((gathered + 31) // 32))
 
 
 def prepare_tiles(

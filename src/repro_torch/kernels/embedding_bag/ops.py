@@ -1,18 +1,26 @@
-"""EmbeddingBag entry point: the Hopper kernel on the card, the plain
-version on the CPU.
+"""EmbeddingBag entry point: the Hopper kernels on the card, the plain
+versions on the CPU, differentiable in the table.
 
 Counterpart of ``repro.kernels.embedding_bag.ops``. A CUDA tensor goes to
-the kernel (``kernel.embedding_bag_cuda``), which raises if it cannot be
-built or launched and never falls back; a CPU tensor goes to
-``ref.embedding_bag_reference``. Unlike the Pallas kernel, any number of
-bags is accepted (DIN's retrieval and recommend paths run B = 1).
+the forward kernel (``kernel.embedding_bag_cuda``) and its gradient to the
+backward kernel (``kernel.embedding_bag_backward_cuda``), each raising if it
+cannot be built or launched, never falling back; a CPU tensor goes to
+``ref.embedding_bag_reference`` and ``ref.embedding_bag_backward_reference``
+through the same ``torch.autograd.Function``. The gradient is the table's,
+each row summed in (b, i) order, so it is the same bits on every run and on
+both devices. Unlike the Pallas kernel, any number of bags is accepted
+(DIN's retrieval and recommend paths run B = 1).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
-from repro_torch.kernels.embedding_bag.ref import embedding_bag_reference
+from repro_torch.kernels.embedding_bag.kernel import (
+    embedding_bag_backward_cuda, embedding_bag_cuda,
+)
+from repro_torch.kernels.embedding_bag.ref import (
+    embedding_bag_backward_reference, embedding_bag_reference,
+)
 
 __all__ = ["embedding_bag"]
 
@@ -30,7 +38,26 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor, mode: str = "sum") -> 
     if table.device.type == "cuda":
         if not (table.is_contiguous() and ids.is_contiguous()):
             raise ValueError("kernel operands must be contiguous")
-        return embedding_bag_cuda(table, ids, mode)
-    if table.device.type != "cpu":
+    elif table.device.type != "cpu":
         raise ValueError(f"unsupported device {table.device}")
-    return embedding_bag_reference(table, ids, mode)
+    return _EmbeddingBag.apply(table, ids, mode)
+
+
+class _EmbeddingBag(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids, mode):
+        ctx.save_for_backward(ids)
+        ctx.mode, ctx.num_rows = mode, table.shape[0]
+        if table.device.type == "cuda":
+            return embedding_bag_cuda(table, ids, mode)
+        return embedding_bag_reference(table, ids, mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        g = g.contiguous()
+        if g.device.type == "cuda":
+            grad = embedding_bag_backward_cuda(g, ids, ctx.num_rows, ctx.mode)
+        else:
+            grad = embedding_bag_backward_reference(g, ids, ctx.num_rows, ctx.mode)
+        return grad, None, None

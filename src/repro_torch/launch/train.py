@@ -1,19 +1,21 @@
-"""Trainer CLI of the port: ``--arch <id>`` trains an LM or GNN arch at its
-smoke config on the device.
+"""Trainer CLI of the port: ``--arch <id>`` trains an LM, GNN or DIN arch at
+its smoke config on the device.
 
-Counterpart of ``repro.launch.train`` for the lm and gnn families:
+Counterpart of ``repro.launch.train``:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m --steps 50
     PYTHONPATH=src python -m repro_torch.launch.train --arch gat-cora --steps 100
+    PYTHONPATH=src python -m repro_torch.launch.train --arch din --steps 100
     PYTHONPATH=src python -m repro_torch.launch.train --arch gin-tu --steps 3 --device cpu
 
 Wiring: configs.registry -> train.steps builders -> a step loop timed by
 ``dist.fault_tolerance.StepMonitor``. LM archs train on ``lm_batch(seed=0,
 step)`` of ``--batch`` x ``--seq`` tokens; GNN node tasks on
 ``symmetrize(rmat(10, 8, seed=0))`` with 16 features and 4 classes, graph
-tasks on ``batched_molecules(step, 16 graphs of 16 nodes / 32 edges)``, as
-the reference's runners do. The recsys family and ``--ckpt`` wait for their
-slices (ROADMAP.md §1).
+tasks on ``batched_molecules(step, 16 graphs of 16 nodes / 32 edges)``; DIN
+on ``recsys_batch(0, step)`` of ``--batch`` users, the item rows by a take;
+as the reference's runners do. ``--ckpt`` waits for its slice (ROADMAP.md
+§1).
 """
 from __future__ import annotations
 
@@ -29,10 +31,6 @@ from repro_torch.train import steps as steps_mod
 from repro_torch.train.optim import AdamWConfig
 
 IN_DIM, OUT_DIM = 16, 4
-
-_WAITS = {
-    "recsys": "DIN training waits for its slice (ROADMAP.md §1, \"DIN training\")",
-}
 
 
 def _lm_runner(cfg, ocfg, batch, seq, device):
@@ -79,11 +77,29 @@ def _gnn_runner(arch, cfg, ocfg, device):
     return init_state, step_fn
 
 
+def _din_runner(cfg, ocfg, batch, device):
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.models.recsys import din
+
+    train = steps_mod.make_din_train_step(cfg, ocfg)
+
+    def init_state():
+        gen = torch.Generator(device=device).manual_seed(0)
+        return steps_mod.init_train_state(din.init(cfg, gen, device), ocfg)
+
+    def step_fn(state, i):
+        b = recsys_batch(0, i, batch, cfg.seq_len, cfg.item_vocab, cfg.cate_vocab,
+                         cfg.profile_bag_len)
+        return train(state, din.batch_to(b, device))
+
+    return init_state, step_fn
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
     ap.add_argument("--steps", type=int, default=100)
-    ap.add_argument("--batch", type=int, default=8, help="LM batch")
+    ap.add_argument("--batch", type=int, default=8, help="LM or DIN batch")
     ap.add_argument("--seq", type=int, default=128, help="LM sequence length")
     ap.add_argument("--reduced", action="store_true", default=True,
                     help="use the smoke config (the default, as the reference's)")
@@ -93,8 +109,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     arch = get(args.arch)
-    if arch.family in _WAITS:
-        raise SystemExit(f"--arch {args.arch}: {_WAITS[arch.family]}")
     if args.ckpt:
         raise SystemExit("--ckpt waits for the port of dist/{checkpoint,fault_tolerance}.py "
                          "(ROADMAP.md §1, \"Training infrastructure\")")
@@ -103,8 +117,10 @@ def main(argv=None):
     ocfg = AdamWConfig(lr=1e-3, total_steps=args.steps, warmup_steps=min(20, args.steps))
     if arch.family == "lm":
         init_state, step_fn = _lm_runner(cfg, ocfg, args.batch, args.seq, dev)
-    else:
+    elif arch.family == "gnn":
         init_state, step_fn = _gnn_runner(arch, cfg, ocfg, dev)
+    else:
+        init_state, step_fn = _din_runner(cfg, ocfg, args.batch, dev)
 
     monitor = StepMonitor()
     losses = []

@@ -8,7 +8,8 @@ parameters are a plain dict with the reference's tree layout, so
 
 The multi-hot user profile goes through the port's EmbeddingBag op
 (``kernels.embedding_bag.embedding_bag``): the hand-written Hopper kernel on
-the card, the plain version on the CPU. The item-table take goes through
+the card, the plain version on the CPU, and in training its backward (a
+second kernel on the card, summing each row's terms in a fixed order). The item-table take goes through
 ``lookup_fn`` when one is given (``dist.embedding.make_crossbar_lookup``,
 the serving router's path), else ``index_select``; the MLPs are plain
 matmuls.

@@ -9,6 +9,8 @@ each ``b``: the shape (p, l, B, Tp, Eb), the bytes of the packed words, the
 SSSP weights and the coverage words, and the share of stacked tiles that
 hold edges. It is host numpy only; the graph is the one ``chip_smoke.py``
 uses (graph500 RMAT, edge factor 16, deduplicated and symmetrized).
+``stream_push_footprint`` counts the same from a chunk stream in one pass,
+for the streaming build (``chip_smoke.py``'s ``stream_build``).
 
     PYTHONPATH=src python -m repro_torch.push_footprint --scale 20
 
@@ -24,39 +26,28 @@ import numpy as np
 
 from repro_torch.core import graph as G
 from repro_torch.core.frontier_words import coverage_word_count
-from repro_torch.core.partition import PartitionConfig, partition_2d
-from repro_torch.kernels.csr_gather_reduce.ops import choose_src_bits
+from repro_torch.core.partition import (
+    PartitionConfig, _resolve_dims, count_edge_stream, partition_2d,
+)
+from repro_torch.kernels.csr_gather_reduce.ops import (
+    auto_push_block, choose_src_bits, push_block_edges,
+)
 
-__all__ = ["auto_push_block", "push_footprint"]
-
-
-def auto_push_block(total_edges: int, p: int, l: int, gathered: int, peb: int) -> int:
-    """The partitioner's ``push_block=None`` rule: about two full push tiles
-    of the average bucket degree per block, 32-aligned, at most one gathered
-    block (``core.partition._build_tile_layouts``)."""
-    avg_deg = total_edges / max(p * l, 1) / max(gathered, 1)
-    want = 2.0 * peb / max(avg_deg, 1e-9)
-    block = 32 * max(1, int(round(want / 32.0)))
-    return min(block, 32 * ((gathered + 31) // 32))
+__all__ = ["auto_push_block", "push_footprint", "stream_push_footprint"]
 
 
-def push_footprint(pg, push_block, peb: int) -> dict:
-    """What the push stream of ``pg`` (flat bucket arrays) stacks at
-    ``push_block`` (an int, or None for the auto rule)."""
-    p, l, gathered = pg.p, pg.l, pg.gathered_size
-    total_edges = int(pg.valid.sum())
+def _footprint(src_counts: np.ndarray, push_block, peb: int, sub_size: int, vpc: int) -> dict:
+    """The stacked push stream at ``push_block`` (an int, or None for the auto
+    rule) from ``src_counts`` (p, l, gathered): real edges a gathered source
+    in each (core, phase) bucket."""
+    p, l, gathered = src_counts.shape
+    bucket_edges = src_counts.sum(axis=2)
+    total_edges = int(bucket_edges.sum())
     bs = push_block or auto_push_block(total_edges, p, l, gathered, peb)
-    n_blocks = max(1, -(-gathered // bs))
-    tiles = np.zeros((p, l, n_blocks), np.int64)
-    bucket_edges = np.zeros((p, l), np.int64)
-    for i in range(p):
-        for m in range(l):
-            src = pg.src_gidx[i, m][pg.valid[i, m]].astype(np.int64)
-            counts = np.bincount(src // bs, minlength=n_blocks)
-            tiles[i, m] = -(-counts // peb)
-            bucket_edges[i, m] = src.size
+    tiles = -(-push_block_edges(src_counts, gathered_size=gathered, block_sources=bs) // peb)
+    n_blocks = tiles.shape[-1]
     tp = max(1, int(tiles.max()))
-    src_bits = choose_src_bits(gathered, pg.vertices_per_core)
+    src_bits = choose_src_bits(gathered, vpc)
     slots = p * l * n_blocks * tp * peb
     return {
         "push_block": "auto" if push_block is None else push_block,
@@ -66,12 +57,36 @@ def push_footprint(pg, push_block, peb: int) -> dict:
         "src_bits": src_bits,
         "word_bytes": slots * 4 * (2 if src_bits == 32 else 1),
         "weight_bytes": slots * 4,
-        "coverage_bytes": p * l * n_blocks * tp * coverage_word_count(p, pg.sub_size) * 4,
+        "coverage_bytes": p * l * n_blocks * tp * coverage_word_count(p, sub_size) * 4,
         "real_tiles": int(tiles.sum()),
         "real_tile_share": float(tiles.sum()) / (p * l * n_blocks * tp),
         "largest_bucket_edges": int(bucket_edges.max()),
         "mean_bucket_edges": float(bucket_edges.mean()),
     }
+
+
+def push_footprint(pg, push_block, peb: int) -> dict:
+    """What the push stream of ``pg`` (flat bucket arrays) stacks at
+    ``push_block`` (an int, or None for the auto rule)."""
+    p, l, gathered = pg.p, pg.l, pg.gathered_size
+    src_counts = np.zeros((p, l, gathered), np.int64)
+    for i in range(p):
+        for m in range(l):
+            src = pg.src_gidx[i, m][pg.valid[i, m]].astype(np.int64)
+            src_counts[i, m] = np.bincount(src, minlength=gathered)
+    return _footprint(src_counts, push_block, peb, pg.sub_size, pg.vertices_per_core)
+
+
+def stream_push_footprint(chunks, num_vertices: int, cfg: PartitionConfig, blocks,
+                          peb: int) -> list:
+    """``push_footprint`` of the partition ``partition_2d_streaming(chunks,
+    num_vertices, cfg)`` would build, for each push block of ``blocks``, from
+    one pass of the streaming build's own source counting
+    (``count_edge_stream``): no edge is kept, so it sizes graphs whose flat
+    arrays would not fit."""
+    _, _, sub_size, vpc = _resolve_dims(num_vertices, cfg)
+    src_counts = count_edge_stream(chunks, num_vertices, cfg, rows=False, sources=True).src_counts
+    return [_footprint(src_counts, b, peb, sub_size, vpc) for b in blocks]
 
 
 def main() -> None:

@@ -16,6 +16,14 @@ retired one's copies are freed by the service via
 Binning is layout-stable across flushes: ``apply_edge_deltas`` never changes
 p, l, sub_size, or the stride permutation, so the buffer's coordinates stay
 valid no matter how many flushes happen while it fills.
+
+Memmap-backed partitions (``partition_2d_streaming(..., memmap_dir=...)``)
+flush like any other: ``np.memmap`` is an ndarray subclass, so the re-tile
+reads dirty bucket slices straight off disk, and the NEW partition's arrays
+come out of ``apply_edge_deltas`` as plain RAM arrays (clean-bucket data is
+copied, never aliased), leaving the on-disk build files untouched: safe to
+delete once the first flush retires them. Covered by
+tests/test_torch_streaming_partition.py.
 """
 from __future__ import annotations
 

@@ -1,13 +1,14 @@
-"""Train / serve step builders for the LM and GNN families.
+"""Train / serve step builders for the LM, GNN and DIN families.
 
-Counterpart of the LM and GNN builders of ``repro.train.steps``. Each
-builder returns a plain function: ``train_step(state, batch[, labels]) ->
-(new state, {"loss"})`` with the gradients from ``torch.autograd`` and the
-update from ``optim.adamw_update``; ``prefill(params, tokens)``,
-``decode(params, cache, tokens, pos)`` and ``infer(params, batch)`` run
-without autograd. ``TrainState`` is a plain dict {'params', 'opt'}; the
-step returns a new one and changes none of its tensors. The DIN builders
-come with the DIN training slice.
+Counterpart of ``repro.train.steps``. Each builder returns a plain
+function: ``train_step(state, batch[, labels]) -> (new state, {"loss"})``
+with the gradients from ``torch.autograd`` and the update from
+``optim.adamw_update``; ``prefill(params, tokens)``, ``decode(params,
+cache, tokens, pos)``, ``infer(params, batch)``, ``serve(params, batch)``
+and ``retrieve(params, batch)`` run without autograd. ``TrainState`` is a
+plain dict {'params', 'opt'}; the step returns a new one and changes none
+of its tensors. DIN's profile bag differentiates through the embedding-bag
+op's backward (a kernel on the card, ``kernels.embedding_bag.ops``).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 from repro_torch.models import transformer as tfm
 from repro_torch.models.gnn import archs as gnn
 from repro_torch.models.gnn.common import GraphBatch
+from repro_torch.models.recsys import din as din_mod
 from repro_torch.train import losses
 from repro_torch.train.optim import (
     AdamWConfig, adamw_update, init_adamw, tree_flatten, tree_map,
@@ -25,6 +27,7 @@ from repro_torch.train.optim import (
 
 __all__ = ["init_train_state", "make_lm_loss", "make_lm_train_step", "make_lm_prefill",
            "make_lm_decode_step", "make_gnn_loss", "make_gnn_train_step", "make_gnn_infer",
+           "make_din_loss", "make_din_train_step", "make_din_serve", "make_din_retrieval",
            "value_and_grad"]
 
 
@@ -170,3 +173,52 @@ def make_gnn_infer(cfg: gnn.GNNConfig, task: str = "node_class"):
         return out
 
     return infer
+
+
+# ---------------------------------------------------------------------------
+# RecSys (DIN)
+# ---------------------------------------------------------------------------
+
+
+def make_din_loss(cfg: din_mod.DINConfig, lookup_fn: Optional[Callable] = None):
+    """``loss_fn(params, batch)``: binary cross-entropy of the click logits
+    against ``batch["labels"]``."""
+    def loss_fn(params, batch):
+        logits = din_mod.score(params, batch, cfg, lookup_fn=lookup_fn)
+        return losses.binary_xent(logits, batch["labels"])
+
+    return loss_fn
+
+
+def make_din_train_step(
+    cfg: din_mod.DINConfig,
+    opt_cfg: AdamWConfig,
+    grad_transform: Optional[Callable] = None,
+    lookup_fn: Optional[Callable] = None,
+):
+    """``train_step(state, batch)`` on a ``recsys_batch`` of tensors (labels
+    included); the item rows by ``lookup_fn`` when given, else a take."""
+    loss_fn = make_din_loss(cfg, lookup_fn)
+
+    def train_step(state, batch):
+        loss, grads = value_and_grad(loss_fn, state["params"], batch)
+        new_state = _apply_update(state, grads, opt_cfg, grad_transform)
+        return new_state, {"loss": loss}
+
+    return train_step
+
+
+def make_din_serve(cfg: din_mod.DINConfig, lookup_fn: Optional[Callable] = None):
+    @torch.no_grad()
+    def serve(params, batch):
+        return din_mod.score(params, batch, cfg, lookup_fn=lookup_fn)
+
+    return serve
+
+
+def make_din_retrieval(cfg: din_mod.DINConfig, chunk: Optional[int] = None):
+    @torch.no_grad()
+    def retrieve(params, batch):
+        return din_mod.score_candidates(params, batch, cfg, chunk=chunk)
+
+    return retrieve

@@ -12,8 +12,12 @@ against the key order, and the gather's one-lane kernel on hand-made runs;
 the embedding-bag kernel against its plain version (sum and mean, odd D, the
 DIN width D = 18, B = 1, all-padding bags, a cold-table shape at a small N,
 bit-stability, and bit for bit over B = 1 to 512, L = 1 to 100, D = 1 to
-130, tables and ids off their aligned bases) and DIN ``score`` /
-``score_candidates`` on the card against the CPU run; the segment-softmax kernel against its plain version (heads,
+130, tables and ids off their aligned bases), its backward kernel bit for
+bit against the plain version on the CPU (B = 1 to 512, L = 1 to 100, D = 1
+to 130, hub ids, all padding, operands off their aligned bases, two runs)
+and through autograd, DIN ``score`` / ``score_candidates`` and one DIN
+train step on the card against the CPU run, and BFS on a memmap-backed
+streaming partition; the segment-softmax kernel against its plain version (heads,
 vb up to 8192, empty rows, all-invalid tiles, bit-stability) and GAT's
 forward and backward on the card against the CPU run; the one-bucket
 gather kernel against its plain version (every arm, plain, packed, split
@@ -977,6 +981,150 @@ def test_din_on_card_matches_cpu(cuda_device):
     torch.testing.assert_close(got_c.cpu(), want_c, rtol=1e-5, atol=1e-6)
 
 
+BAG_BACKWARD_D = [1, 2, 3, 18, 64, 130]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("d", BAG_BACKWARD_D)
+def test_cuda_embedding_bag_backward_sweep(d, mode, cuda_device):
+    """The backward kernel bit for bit against its plain version run on the
+    CPU (index_add_ there adds in (b, i) order), over B of BAG_SWEEP_B x L
+    of BAG_SWEEP_L at width d: random ids with a third padding and one bag
+    all padding, hub ids (one id in every slot), all padding; grad_out and
+    the ids also one element past an aligned base; the same bits on a
+    second launch."""
+    from repro_torch.kernels.embedding_bag import embedding_bag_backward_reference
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_backward_cuda
+
+    rng = np.random.default_rng(d * 11 + len(mode))
+    n = 700
+    for b in BAG_SWEEP_B:
+        for length in BAG_SWEEP_L:
+            rand = rng.integers(0, n, (b, length)).astype(np.int32)
+            rand[rng.random(rand.shape) < 0.3] = -1
+            rand[b // 2] = -1
+            cases = {"random": rand, "hub": np.full((b, length), 5, np.int32),
+                     "padding": np.full((b, length), -1, np.int32)}
+            scale = np.float32(10.0) ** rng.integers(-3, 3, (b, 1)).astype(np.float32)
+            g = (rng.standard_normal((b, d)).astype(np.float32) * scale).astype(np.float32)
+            g_base = torch.zeros(b * d + 1, device=cuda_device)
+            g_base[1:].copy_(torch.from_numpy(g.reshape(-1)))
+            g_views = {"aligned": torch.from_numpy(g).to(cuda_device),
+                       "offset": g_base[1:].view(b, d)}
+            for cname, ids in cases.items():
+                id_base = torch.full((b * length + 1,), -1, dtype=torch.int32,
+                                     device=cuda_device)
+                id_base[1:].copy_(torch.from_numpy(ids.reshape(-1)))
+                id_views = {"aligned": torch.from_numpy(ids).to(cuda_device),
+                            "offset": id_base[1:].view(b, length)}
+                want = embedding_bag_backward_reference(torch.from_numpy(g),
+                                                        torch.from_numpy(ids), n, mode)
+                for gname, iname in (("aligned", "aligned"), ("offset", "aligned"),
+                                     ("aligned", "offset")):
+                    where = f"{cname} B={b} L={length} grad_out {gname} ids {iname}"
+                    before = EB.LAUNCHES.get(f"{mode}_backward", 0)
+                    got = embedding_bag_backward_cuda(g_views[gname], id_views[iname], n, mode)
+                    again = embedding_bag_backward_cuda(g_views[gname], id_views[iname], n, mode)
+                    torch.cuda.synchronize()
+                    assert EB.LAUNCHES[f"{mode}_backward"] == before + 2, where
+                    assert got.shape == (n, d) and got.dtype == torch.float32, where
+                    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)), where
+                    assert torch.equal(got.view(torch.int32), again.view(torch.int32)), where
+
+
+@pytest.mark.cuda
+def test_cuda_embedding_bag_grad_through_the_op(cuda_device):
+    """torch.autograd.grad through ops.embedding_bag on the card: one forward
+    and one backward launch, the CPU's gradient bit for bit (untouched rows
+    0), and no backward launch where the table needs no gradient; a table of
+    no rows or no columns launches nothing."""
+    rng = np.random.default_rng(5)
+    n, d = 10_000, 18
+    table = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    ids = rng.integers(0, n, (512, 32)).astype(np.int32)
+    ids[rng.random(ids.shape) < 0.3] = -1
+    ids = torch.from_numpy(ids)
+    w = torch.from_numpy(rng.standard_normal((512, d)).astype(np.float32))
+    for mode in ("sum", "mean"):
+        grads = {}
+        for dev in ("cpu", cuda_device):
+            t = table.to(dev).requires_grad_(True)
+            EB.reset_launch_counts()
+            loss = (embedding_bag(t, ids.to(dev), mode) * w.to(dev)).sum()
+            (grads[str(dev)],) = torch.autograd.grad(loss, t)
+            if dev != "cpu":
+                torch.cuda.synchronize()
+                assert EB.LAUNCHES == {mode: 1, f"{mode}_backward": 1}
+        assert torch.equal(grads["cuda"].cpu().view(torch.int32),
+                           grads["cpu"].view(torch.int32))
+    EB.reset_launch_counts()
+    embedding_bag(table.to(cuda_device), ids.to(cuda_device))
+    torch.cuda.synchronize()
+    assert EB.LAUNCHES == {"sum": 1}
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_backward_cuda
+
+    for rows, cols in ((0, 18), (5, 0)):
+        out = embedding_bag_backward_cuda(torch.zeros(512, cols, device=cuda_device),
+                                          ids.to(cuda_device).clamp(max=rows - 1), rows, "sum")
+        assert out.shape == (rows, cols)
+    assert EB.LAUNCHES == {"sum": 1}
+
+
+@pytest.mark.cuda
+def test_cuda_din_train_step_matches_cpu(cuda_device):
+    """One DIN train step at the smoke config from the same weights on the
+    card and on the CPU: the loss and every gradient within rtol 1e-5 (atol
+    1e-8), cate_table's too, with one bag launch forward and one backward."""
+    from repro_torch.configs.registry import get
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.models.recsys import din
+    from repro_torch.train import steps
+    from repro_torch.train.optim import tree_flatten
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get("din").smoke()
+    cpu = din.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = _tree_to(cpu, cuda_device)
+    b = recsys_batch(0, 1, 256, cfg.seq_len, cfg.item_vocab, cfg.cate_vocab,
+                     cfg.profile_bag_len)
+    loss_fn = steps.make_din_loss(cfg)
+    EB.reset_launch_counts()
+    loss_g, grads_g = steps.value_and_grad(loss_fn, card, din.batch_to(b, cuda_device))
+    torch.cuda.synchronize()
+    assert EB.LAUNCHES == {"sum": 1, "sum_backward": 1}
+    loss_c, grads_c = steps.value_and_grad(loss_fn, cpu, din.batch_to(b, "cpu"))
+    torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-5, atol=1e-8)
+    for got, want in zip(tree_flatten(grads_g)[0], tree_flatten(grads_c)[0]):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-8)
+    torch.testing.assert_close(grads_g["cate_table"].cpu(), grads_c["cate_table"], rtol=1e-5,
+                               atol=1e-8)
+    assert grads_c["cate_table"].abs().sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pack_src_bits", [None, 32])
+def test_cuda_bfs_on_memmap_streaming_partition(pack_src_bits, tmp_path, cuda_device):
+    """partition_2d_streaming of an RMAT stream into memmap files, then BFS on
+    the card (default options and the static schedule) against the in-memory
+    build's labels on the card."""
+    from repro_torch.core.partition import partition_2d_streaming
+    from repro_torch.data import materialize, rmat_chunks
+
+    st = rmat_chunks(11, 8, seed=2, chunk_edges=5000, symmetric=True)
+    cfg = PartitionConfig(p=4, l=2, lane=8, tile_vb=64, pack_src_bits=pack_src_bits)
+    pm = partition_2d_streaming(st, st.num_vertices, cfg, memmap_dir=str(tmp_path))
+    assert isinstance(pm.tile_word, np.memmap)
+    assert pm.src_bits == (32 if pack_src_bits else 16)
+    g = materialize(st)
+    pg = partition_2d(g, cfg)
+    want = run(P.bfs(0), g, pg, device=cuda_device)
+    for opts in (EngineOptions(), EngineOptions(dynamic_tile_skip=False)):
+        got = run(P.bfs(0), g, pm, opts, device=cuda_device)
+        assert got.iterations == want.iterations
+        np.testing.assert_array_equal(got.labels["label"], want.labels["label"])
+
+
 # -- the segment-softmax kernel and GAT --------------------------------------
 
 SOFTMAX_TOL = dict(rtol=1e-5, atol=1e-7)  # online rescaling vs the plain version's final max
@@ -1466,6 +1614,8 @@ def test_cuda_flash_attention_refuses_what_it_cannot_launch(cuda_device):
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
     return tree.to(device)
 
 

@@ -350,6 +350,7 @@ def test_import_isolation():
         import repro_torch.core.frontier_words, repro_torch.push_footprint
         import repro_torch.kernels.build
         import repro_torch.kernels.csr_gather_reduce.scatter
+        import repro_torch.data, repro_torch.launch.train
         bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]
         print(','.join(bad))
     """)

@@ -8,8 +8,9 @@
     the reference's weights: losses and params within rtol 1e-5, atol 1e-6;
   * ``python -m repro_torch.launch.train --arch gat-cora --steps 3 --device
     cpu`` runs and prints its final line, as do ``--arch smollm-135m`` and
-    ``--arch granite-moe-1b-a400m`` with a finite loss; DIN and ``--ckpt``
-    exit with the ROADMAP item they wait for.
+    ``--arch granite-moe-1b-a400m`` with a finite loss, and ``--arch din``
+    (3 steps, its final line); ``--ckpt`` exits with the ROADMAP item it
+    waits for.
 
 Inputs come from numpy seeds.
 """
@@ -190,8 +191,19 @@ def test_train_cli_runs_lm_on_cpu(arch):
     assert np.isfinite(first) and np.isfinite(final)
 
 
-@pytest.mark.parametrize("args,says", [(("--arch", "din"), "DIN training"),
-                                       (("--arch", "gin-tu", "--ckpt", "x"), "--ckpt")])
+def test_train_cli_runs_din_on_cpu():
+    proc = _cli("--arch", "din", "--steps", "3", "--batch", "16", "--device", "cpu")
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert lines[0].startswith("step     0  loss ")
+    last = lines[-1]
+    assert last.startswith("final: loss ") and "'steps': 3" in last, last
+    first, final = (float(x) for x in last.split("final: loss ")[1].split(";")[0].split(" -> "))
+    assert np.isfinite(first) and np.isfinite(final)
+
+
+@pytest.mark.parametrize("args,says", [(("--arch", "gin-tu", "--ckpt", "x"), "--ckpt"),
+                                       (("--arch", "din", "--ckpt", "x"), "--ckpt")])
 def test_train_cli_names_what_waits(args, says):
     proc = _cli(*args, "--steps", "1", "--device", "cpu")
     assert proc.returncode != 0 and says in proc.stderr and "ROADMAP" in proc.stderr

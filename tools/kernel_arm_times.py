@@ -2,7 +2,7 @@
 """Time every arm of the port's two CUDA kernels on one partition.
 
     python3 tools/kernel_arm_times.py [--src DIR] [--variant NAME] [--arms A,B]
-                                      [--scale 20] [--out FILE]
+                                      [--scale 20] [--holds 256] [--out FILE]
 
 Builds the smoke's graph and partition (graph500 RMAT, edge factor 16, seed
 0, ``chip_smoke.CFG``), then, for each arm, launches the kernel once per
@@ -32,8 +32,12 @@ times a copy of those sources with the text edits of ``VARIANTS[NAME]`` in
 design question answered in the same call as the kernels as they are.
 ``--arms`` keeps the arms whose names start with one of the comma-separated
 prefixes (``scatter``, ``gather[sum``, ``bucket``, ``softmax``; default:
-every arm, the bucket forms and the softmax). One JSON line goes to stdout
-(and to ``--out``). Needs a CUDA device.
+every arm, the bucket forms and the softmax). ``--holds`` gives the
+launches enqueued a hold (default 256); with several, each arm is timed at
+each, in ``ms_by_hold`` (``ms``: the first): past the launch queue's depth
+the reading becomes the host's refill rate, which a variant that returns at
+once (``--variant bucket_return_at_once --arms bucket``) shows. One JSON
+line goes to stdout (and to ``--out``). Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -103,7 +107,10 @@ def main() -> int:
     ap.add_argument("--out", type=Path)
     ap.add_argument("--variant", help="a name of tools/arm_variants.py's VARIANTS")
     ap.add_argument("--arms", help="comma-separated prefixes of the arms to time")
+    ap.add_argument("--holds", default=str(QUEUED_LAUNCHES),
+                    help="comma-separated launches enqueued a hold (the first gives ms)")
     args = ap.parse_args()
+    holds = [int(h) for h in args.holds.split(",")]
     keep = tuple(args.arms.split(",")) if args.arms else ("",)
     if args.variant:
         args.src = variant_tree(args.src, args.variant)
@@ -171,7 +178,7 @@ def main() -> int:
 
     hold = {}  # whether the last event_ms call's holds outlasted its enqueues
 
-    def event_ms(fn, reps, launches=1):
+    def event_ms(fn, reps, launches=1, queued=QUEUED_LAUNCHES):
         """Device ms per call of ``fn`` (``launches`` kernel launches) by
         CUDA events around ``reps`` calls, a spin kernel holding the stream
         while the host enqueues them, at most QUEUED_LAUNCHES launches a
@@ -185,7 +192,7 @@ def main() -> int:
         fn()
         torch.cuda.synchronize()
         call_s = time.perf_counter() - t
-        per_hold = max(1, QUEUED_LAUNCHES // launches)
+        per_hold = max(1, queued // launches)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         total_ms, done, covered = 0.0, 0, True
         while done < reps:
@@ -203,6 +210,17 @@ def main() -> int:
             done += n
         hold["hold_covered"] = covered
         return total_ms / reps
+
+    def timed(fn, reps, launches=1):
+        """{"ms": per launch at holds[0], "hold_covered"[, "ms_by_hold"]}."""
+        by_hold = {}
+        for h in holds:
+            by_hold[h] = event_ms(fn, reps, launches, h) / launches
+            by_hold[f"{h}_covered"] = hold["hold_covered"]
+        out = dict(ms=by_hold[holds[0]], hold_covered=by_hold[f"{holds[0]}_covered"])
+        if len(holds) > 1:
+            out["ms_by_hold"] = by_hold
+        return out
 
     results = {}
     for name, (kern, kind, edge_op, identity, lanes, pkind, sched) in ARMS.items():
@@ -228,8 +246,8 @@ def main() -> int:
         for o in outs:
             digest.update(o.cpu().numpy().tobytes())
         del outs
-        results[name] = dict(ms=event_ms(launch_all, args.reps, pg.l) / pg.l,
-                             sha256=digest.hexdigest()[:16], **hold)
+        results[name] = dict(**timed(launch_all, args.reps, pg.l),
+                             sha256=digest.hexdigest()[:16])
         del calls
 
     # the one-bucket kernel over every (core, phase) bucket, tiled as the
@@ -270,8 +288,8 @@ def main() -> int:
                 digest.update(o.cpu().numpy().tobytes())
             same = all(torch.equal(a, b) for a, b in zip(outs, again))
             del outs, again
-            results[name] = dict(ms=event_ms(launch_all, args.reps, len(calls)) / len(calls),
-                                 sha256=digest.hexdigest()[:16], same_bits_twice=same, **hold)
+            results[name] = dict(**timed(launch_all, args.reps, len(calls)),
+                                 sha256=digest.hexdigest()[:16], same_bits_twice=same)
         del layouts
 
     # the segment softmax at chip_smoke's two GAT layouts, H = 8
@@ -293,15 +311,15 @@ def main() -> int:
 
         out = launch()
         torch.cuda.synchronize()
-        softmax[label] = dict(ms=event_ms(launch, args.reps), **hold, vb=dt.vb,
+        softmax[label] = dict(**timed(launch, args.reps), vb=dt.vb,
                               shape=list(shape),
                               sha256=hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16])
         del scores, out, dt
     line = dict(src=str(args.src), variant=args.variant, card=smi, scale=args.scale, config=CFG,
-                reps=args.reps, setup_seconds=setup_s, bucket_setup_seconds=bucket_setup_s,
+                reps=args.reps, holds=holds, setup_seconds=setup_s, bucket_setup_seconds=bucket_setup_s,
                 arms=results, softmax=softmax,
                 note="ms: device time per launch by CUDA events around reps passes (the stream "
-                     "held while the host enqueues them, at most 256 launches a hold), "
+                     "held while the host enqueues them, at most holds[0] launches a hold), "
                      "averaged over the l phase streams (bucket: over the p * l buckets); "
                      "softmax: one launch a pass; sha256: of every phase's output; "
                      "hold_covered: every hold outlasted its enqueue")
