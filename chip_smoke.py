@@ -64,6 +64,37 @@ Phases, one JSON line each (``{"phase": ..., "seconds": ...}``):
   reference  a small graph through the port on the card against the numpy
              oracles of ``repro_torch.core.reference``
 
+The paper's baseline and the multi-channel engine (after the laneless
+paths, on the same graph and partition):
+
+  edge_centric  partition_edge_centric(p=4) and BFS, WCC, SSSP and PageRank
+             through run_edge_centric on the card (the synchronous
+             HitGraph/ThunderGP baseline: an index_select and a per-core
+             segment reduce an iteration): labels bit-equal to the oracle
+             backend's (PageRank within DIST_PR_TOL); iterations and MTEPS
+             beside the GraphScale engine's default runs, 8 B an edge beside
+             pg.stream_bytes_per_edge
+  distributed  the partition's arrays written once under build/distributed
+             (np.save), then 4 spawned ranks (one a graph core, gloo, the
+             crossbar staged through the host, all on this card) that
+             memory-map them and upload only their core: BFS, WCC, SSSP
+             (default and static), PageRank, a K = 16 BFS batch and the
+             frontier engine (budget 64), each against engine.run here
+             (labels and iterations bit-equal; PageRank within DIST_PR_TOL);
+             the GNN aggregate (l = 4) and the GAT loss and gradients (l =
+             1) at gat-cora's published width on the Cora shape against the
+             one-device model (the aggregate within AGG_REL of its terms'
+             magnitudes, the loss and gradients within 1e-5); the crossbar
+             lookup of DIN's item table sharded 4 ways against the one-shard
+             lookup (rows, the table gradient; at tight queues the dropped
+             count and rows). Per rank: kernel launches (#1, #2, #5, counted
+             over these paths, the comparisons after), device bytes (a
+             quarter of one process's), MTEPS (host-staged: no prediction
+             of a four-card run)
+  distributed_nccl  the NCCL code path at world size 1: a p = 1 partition
+             of RMAT scale 16, BFS, WCC, SSSP, PageRank against engine.run
+             on the same card
+
 This slice's paths (multi-query lanes and graph serving, K = 16):
 
   lanes_kernels  each lane arm against its plain version on phase 0 of the
@@ -264,11 +295,12 @@ for a window of one kernel), so busy times and idle shares from it are
 floors.
 
 Then a ``{"kernels": [...]}`` line (the laneless variants' launches from
-main_path, the lane variants' from lanes_engine, the embedding bag's from
+main_path, the lane variants' from lanes_engine, both plus the distributed
+ranks' and the NCCL arm's, the embedding bag's from
 din, din_train and serve, timed at shape (a); the bag backward's from
 din_train, timed at shape (e); the bucket kernel's from bucket; the
-softmax kernel's from gnn's timed train steps and forwards, timed at shape
-(a); the flash kernel's from lm's counted prefills and train steps, timed
+softmax kernel's from gnn's timed train steps and forwards and the
+distributed GAT layers, timed at shape (a); the flash kernel's from lm's counted prefills and train steps, timed
 at shape (a)) and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero; it also exits non-zero, printing no
 result, when no CUDA device is present or the port's sources are missing.
@@ -395,6 +427,17 @@ IDENTITY_FIELDS = (
     "push_coverage",
 )
 STREAM_PUSH_BLOCKS = (65536, 131072)  # push_block candidates of the scale-21 stream
+# the multi-channel engine: one rank a graph core, sharing the one card over
+# gloo (the crossbar staged through the host); a spawn's time limit
+DIST_TIMEOUT_S = 600
+DIST_BUDGET = 64  # the frontier engine's sparse-exchange budget K (the reference's default)
+# PageRank, distributed vs single-process: the reference's own tolerance
+# (tests/test_distributed_equiv.py)
+DIST_PR_TOL = dict(rtol=2e-5, atol=1e-8)
+# a sum of rows on the card against another order: 1e-5 of the sum of the
+# terms' magnitudes (the float32 reassociation bound), plus a floor
+AGG_REL = 1e-5
+NCCL_SCALE = 16  # the NCCL arm: world size 1, a p = 1 partition of RMAT scale 16
 
 
 def emit(phase: str, t0: float, **kw) -> None:
@@ -462,6 +505,310 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+def save_partition(pg, g, where: Path) -> int:
+    """Write every array field of ``pg`` and the graph's edge arrays as .npy
+    files under ``where`` (in parallel), the scalars and the config as JSON,
+    so spawned ranks memory-map them instead of unpickling the partition.
+    Returns the bytes written."""
+    import numpy as np
+
+    shutil.rmtree(where, ignore_errors=True)
+    where.mkdir(parents=True)
+    arrays, scalars, absent = {}, {}, []
+    for f in dataclasses.fields(pg):
+        v = getattr(pg, f.name)
+        if f.name == "device_cache":
+            continue
+        if isinstance(v, np.ndarray):
+            arrays[f.name] = v
+        elif v is None:
+            absent.append(f.name)
+        elif f.name == "config":
+            scalars[f.name] = dataclasses.asdict(v)
+        else:
+            scalars[f.name] = int(v)
+    arrays.update(graph_src=g.src, graph_dst=g.dst)
+    if g.weights is not None:
+        arrays["graph_weights"] = g.weights
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda kv: np.save(where / f"{kv[0]}.npy", kv[1]), arrays.items()))
+    (where / "meta.json").write_text(json.dumps(dict(
+        scalars=scalars, absent=absent, arrays=sorted(arrays), graph_vertices=g.num_vertices)))
+    return sum(a.nbytes for a in arrays.values())
+
+
+def load_partition(where: Path):
+    """``save_partition``'s partition and graph, their arrays memory-mapped."""
+    import numpy as np
+
+    from repro_torch.core.graph import COOGraph
+    from repro_torch.core.partition import PartitionedGraph
+
+    meta = json.loads((where / "meta.json").read_text())
+    arrs = {n: np.load(where / f"{n}.npy", mmap_mode="r") for n in meta["arrays"]}
+    g = COOGraph(src=arrs.pop("graph_src"), dst=arrs.pop("graph_dst"),
+                 num_vertices=meta["graph_vertices"], weights=arrs.pop("graph_weights", None))
+    pg = PartitionedGraph.from_numpy({**meta["scalars"], **arrs,
+                                      **{n: None for n in meta["absent"]}})
+    return pg, g
+
+
+def label_digest(labels: dict) -> str:
+    """SHA-256 over a result's label arrays (key, dtype, shape, bytes)."""
+    import numpy as np
+
+    h = hashlib.sha256()
+    for k in sorted(labels):
+        a = np.ascontiguousarray(labels[k])
+        h.update(f"{k}{a.dtype.str}{a.shape}".encode())
+        h.update(memoryview(a.reshape(-1).view(np.uint8)))
+    return h.hexdigest()
+
+
+def _cora_shape(d_feat: int, n_classes: int):
+    """gat-cora's full_graph_sm graph (symmetrize(rmat(12, 2, seed 0)),
+    4096 nodes), its seeded features and labels (CPU)."""
+    import repro_torch.core.graph as G
+    from repro_torch.data.synthetic import graph_batch_from_coo
+
+    gcora = G.symmetrize(G.rmat(12, 2, seed=SEED))
+    b, lab = graph_batch_from_coo(gcora.src, gcora.dst, gcora.num_vertices, d_feat, seed=SEED,
+                                  n_classes=n_classes)
+    return gcora, b, lab
+
+
+def distributed_rank(rank: int, group, spec: dict) -> dict:
+    """One rank (graph core) of the multi-channel engine on the smoke
+    partition, then GNN aggregation, GAT training math and the crossbar
+    lookup over the same ranks. The counted paths run first, the kernel
+    launch counts are read right after them, and only then the comparisons
+    that launch kernels themselves (not counted)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+
+    import repro_torch.core.graph as G
+    from repro_torch.configs.registry import get as get_arch
+    from repro_torch.core.distributed import build_distributed_run, run_distributed, transport
+    from repro_torch.core.engine import EngineOptions, prepare_labels
+    from repro_torch.core.frontier import run_distributed_frontier
+    from repro_torch.core.partition import PartitionConfig, partition_2d
+    from repro_torch.core.problems import bfs, bfs_multi, pagerank, sssp, wcc
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.dist.embedding import crossbar_lookup_local, make_crossbar_lookup, make_exchange
+    from repro_torch.dist.gat_parallel import make_gat_graphscale_loss
+    from repro_torch.dist.gnn_parallel import make_graphscale_aggregate, shard_features
+    from repro_torch.kernels.csr_gather_reduce import kernel as K
+    from repro_torch.kernels.csr_gather_reduce import scatter as S
+    from repro_torch.kernels.segment_softmax import kernel as SK
+    from repro_torch.models.gnn import archs as gnn_archs
+    from repro_torch.models.gnn.common import aggregate
+    from repro_torch.train.losses import masked_softmax_xent
+    from repro_torch.train.optim import tree_flatten
+
+    dev = torch.device(spec["device"])
+    p = spec["ranks"]
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    pg, g = load_partition(Path(spec["dir"]))
+    static = EngineOptions(dynamic_tile_skip=False)
+    runs = [("bfs", bfs(0), EngineOptions()), ("wcc", wcc(), EngineOptions()),
+            ("sssp", sssp(0), EngineOptions()), ("pagerank", pagerank(), EngineOptions()),
+            ("bfs_static", bfs(0), static), ("wcc_static", wcc(), static),
+            ("sssp_static", sssp(0), static),
+            ("bfs_multi", bfs_multi(spec["roots"]), EngineOptions(lanes=len(spec["roots"])))]
+    device_bytes = {}
+    for name, problem, opts in runs:  # this core's stream on the card (set-up)
+        device_bytes[name] = build_distributed_run(problem, pg, group, opts, dev).device_bytes
+    labels0 = {name: prepare_labels(problem, g, pg, device=dev) for name, problem, _ in runs}
+    # the GNN inputs: gat-cora's Cora shape (set-up)
+    gat_cfg = get_arch("gat-cora").model
+    gcora, cb, clab = _cora_shape(spec["d_feat"], spec["n_classes"])
+    pga = partition_2d(gcora, PartitionConfig(p=p, l=4, lane=8))
+    pgt = partition_2d(gcora, PartitionConfig(p=p, l=1, lane=8))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    params = gnn_archs.init(gat_cfg, spec["d_feat"], spec["n_classes"], gen, dev)
+    for k in ("l1_asrc", "l1_adst", "l2_asrc", "l2_adst"):
+        params[k] = torch.randn(params[k].shape, generator=gen, device=dev) * 0.5
+    leaves = [t.requires_grad_() for t in tree_flatten(params)[0]]
+    vpc = pgt.vertices_per_core
+    tedges = [torch.from_numpy(np.ascontiguousarray(a[rank : rank + 1])).to(dev)
+              for a in (pgt.src_gidx, pgt.dst_lidx, pgt.valid)]
+    lab_pad = np.zeros(pgt.padded_vertices, np.int32)
+    lab_pad[pgt.perm[: gcora.num_vertices] if pgt.perm is not None else slice(0, gcora.num_vertices)] \
+        = clab
+    mask_pad = np.zeros(pgt.padded_vertices, np.float32)
+    mask_pad[pgt.perm[: gcora.num_vertices] if pgt.perm is not None else slice(0, gcora.num_vertices)] \
+        = 1.0
+    lab_t = torch.from_numpy(lab_pad[rank * vpc : (rank + 1) * vpc]).to(dev)
+    mask_t = torch.from_numpy(mask_pad[rank * vpc : (rank + 1) * vpc]).to(dev)
+    feat_a = shard_features(cb.node_feat.numpy(), pga, group, dev)
+    feat_t = shard_features(cb.node_feat.numpy(), pgt, group, dev)
+    # the lookup: DIN's item table at published width, sharded over the ranks
+    vocab, dim = spec["item_vocab"], spec["embed_dim"]
+    tgen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    table = torch.randn(vocab, dim, generator=tgen, device=dev)
+    rows = vocab // p
+    local = table[rank * rows : (rank + 1) * rows].clone().requires_grad_()
+    all_ids = [torch.from_numpy(recsys_batch(SEED, r, spec["batch"], spec["seq_len"], vocab,
+                                             spec["cate_vocab"])["hist_items"]).to(dev)
+               for r in range(p)]
+    sync()
+    setup_s = time.perf_counter() - t0
+
+    # -- the counted paths ---------------------------------------------------
+    K.reset_launch_counts()
+    S.reset_launch_counts()
+    SK.reset_launch_counts()
+    out = {"runs": {}, "setup_seconds": setup_s}
+    for name, problem, opts in runs:
+        sync()
+        t = time.perf_counter()
+        res = run_distributed(problem, g, pg, group, opts, labels=labels0[name], device=dev)
+        sync()
+        out["runs"][name] = dict(iterations=res.iterations, converged=res.converged,
+                                 seconds=time.perf_counter() - t,
+                                 digest=label_digest(res.labels),
+                                 labels=res.labels if rank == 0 else None)
+    sync()
+    t = time.perf_counter()
+    fres, fstats = run_distributed_frontier(bfs(0), g, pg, group, budget=spec["budget"],
+                                            device=dev)
+    sync()
+    out["frontier"] = dict(iterations=fres.iterations, converged=fres.converged,
+                           seconds=time.perf_counter() - t, stats=fstats,
+                           digest=label_digest(fres.labels),
+                           labels=fres.labels if rank == 0 else None)
+    agg = make_graphscale_aggregate(pga, group, dev)(feat_a)
+    loss_fn = make_gat_graphscale_loss(group, vpc, gat_cfg.n_heads, gat_cfg.d_hidden)
+    sync()
+    t = time.perf_counter()
+    loss = loss_fn(params, feat_t, *tedges, lab_t, mask_t)
+    grads = torch.autograd.grad(loss, leaves)
+    sync()
+    gat_s = time.perf_counter() - t
+    exchange, n_shards = make_exchange(group)
+    ids = all_ids[rank].reshape(-1)
+    got = make_crossbar_lookup(group, capacity_factor=4.0)(local, ids)
+    (g_local,) = torch.autograd.grad((got ** 2).sum(), local)
+    # tight queues, the same depth on every rank: half the uniform share of
+    # the ids (about half of them padding), so some shards overflow
+    cap = max(1, ids.shape[0] // (2 * n_shards))
+    small, dropped = crossbar_lookup_local(local.detach(), ids, exchange, n_shards, cap)
+    sync()
+    out["launches"] = {"gather_reduce_cores": dict(K.LAUNCHES),
+                       "scatter_reduce_cores": dict(S.LAUNCHES),
+                       "segment_softmax": dict(SK.LAUNCHES)}
+
+    # -- comparisons (not counted) ---------------------------------------------
+    # aggregate: the single-device sum over the whole graph, in engine order,
+    # within AGG_REL of the sum of the terms' magnitudes
+    src_t = torch.from_numpy(gcora.src.astype(np.int64)).to(dev)
+    dst_t = torch.from_numpy(gcora.dst.astype(np.int64)).to(dev)
+    fx = cb.node_feat.to(dev)
+    want = aggregate(fx[src_t], dst_t, gcora.num_vertices)
+    scale = aggregate(fx[src_t].abs(), dst_t, gcora.num_vertices)
+
+    def engine_rows(x):
+        padded = torch.zeros((pga.padded_vertices, x.shape[1]), dtype=x.dtype, device=dev)
+        where = torch.from_numpy(pga.perm[: gcora.num_vertices]).to(dev) if pga.perm is not None \
+            else torch.arange(gcora.num_vertices, device=dev)
+        padded[where] = x
+        return padded.view(p, pga.vertices_per_core, -1)[rank]
+
+    err = (agg[0] - engine_rows(want)).abs()
+    out["aggregate"] = dict(max_abs_err=float(err.max()),
+                            ok=bool((err <= AGG_REL * engine_rows(scale) + 1e-6).all()))
+    # GAT: the port's dense loss and gradients on one device
+    batch = cb.to(dev)
+    dense = masked_softmax_xent(gnn_archs.apply(params, batch, gat_cfg),
+                                torch.from_numpy(clab).to(dev),
+                                torch.ones(gcora.num_vertices, device=dev))
+    dgrads = torch.autograd.grad(dense, leaves)
+    loss, dense = float(loss.detach()), float(dense.detach())
+    gat_ok = abs(loss - dense) <= 1e-5 * abs(dense)
+    worst = 0.0
+    for a, b in zip(grads, dgrads):
+        bound = 1e-5 * b.abs() + 1e-5 * float(b.abs().max())
+        gat_ok &= bool(((a - b).abs() <= bound).all())
+        worst = max(worst, float((a - b).abs().max() / max(float(b.abs().max()), 1e-30)))
+    out["gat"] = dict(loss=loss, dense_loss=dense, seconds=gat_s, ok=gat_ok,
+                      max_grad_err_over_max=worst)
+    # the lookup: the one-shard lookup over the whole table
+    one = make_crossbar_lookup()
+    want_rows = one(table, ids)
+    full = table.detach().clone().requires_grad_()
+    (g_full,) = torch.autograd.grad(sum((one(full, i.reshape(-1)) ** 2).sum() for i in all_ids),
+                                    full)
+    g_want = g_full[rank * rows : (rank + 1) * rows]
+    # the capacity run: which ids fit their shard's queue, in id order
+    ids_np = ids.cpu().numpy()
+    shard = np.where(ids_np >= 0, ids_np // rows, -1)
+    served = np.zeros(ids_np.shape, bool)
+    taken = np.zeros(n_shards, np.int64)
+    for i, s_ in enumerate(shard):
+        if s_ >= 0 and taken[s_] < cap:
+            served[i], taken[s_] = True, taken[s_] + 1
+    want_small = torch.where(torch.from_numpy(served).to(dev)[:, None], want_rows,
+                             torch.zeros((), device=dev))
+    out["lookup"] = dict(
+        rows_equal=bool(torch.equal(got, want_rows)),
+        grad_ok=bool(torch.allclose(g_local, g_want, rtol=1e-5, atol=1e-6)),
+        grad_max_err=float((g_local - g_want).abs().max()),
+        capacity=cap, dropped=int(dropped), dropped_expected=int(((shard >= 0) & ~served).sum()),
+        small_rows_equal=bool(torch.equal(small, want_small)), ids=int(ids.shape[0]))
+    out.update(transport=transport(group), device_bytes=device_bytes,
+               cuda_device=torch.cuda.current_device() if dev.type == "cuda" else None)
+    return out
+
+
+def nccl_rank(rank: int, group, spec: dict) -> dict:
+    """The NCCL code path at world size 1: a p = 1 partition of RMAT scale
+    NCCL_SCALE, BFS, WCC, SSSP and PageRank through the multi-channel engine
+    (launches counted) against the single-process engine on the same card."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+
+    import repro_torch.core.graph as G
+    from repro_torch.core.distributed import run_distributed, transport
+    from repro_torch.core.engine import EngineOptions, run
+    from repro_torch.core.partition import PartitionConfig, partition_2d
+    from repro_torch.core.problems import bfs, pagerank, sssp, wcc
+    from repro_torch.kernels.csr_gather_reduce import kernel as K
+    from repro_torch.kernels.csr_gather_reduce import scatter as S
+
+    dev = torch.device(spec["device"])
+    g0 = G.symmetrize(G.rmat(spec["scale"], 16, a=0.57, b=0.19, c=0.19, seed=SEED))
+    w = np.random.default_rng(SEED).random(g0.num_edges).astype(np.float32)
+    g = G.COOGraph(src=g0.src, dst=g0.dst, num_vertices=g0.num_vertices, weights=w)
+    pg = partition_2d(g, PartitionConfig(p=1, l=4, tile_vb=1024))
+    runs = [("bfs", bfs(0)), ("wcc", wcc()), ("sssp", sssp(0)), ("pagerank", pagerank())]
+    K.reset_launch_counts()
+    S.reset_launch_counts()
+    got = {name: run_distributed(prob, g, pg, group, EngineOptions(), device=dev)
+           for name, prob in runs}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = {"gather_reduce_cores": dict(K.LAUNCHES), "scatter_reduce_cores": dict(S.LAUNCHES)}
+    agree = {}
+    for name, prob in runs:
+        want = run(prob, g, pg, EngineOptions(), device=dev)
+        a, b = got[name].labels["label"], want.labels["label"]
+        same = got[name].iterations == want.iterations
+        if name == "pagerank":
+            same &= bool(np.allclose(a, b, **DIST_PR_TOL))
+        else:
+            same &= a.dtype == b.dtype and bool(np.array_equal(a, b))
+        agree[name] = dict(iterations=got[name].iterations, equal=same)
+    return dict(transport=transport(group), launches=launches, agree=agree,
+                edges=g.num_edges, vertices=g.num_vertices)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scale", type=int, default=20)
@@ -495,9 +842,13 @@ def main() -> int:
         EngineOptions, _edge_constants, channel_phase_reduce, channel_phase_reduce_oracle,
         make_iteration, phase_consts_at, prepare_labels, run, run_frontier_trace,
     )
+    from repro_torch.core.edge_centric import EdgeCentricOptions, run_edge_centric
+    from repro_torch.core.graph import bytes_per_edge
     from repro_torch.core.partition import (
         PartitionConfig, coo_edge_chunks, partition_2d, partition_2d_streaming,
+        partition_edge_centric,
     )
+    from repro_torch.launch.mesh import spawn_ranks
     from repro_torch.core.problems import (
         bfs, bfs_multi, pagerank, ppr_multi, sssp, sssp_multi, wcc,
     )
@@ -933,7 +1284,7 @@ def main() -> int:
         K.reset_launch_counts()
         S.reset_launch_counts()
         t0 = time.perf_counter()
-        results = {}
+        results, run_mteps = {}, {}
 
         def main_run(name, problem, opts):
             t = time.perf_counter()
@@ -945,6 +1296,7 @@ def main() -> int:
             sync()
             sec = time.perf_counter() - t1
             results[name] = res
+            run_mteps[name] = n_edges / sec / 1e6
             lab = res.labels["label"]
             check(lab.shape == (g.num_vertices,), f"{name}: label shape {lab.shape}")
             check(res.converged, f"{name}: did not converge in {res.iterations} iterations")
@@ -1063,7 +1415,7 @@ def main() -> int:
 
         # -- oracle backend on the card, kernel PR bit-stability -------------------
         t0 = time.perf_counter()
-        agree_o = {}
+        agree_o, oracle_results = {}, {}
         for name, problem in runs[:4]:
             labels = prepare_labels(problem, g, pg, device=dev)
             sync()
@@ -1086,6 +1438,7 @@ def main() -> int:
                           f"{got_name}: labels differ from oracle by {err}")
             agree_o[name] = dict(iterations=ref.iterations, oracle_seconds=sec,
                                  oracle_mteps=n_edges / sec / 1e6, max_abs_diff=err)
+            oracle_results[name] = ref
         pr_a = results["pagerank"].labels["label"]
         pr_b = results["pagerank_repeat"].labels["label"]
         check(pr_a.tobytes() == pr_b.tobytes(), "pagerank: two kernel runs gave different bits")
@@ -1109,9 +1462,181 @@ def main() -> int:
                           reference.pagerank_reference(gs), atol=1e-4),
               "small pagerank != numpy oracle")
         emit("reference", t0, edges=gs.num_edges)
-        return launches, errs, timing
+        return launches, errs, timing, results, run_mteps, oracle_results
 
-    launches, errs, timing = laneless_paths()
+    launches, errs, timing, main_results, main_path_mteps, oracle_results = laneless_paths()
+
+    # -- the edge-centric baseline (paper Fig. 1: synchronous, 8 B an edge) ----
+    def edge_centric_phase():
+        """partition_edge_centric(p) of the smoke graph and BFS, WCC, SSSP and
+        PageRank through run_edge_centric on the card, against the oracle
+        backend's runs: labels bit-equal (PageRank within DIST_PR_TOL)."""
+        t0 = time.perf_counter()
+        t = time.perf_counter()
+        part = partition_edge_centric(g, pg.p)
+        build_s = time.perf_counter() - t
+        rows = {}
+        for name, problem in (("bfs", bfs(0)), ("wcc", wcc()), ("sssp", sssp(0)),
+                              ("pagerank", pagerank())):
+            # the first iteration uploads the edge list (set-up, not timed)
+            run_edge_centric(problem, g, part, EdgeCentricOptions(max_iters=1), device=dev)
+            sync()
+            t = time.perf_counter()
+            res = run_edge_centric(problem, g, part, device=dev)
+            sync()
+            sec = time.perf_counter() - t
+            check(res.converged, f"edge_centric {name}: did not converge in {res.iterations}")
+            a, b = res.labels["label"], oracle_results[name].labels["label"]
+            if problem.reduce_kind == "sum":
+                err = float(np.max(np.abs(a - b)))
+                check(bool(np.allclose(a, b, **DIST_PR_TOL)),
+                      f"edge_centric {name}: labels differ from the oracle by {err}")
+            else:
+                err = 0.0
+                check(a.dtype == b.dtype and np.array_equal(a, b),
+                      f"edge_centric {name}: labels differ from the oracle backend's")
+            rows[name] = dict(iterations=res.iterations,
+                              graphscale_iterations=main_results[name].iterations,
+                              run_seconds=sec, mteps=n_edges / sec / 1e6,
+                              ms_per_iteration=sec * 1e3 / res.iterations,
+                              graphscale_mteps=main_path_mteps[name], max_abs_diff=err)
+        e_pad = int(part.src_vid.shape[1])
+        del part
+        gc.collect()
+        emit("edge_centric", t0, per_problem=rows, p=pg.p, edge_pad=e_pad,
+             partition_seconds=build_s, bytes_per_edge=bytes_per_edge(g, compressed=False),
+             csr_bytes_per_edge=bytes_per_edge(g, compressed=True),
+             graphscale_stream_bytes_per_edge=pg.stream_bytes_per_edge,
+             note="synchronous edge-centric baseline (HitGraph/ThunderGP): one index_select "
+                  "of the payload at the (p, E_pad) source ids and a per-core segment reduce an "
+                  "iteration, updates applied at its end; mteps = E / run seconds (the edge "
+                  "list's upload apart), beside the GraphScale engine's default runs "
+                  "(main_path); bytes_per_edge: the uncompressed edge list (8 B), beside the "
+                  "compressed stream's index bytes per pull slot, push stream included")
+        return rows
+
+    edge_centric_rows = edge_centric_phase()
+
+    # -- the multi-channel engine: one rank a graph core, over torch.distributed --
+    def distributed_phase():
+        """p ranks sharing the card over gloo on the smoke partition (written
+        once, memory-mapped by every rank), each result against the
+        single-process engine on this card; then the NCCL code path at world
+        size 1. Returns the ranks' kernel launches, summed."""
+        t0 = time.perf_counter()
+        where = ROOT / "build" / "distributed"
+        t = time.perf_counter()
+        written = save_partition(pg, g, where)
+        save_s = time.perf_counter() - t
+        roots = [int(r) for r in np.random.default_rng(SEED + 12).integers(0, g.num_vertices,
+                                                                           LANE_K)]
+        din_cfg = get_arch("din").model if not rehearsal else get_arch("din").smoke()
+        spec = dict(dir=str(where), device=dev.type, ranks=pg.p, roots=roots, budget=DIST_BUDGET,
+                    d_feat=1433 if not rehearsal else 64, n_classes=7,
+                    item_vocab=din_cfg.item_vocab, cate_vocab=din_cfg.cate_vocab,
+                    embed_dim=din_cfg.embed_dim, seq_len=din_cfg.seq_len, batch=DIN_BATCH)
+        t = time.perf_counter()
+        outs = spawn_ranks(distributed_rank, pg.p, (spec,), backend="gloo",
+                           timeout=DIST_TIMEOUT_S, init_dir=where)
+        spawn_s = time.perf_counter() - t
+        want_multi = run(bfs_multi(roots), g, pg, EngineOptions(lanes=LANE_K), device=dev)
+        wants = dict(bfs=main_results["bfs"], wcc=main_results["wcc"],
+                     sssp=main_results["sssp"], pagerank=main_results["pagerank"],
+                     bfs_static=main_results["bfs"], wcc_static=main_results["wcc"],
+                     sssp_static=main_results["sssp"], bfs_multi=want_multi)
+        r0 = outs[0]
+        agree = {}
+        for name, want in wants.items():
+            got = r0["runs"][name]
+            check(all(o["runs"][name]["digest"] == got["digest"]
+                      and o["runs"][name]["iterations"] == got["iterations"] for o in outs),
+                  f"distributed {name}: the ranks returned different results")
+            check(got["converged"] and got["iterations"] == want.iterations,
+                  f"distributed {name}: {got['iterations']} iterations, single-process "
+                  f"{want.iterations}")
+            check(set(got["labels"]) == set(want.labels), f"distributed {name}: label fields")
+            err = 0.0
+            for k, v in want.labels.items():
+                a = got["labels"][k]
+                if name == "pagerank":
+                    err = float(np.max(np.abs(a - v)))
+                    check(bool(np.allclose(a, v, **DIST_PR_TOL)),
+                          f"distributed pagerank: labels differ by {err}")
+                else:
+                    check(a.dtype == v.dtype and np.array_equal(a, v),
+                          f"distributed {name}: {k} differs from the single-process run")
+            agree[name] = dict(iterations=got["iterations"], max_abs_diff=err,
+                               seconds_by_rank=[o["runs"][name]["seconds"] for o in outs])
+        fr = r0["frontier"]
+        check(all(o["frontier"]["digest"] == fr["digest"] for o in outs)
+              and fr["converged"]
+              and np.array_equal(fr["labels"]["label"], main_results["bfs"].labels["label"]),
+              "distributed frontier engine: BFS labels differ from the single-process run")
+        for o in outs:
+            check(o["aggregate"]["ok"], f"distributed aggregate: off by {o['aggregate']}")
+            check(o["gat"]["ok"], f"distributed GAT: loss or gradients off: {o['gat']}")
+            lk = o["lookup"]
+            check(lk["rows_equal"] and lk["grad_ok"] and lk["small_rows_equal"]
+                  and lk["dropped"] == lk["dropped_expected"],
+                  f"distributed lookup differs from the one-shard lookup: {lk}")
+        check(sum(o["lookup"]["dropped"] for o in outs) > 0,
+              "distributed lookup: the tight queues dropped no id")
+        single_bytes = sum(t_.numel() * t_.element_size() for t_ in
+                           _edge_constants(bfs(0), pg, EngineOptions(), dev).values()
+                           if t_ is not None)
+        per_rank = []
+        for q, o in enumerate(outs):
+            ln = o["launches"]
+            if not rehearsal:
+                check(o["transport"] == "gloo" and o["cuda_device"] == 0,
+                      f"rank {q}: transport {o['transport']} on cuda:{o['cuda_device']}")
+                check(sum(ln["gather_reduce_cores"].values()) > 0
+                      and sum(ln["scatter_reduce_cores"].values()) > 0
+                      and ln["segment_softmax"].get("f32", 0) == 2,
+                      f"rank {q}: kernel launches {ln}")
+            check(o["device_bytes"]["bfs"] * pg.p == single_bytes,
+                  f"rank {q}: {o['device_bytes']['bfs']} device bytes, single process "
+                  f"{single_bytes}")
+            per_rank.append(dict(
+                rank=q, transport=o["transport"], launches=ln,
+                device_bytes=o["device_bytes"], single_process_device_bytes=single_bytes,
+                bfs_mteps=n_edges / o["runs"]["bfs"]["seconds"] / 1e6,
+                setup_seconds=o["setup_seconds"], gat=o["gat"], aggregate=o["aggregate"],
+                lookup=o["lookup"]))
+        emit("distributed", t0, ranks=pg.p, transport="gloo (host-staged crossbar, the ranks "
+             "sharing one card)", agree=agree,
+             frontier=dict(iterations=fr["iterations"], seconds=fr["seconds"], **fr["stats"]),
+             per_rank=per_rank, partition_bytes_written=written, save_seconds=save_s,
+             spawn_seconds=spawn_s, roots=roots,
+             note="every run against engine.run on this card (BFS/WCC/SSSP labels and "
+                  "iterations bit-equal, the static schedule too; PageRank within DIST_PR_TOL; "
+                  "the K-lane BFS bit-equal); bfs_mteps = E / the rank's BFS seconds through a "
+                  "crossbar staged through the host over gloo with 4 ranks on one card: no "
+                  "prediction of a four-card NCCL run; launches: each rank's, counted over its "
+                  "engine runs, the frontier engine, the aggregate, one GAT loss and gradient "
+                  "and the lookups (the comparisons after)")
+        t1 = time.perf_counter()
+        nccl = spawn_ranks(nccl_rank, 1, (dict(device=dev.type, scale=min(scale, NCCL_SCALE)),),
+                           backend="gloo" if rehearsal else "nccl", timeout=DIST_TIMEOUT_S,
+                           init_dir=where)[0]
+        check(all(a["equal"] for a in nccl["agree"].values()),
+              f"NCCL arm differs from the single-process engine: {nccl['agree']}")
+        if not rehearsal:
+            check(nccl["transport"] == "nccl"
+                  and sum(nccl["launches"]["gather_reduce_cores"].values()) > 0,
+                  f"NCCL arm: transport {nccl['transport']}, launches {nccl['launches']}")
+        emit("distributed_nccl", t1, **nccl,
+             note="world size 1 over NCCL (device tensors, no host staging) on a p = 1 "
+                  "partition; the rehearsal runs it over gloo")
+        shutil.rmtree(where, ignore_errors=True)
+        total = {"gather_reduce_cores": {}, "scatter_reduce_cores": {}, "segment_softmax": {}}
+        for ln in [o["launches"] for o in outs] + [nccl["launches"]]:
+            for kern, counts in ln.items():
+                for v, n in counts.items():
+                    total[kern][v] = total[kern].get(v, 0) + n
+        return total
+
+    dist_launches = distributed_phase()
 
     # -- the lane arms of both kernels against their plain versions -----------
     lrng = np.random.default_rng(SEED + 5)
@@ -2848,7 +3373,8 @@ def main() -> int:
 
     kernels = [
         dict(name=f"{kern}_reduce_cores[{v}]", route="cuda", **meta,
-             launches=launches[f"{kern}_reduce_cores"].get(v, 0), max_abs_err=errs[(kern, v)],
+             launches=launches[f"{kern}_reduce_cores"].get(v, 0)
+             + dist_launches[f"{kern}_reduce_cores"].get(v, 0), max_abs_err=errs[(kern, v)],
              ms=timing[(kern, v)]["ms"], plain_ms=timing[(kern, v)]["plain_ms"],
              bound_ms=timing[(kern, v)]["bound_ms"], bound_by=timing[(kern, v)]["bound_by"],
              library_ms=None)
@@ -2856,7 +3382,8 @@ def main() -> int:
         for v in variants
     ] + [
         dict(name=f"{kern}_reduce_cores[{v}]", route="cuda", **meta,
-             launches=lane_launches[f"{kern}_reduce_cores"].get(v, 0),
+             launches=lane_launches[f"{kern}_reduce_cores"].get(v, 0)
+             + dist_launches[f"{kern}_reduce_cores"].get(v, 0),
              max_abs_err=lane_errs[(kern, arm)], ms=lane_timing[(kern, arm)]["ms"],
              plain_ms=lane_timing[(kern, arm)]["plain_ms"],
              bound_ms=lane_timing[(kern, arm)]["bound_ms"],
@@ -2892,7 +3419,8 @@ def main() -> int:
     ] + [
         # the trainer's shape: GAT layer 1 at the Cora shape, shape (a)
         dict(name="segment_softmax[f32]", route="cuda", **SOFTMAX,
-             launches=softmax_launches.get("f32", 0), max_abs_err=sm_err,
+             launches=softmax_launches.get("f32", 0) + dist_launches["segment_softmax"].get("f32", 0),
+             max_abs_err=sm_err,
              ms=sm_rows["a_cora_layer1"]["ms"], plain_ms=sm_rows["a_cora_layer1"]["plain_ms"],
              bound_ms=sm_rows["a_cora_layer1"]["bound_ms"],
              bound_by=sm_rows["a_cora_layer1"]["bound_by"], library_ms=None)

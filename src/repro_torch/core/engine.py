@@ -247,11 +247,13 @@ _KERNEL_FIELDS = {
 _PUSH_KEYS = ("push_word", "push_word_hi", "push_counts", "push_w", "push_coverage")
 
 
-def _edge_constants(problem: Problem, pg: PartitionedGraph, opts: EngineOptions, device):
+def _edge_constants(problem: Problem, pg: PartitionedGraph, opts: EngineOptions, device,
+                    core=None):
     """Per-phase edge tensors on ``device``, phase-major so that a phase's
     slice is contiguous, uploaded once per graph (``pg.device_array``). The
     coverage words and the push stream are uploaded only when the options
-    use them."""
+    use them. ``core`` keeps that core's slice alone (a rank of the
+    multi-channel engine)."""
     if opts.backend == "kernel":
         # channel_arrays(problem) is the weight-streaming rule: weights only
         # for edge_op 'add'; without them the kernel adds unit weight
@@ -262,15 +264,17 @@ def _edge_constants(problem: Problem, pg: PartitionedGraph, opts: EngineOptions,
         if not push_enabled(problem, pg, opts):
             unused.update(_PUSH_KEYS)
         return {
-            k: pg.device_array(f, device, dtype=dt, phase_major=True)
+            k: pg.device_array(f, device, dtype=dt, phase_major=True, core=core)
             if arrs[k] is not None and k not in unused else None
             for k, (f, dt) in _KERNEL_FIELDS.items()
         }
     return {
-        "src": pg.device_array("src_gidx", device, dtype=torch.int64, phase_major=True),
-        "dst": pg.device_array("dst_lidx", device, dtype=torch.int64, phase_major=True),
-        "valid": pg.device_array("valid", device, phase_major=True),
-        "w": pg.device_array("weights", device, phase_major=True)
+        "src": pg.device_array("src_gidx", device, dtype=torch.int64, phase_major=True,
+                               core=core),
+        "dst": pg.device_array("dst_lidx", device, dtype=torch.int64, phase_major=True,
+                               core=core),
+        "valid": pg.device_array("valid", device, phase_major=True, core=core),
+        "w": pg.device_array("weights", device, phase_major=True, core=core)
         if problem.edge_op == "add" else None,
     }
 
@@ -369,6 +373,13 @@ def make_iteration(
     opts: EngineOptions,
     device="cuda",
     with_stats: bool = False,
+    *,
+    reduce_at_phase=None,
+    phase_active=None,
+    density_fn=None,
+    push_reduce_at_phase=None,
+    push_phase_active=None,
+    push_phase_live=None,
 ):
     """Build one engine iteration (the l-phase loop + apply semantics).
 
@@ -388,9 +399,29 @@ def make_iteration(
         taken: ``(labels, new_frontier, used_push)``.
 
     ``pop`` is the host popcount of ``frontier`` (the caller read it as the
-    convergence test); when None it is read here. ``with_stats=True``
-    appends ``{"active_tiles": device int64 scalar, "use_dense": int[,
-    "direction": int, "popcount": int]}`` to a dynamic call's return.
+    convergence test); when None it is ``density_fn(frontier)``, read here.
+    ``with_stats=True`` appends ``{"active_tiles": device int64 scalar,
+    "use_dense": int[, "direction": int, "popcount": int]}`` to a dynamic
+    call's return.
+
+    Hooks (the reference's; the distributed engine supplies them, and when
+    ``reduce_at_phase`` is None they are built here from the partition's
+    edge tensors on ``device``, all p cores in this process):
+
+      * ``reduce_at_phase(m, labels[, active]) -> reduced`` (steps 1+2 of
+        phase m, shaped like ``labels[merge_field]``);
+      * ``phase_active(m, words, use_dense) -> active``: phase m's tile mask
+        from ``words``, the live frontier words of phase m of the cores held
+        here (``frontier[:, m]`` flattened, core-major);
+      * ``density_fn(frontier) -> popcount`` (host int or scalar tensor);
+      * ``push_reduce_at_phase(m, labels, active)`` and
+        ``push_phase_active(m, words)``, the push arm's two; a caller that
+        supplies ``reduce_at_phase`` without them runs pull only;
+      * ``push_phase_live(m, words) -> bool``: when given, a push phase it
+        rejects is skipped outright (no exchange, no launch). It must answer
+        the same on every rank. Without it a dead phase runs with an
+        all-inactive fetch map: the launch does nothing, the result is the
+        same, and no host read is made.
 
     'or' problems (packed multi-source BFS) always take the synchronous
     schedule, whatever ``immediate_updates`` says: their ``finalize``
@@ -415,35 +446,50 @@ def make_iteration(
             "problem, the kernel backend, a partition built with "
             "build_push=True, and dynamic scheduling (dynamic_skip_enabled)"
         )
-    consts = _edge_constants(problem, pg, opts, dev)
-    coverage = consts.pop("coverage", None)
-    push = {k: consts.pop(k, None) for k in _PUSH_KEYS}
-    push_cm_all = {"word": push["push_word"], "word_hi": push["push_word_hi"],
-                   "counts": push["push_counts"], "w": push["push_w"]}
-    reduce_fn = channel_phase_reduce if opts.backend == "kernel" else channel_phase_reduce_oracle
+    if reduce_at_phase is None:
+        consts = _edge_constants(problem, pg, opts, dev)
+        coverage = consts.pop("coverage", None)
+        push = {k: consts.pop(k, None) for k in _PUSH_KEYS}
+        push_cm_all = {"word": push["push_word"], "word_hi": push["push_word_hi"],
+                       "counts": push["push_counts"], "w": push["push_w"]}
+        reduce_fn = (channel_phase_reduce if opts.backend == "kernel"
+                     else channel_phase_reduce_oracle)
 
-    def reduce_at_phase(m, labels, active=None):
-        gathered = _gather_local(problem, pg, labels, m)
-        if active is None:
-            return reduce_fn(problem, pg, gathered, phase_consts_at(consts, m))
-        return channel_phase_reduce(problem, pg, gathered, phase_consts_at(consts, m), active)
+        def reduce_at_phase(m, labels, active=None):
+            gathered = _gather_local(problem, pg, labels, m)
+            if active is None:
+                return reduce_fn(problem, pg, gathered, phase_consts_at(consts, m))
+            return channel_phase_reduce(problem, pg, gathered, phase_consts_at(consts, m),
+                                        active)
 
-    def push_reduce_at_phase(m, labels, active):
-        gathered = _gather_local(problem, pg, labels, m)
-        return channel_phase_scatter(problem, pg, gathered, phase_consts_at(push_cm_all, m),
-                                     active)
+        def push_reduce_at_phase(m, labels, active):
+            gathered = _gather_local(problem, pg, labels, m)
+            return channel_phase_scatter(problem, pg, gathered,
+                                         phase_consts_at(push_cm_all, m), active)
 
-    def phase_active(m, gfw, use_dense):
-        # gfw: phase m's live frontier words in gathered order (the cores'
-        # [:, m] rows, core-major: the layout contract of the coverage words)
-        return fwords.frontier_active_tiles(coverage[m], gfw, consts["counts"][m], use_dense)
+        def phase_active(m, gfw, use_dense):
+            # gfw: phase m's live frontier words in gathered order (the cores'
+            # [:, m] rows, core-major: the layout contract of the coverage words)
+            return fwords.frontier_active_tiles(coverage[m], gfw, consts["counts"][m],
+                                                use_dense)
 
-    def push_phase_active(m, gfw):
-        # no dense fallback: a wide frontier takes the pull arm. A phase with
-        # no live source gets an all-inactive map, which is the reference's
-        # phase-level skip without a host read.
-        return fwords.frontier_active_tiles(push["push_coverage"][m], gfw,
-                                            push["push_counts"][m], None)
+        def push_phase_active(m, gfw):
+            # no dense fallback: a wide frontier takes the pull arm. A phase with
+            # no live source gets an all-inactive map, which is the reference's
+            # phase-level skip without a host read.
+            return fwords.frontier_active_tiles(push["push_coverage"][m], gfw,
+                                                push["push_counts"][m], None)
+    else:
+        if dyn and phase_active is None:
+            raise ValueError("a caller-supplied reduce_at_phase needs phase_active for "
+                             "the dynamic schedule")
+        if push_on and (push_reduce_at_phase is None or push_phase_active is None):
+            if forced_push:
+                raise ValueError("direction='push' with caller-supplied reduce hooks needs "
+                                 "push_reduce_at_phase/push_phase_active")
+            push_on = False
+    if density_fn is None:
+        density_fn = fwords.frontier_popcount
 
     total_bits = pg.p * pg.l * pg.sub_size
     dense_thr = int(total_bits * opts.dynamic_skip_density)
@@ -465,14 +511,17 @@ def make_iteration(
     def count(n_act, active):
         return n_act + active.sum() if with_stats else n_act
 
-    def async_sweep(labels, fw_in, reduce_m, active_m):
+    def async_sweep(labels, fw_in, reduce_m, active_m, live_m=None):
         """The async phase sweep of either direction: the live frontier is
         last iteration's changes OR this iteration's so far, since later
-        phases see fresh labels."""
+        phases see fresh labels. ``live_m`` skips a phase it rejects."""
         nf = torch.zeros_like(fw_in)
         n_act = torch.zeros((), dtype=torch.int64, device=fw_in.device)
         for m in range(pg.l):
-            active = active_m(m, gathered_words(fw_in, m) | gathered_words(nf, m))
+            words = gathered_words(fw_in, m) | gathered_words(nf, m)
+            if live_m is not None and not live_m(m, words):
+                continue
+            active = active_m(m, words)
             lab = labels[mf]
             merged = minimum(lab, reduce_m(m, labels, active))
             labels = dict(labels)
@@ -481,9 +530,10 @@ def make_iteration(
             n_act = count(n_act, active)
         return labels, nf, n_act
 
-    def sync_sweep(labels, frontier, reduce_m, active_m):
+    def sync_sweep(labels, frontier, reduce_m, active_m, live_m=None):
         """The synchronous sweep: contributions accumulate over the phases,
-        which all see last iteration's labels (and frontier)."""
+        which all see last iteration's labels (and frontier). ``live_m``
+        skips a phase it rejects."""
         lab = labels[mf]
         if is_min:
             acc = torch.full_like(lab, problem.stored_identity)
@@ -496,7 +546,10 @@ def make_iteration(
             if active_m is None:
                 reduced = reduce_m(m, labels)
             else:
-                active = active_m(m, gathered_words(frontier, m))
+                words = gathered_words(frontier, m)
+                if live_m is not None and not live_m(m, words):
+                    continue
+                active = active_m(m, words)
                 n_act = count(n_act, active)
                 reduced = reduce_m(m, labels, active)
             if is_min:
@@ -534,7 +587,7 @@ def make_iteration(
                 "admissible (see push_enabled)"
             )
         if pop is None:
-            pop = int(fwords.frontier_popcount(frontier))
+            pop = int(density_fn(frontier))
         use_dense = pop >= dense_thr
         push_aware = push_on and (prev_push is not None or forced_push)
         if forced_push:
@@ -544,14 +597,14 @@ def make_iteration(
         else:
             use_push = False
         if use_push:
-            reduce_m, active_m = push_reduce_at_phase, push_phase_active
+            reduce_m, active_m, live_m = push_reduce_at_phase, push_phase_active, push_phase_live
         else:
-            reduce_m, active_m = reduce_at_phase, functools.partial(phase_active,
-                                                                    use_dense=use_dense)
+            reduce_m, live_m = reduce_at_phase, None
+            active_m = functools.partial(phase_active, use_dense=use_dense)
         if is_min and opts.immediate_updates:
-            new, nf, n_act = async_sweep(labels, frontier, reduce_m, active_m)
+            new, nf, n_act = async_sweep(labels, frontier, reduce_m, active_m, live_m)
         else:
-            acc, n_act = sync_sweep(labels, frontier, reduce_m, active_m)
+            acc, n_act = sync_sweep(labels, frontier, reduce_m, active_m, live_m)
             if is_min:
                 new = dict(labels)
                 new[mf] = minimum(labels[mf], acc)

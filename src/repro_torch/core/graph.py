@@ -19,6 +19,8 @@ __all__ = [
     "COOGraph",
     "CSRGraph",
     "coo_to_csr",
+    "csr_to_coo",
+    "inverse_coo",
     "symmetrize",
     "deduplicate",
     "out_degrees",
@@ -30,6 +32,7 @@ __all__ = [
     "star",
     "complete",
     "karate_club",
+    "bytes_per_edge",
 ]
 
 
@@ -70,6 +73,19 @@ def coo_to_csr(g: COOGraph) -> CSRGraph:
     indptr = np.zeros(g.num_vertices + 1, dtype=np.int64)
     np.cumsum(counts, out=indptr[1:])
     return CSRGraph(indptr=indptr, indices=indices, num_vertices=g.num_vertices, weights=weights)
+
+
+def csr_to_coo(g: CSRGraph) -> COOGraph:
+    src = np.repeat(
+        np.arange(g.num_vertices, dtype=np.uint32), np.diff(g.indptr).astype(np.int64)
+    )
+    return COOGraph(src=src, dst=g.indices.astype(np.uint32), num_vertices=g.num_vertices,
+                    weights=g.weights)
+
+
+def inverse_coo(g: COOGraph) -> COOGraph:
+    """Reverse every edge. inverse + coo_to_csr == the paper's inverse CSR."""
+    return COOGraph(src=g.dst, dst=g.src, num_vertices=g.num_vertices, weights=g.weights)
 
 
 def symmetrize(g: COOGraph) -> COOGraph:
@@ -178,3 +194,10 @@ def karate_club() -> COOGraph:
     ]
     e = np.asarray(edges, dtype=np.uint32)
     return COOGraph(src=e[:, 0], dst=e[:, 1], num_vertices=34)
+
+
+def bytes_per_edge(g: COOGraph, compressed: bool) -> float:
+    """Fig. 1 metric: memory traffic per edge for edge-list vs CSR."""
+    if compressed:
+        return (4.0 * g.num_edges + 4.0 * (g.num_vertices + 1)) / max(g.num_edges, 1)
+    return 8.0 * g.num_edges / max(g.num_edges, 1)

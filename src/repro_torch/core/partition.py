@@ -6,7 +6,8 @@ replayable chunk stream, optionally into ``np.memmap`` files) and the delta
 ingest of streamed edge insertions (``apply_edge_deltas``, which re-tiles
 only the dirty (core, phase) buckets). Host numpy, a copy of the reference,
 so every array is byte-identical to ``repro``'s for the same graph, config
-and insertions.
+and insertions. ``partition_edge_centric`` lays out the edge list of the
+synchronous edge-centric baseline (``core.edge_centric``).
 
 Dimension 1: the (padded) vertex set is split into ``p`` equal intervals
 ``I_q`` — one per graph core; core ``q`` owns all edges whose *destination*
@@ -62,6 +63,8 @@ __all__ = [
     "DeltaFlushReport",
     "bucket_coords",
     "apply_edge_deltas",
+    "EdgeCentricPartition",
+    "partition_edge_centric",
 ]
 
 
@@ -202,20 +205,25 @@ class PartitionedGraph:
             kw["config"] = PartitionConfig(**cfg)
         return cls(**kw)
 
-    def device_array(self, name: str, device, *, dtype=None, phase_major=False):
+    def device_array(self, name: str, device, *, dtype=None, phase_major=False, core=None):
         """Field ``name`` as a torch tensor on ``device`` (None stays None),
         uploaded once and cached. ``phase_major`` moves the phase axis (axis
         1) to the front, so the slice a phase launch reads is contiguous;
         ``dtype`` converts first (index arrays become int64 for torch).
-        uint32 fields (the coverage words) arrive as int32 tensors holding
-        the same bits (``core.u32``)."""
+        ``core`` keeps only that core's slice ``[core:core+1]`` of the core
+        axis (one rank of the multi-channel engine; only the slice is read,
+        so a memory-mapped field stays on disk). uint32 fields (the coverage
+        words) arrive as int32 tensors holding the same bits (``core.u32``)."""
         arr = getattr(self, name)
         if arr is None:
             return None
-        key = (name, str(torch.device(device)), dtype, phase_major)
+        key = (name, str(torch.device(device)), dtype, phase_major, core)
         hit = self.device_cache.get(key)
         if hit is None:
-            arr = np.ascontiguousarray(arr)
+            if core is not None:
+                arr = arr[core : core + 1]
+            # a read-only (memory-mapped) field is copied: torch needs a writable array
+            arr = np.ascontiguousarray(arr) if arr.flags.writeable else np.array(arr)
             t = torch.from_numpy(arr.view(np.int32) if arr.dtype == np.uint32 else arr)
             if phase_major:
                 t = t.transpose(0, 1)
@@ -1704,3 +1712,70 @@ def apply_edge_deltas(
         mode_changed=mode_changed,
     )
     return new_pg, report
+
+
+# ---------------------------------------------------------------------------
+# Edge-centric (HitGraph/ThunderGP-style) partitioning for the baseline engine:
+# horizontal partitioning of the *edge list* by destination interval, no
+# sub-intervals, no compression (src kept as a global vertex id).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeCentricPartition:
+    p: int
+    num_vertices: int
+    num_edges: int
+    vertices_per_core: int
+    src_vid: np.ndarray  # (p, E_pad) int32 global (padded) src vertex id
+    dst_lidx: np.ndarray  # (p, E_pad) int32 local dst id
+    valid: np.ndarray  # (p, E_pad) bool
+    weights: Optional[np.ndarray]
+    bucket_sizes: np.ndarray  # (p,)
+    # device copies of the edge arrays, filled on first use by
+    # ``core.edge_centric.run_edge_centric`` (not an init field)
+    device_cache: dict = dataclasses.field(
+        default_factory=dict, init=False, compare=False, repr=False
+    )
+
+
+def partition_edge_centric(
+    g: COOGraph, p: int, lane: int = 8, edge_pad: int = 8
+) -> EdgeCentricPartition:
+    """Bucket the edge list by destination core (dst-sorted within a core),
+    each bucket padded to a common ``E_pad``; padding slots point at the
+    core's last row so every bucket stays sorted."""
+    vpc = _round_up(-(-g.num_vertices // p), lane)
+    src = g.src.astype(np.int64)
+    dst = g.dst.astype(np.int64)
+    core = dst // vpc
+    order = np.argsort(core * (g.num_vertices + 1) + dst, kind="stable")
+    src, dst, core = src[order], dst[order], core[order]
+    w = g.weights[order] if g.weights is not None else None
+    sizes = np.bincount(core, minlength=p)
+    e_pad = max(_round_up(int(sizes.max()), edge_pad), edge_pad)
+    src_vid = np.zeros((p, e_pad), dtype=np.int32)
+    dst_lidx = np.full((p, e_pad), vpc - 1, dtype=np.int32)  # keep sorted under padding
+    valid = np.zeros((p, e_pad), dtype=bool)
+    weights = np.zeros((p, e_pad), dtype=np.float32) if w is not None else None
+    starts = np.zeros(p + 1, dtype=np.int64)
+    np.cumsum(sizes, out=starts[1:])
+    for i in range(p):
+        s, e = starts[i], starts[i + 1]
+        n = int(e - s)
+        src_vid[i, :n] = src[s:e]
+        dst_lidx[i, :n] = dst[s:e] - i * vpc
+        valid[i, :n] = True
+        if weights is not None:
+            weights[i, :n] = w[s:e]
+    return EdgeCentricPartition(
+        p=p,
+        num_vertices=g.num_vertices,
+        num_edges=g.num_edges,
+        vertices_per_core=vpc,
+        src_vid=src_vid,
+        dst_lidx=dst_lidx,
+        valid=valid,
+        weights=weights,
+        bucket_sizes=sizes,
+    )

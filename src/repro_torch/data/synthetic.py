@@ -1,7 +1,7 @@
 """Synthetic data: serving traffic (query streams, edge-insertion streams),
 LM token batches, recsys batches and graph batches.
 
-Counterpart of the serving, skewed-graph, LM, recsys and graph generators
+Counterpart of the serving, skewed-graph, path-grid, LM, recsys and graph generators
 of ``repro.data.synthetic``: the same numpy RNG calls in the same order, so the
 same seed gives the same arrays in both packages. Everything is drawn on the
 host with numpy; the graph generators wrap the arrays in a ``GraphBatch`` of
@@ -25,6 +25,7 @@ __all__ = [
     "edge_insertion_stream",
     "admission_batches",
     "skewed_graph",
+    "path_grid_graph",
     "lm_batch",
     "recsys_batch",
     "retrieval_batch",
@@ -221,6 +222,36 @@ def skewed_graph(
         raise ValueError(f"kind must be 'star' or 'powerlaw', got {kind!r}")
     order = rng.permutation(src.shape[0])
     return COOGraph(src=src[order], dst=dst[order], num_vertices=n)
+
+
+def path_grid_graph(
+    width: int,
+    height: int = 1,
+    *,
+    shuffle: bool = False,
+    seed: int = 0,
+):
+    """High-diameter COOGraph for the frontier-aware dynamic-skip path.
+
+    A ``width`` x ``height`` grid with bidirectional nearest-neighbour edges
+    (``height=1`` degenerates to a simple path). BFS/SSSP from a corner takes
+    ~``width + height`` iterations with a frontier that is a thin wavefront.
+    ``shuffle=True`` applies a random permutation to the vertex ids, which
+    scatters the frontier across tiles. Deterministic in ``seed``."""
+    n = width * height
+    vid = np.arange(n, dtype=np.uint32).reshape(height, width)
+    right = np.stack([vid[:, :-1].ravel(), vid[:, 1:].ravel()])
+    down = np.stack([vid[:-1, :].ravel(), vid[1:, :].ravel()])
+    a = np.concatenate([right[0], down[0]])
+    b = np.concatenate([right[1], down[1]])
+    src = np.concatenate([a, b])
+    dst = np.concatenate([b, a])
+    if shuffle:
+        perm = np.random.default_rng(
+            np.random.SeedSequence([seed, width, height])
+        ).permutation(n).astype(np.uint32)
+        src, dst = perm[src], perm[dst]
+    return COOGraph(src=src, dst=dst, num_vertices=n)
 
 
 def lm_batch(seed: int, step: int, batch: int, seq: int, vocab: int) -> Dict[str, np.ndarray]:

@@ -6,7 +6,9 @@ segment reduce over an edge index (``index_add_`` / ``scatter_reduce``), the
 same gather/scatter substrate as the graph engine. GAT's edge softmax
 (``segment_softmax``) runs on the port's segment-softmax op: the hand-written
 Hopper kernel on the card, its plain version on the CPU, over a tile layout
-built once per batch on the host.
+built once per batch on the host. ``segment_softmax_xla`` is the same op
+for flat (dst-sorted, valid) edge arrays, the reference's function of that
+name (the distributed GAT layer's softmax).
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from typing import Any, Dict, Optional
 import torch
 
 __all__ = ["GraphBatch", "aggregate", "init_mlp", "mlp", "segment_softmax",
-           "softmax_tiles"]
+           "softmax_tiles", "flat_softmax_tiles", "segment_softmax_xla"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,3 +177,27 @@ def segment_softmax(scores: torch.Tensor, b: GraphBatch) -> torch.Tensor:
     from repro_torch.kernels.segment_softmax.ops import segment_softmax_edges
 
     return segment_softmax_edges(scores, softmax_tiles(b), b.edge_dst, b.edge_mask)
+
+
+def flat_softmax_tiles(dst: torch.Tensor, valid: torch.Tensor, num_rows: int, device=None):
+    """The softmax tile layout of flat edge arrays (``dst`` rows in
+    [0, num_rows), ``valid`` mask) on ``device`` (``dst``'s when None),
+    built on the host as ``softmax_tiles`` builds a batch's."""
+    from repro_torch.kernels.segment_softmax.ops import build_edge_tiles, device_tiles
+
+    host = build_edge_tiles(dst.cpu().numpy(), valid.cpu().numpy(), num_rows,
+                            vb=softmax_vb(num_rows), eb=SOFTMAX_EB)
+    return device_tiles(host, dst.device if device is None else device)
+
+
+def segment_softmax_xla(scores: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
+                        num_rows: int, tiles=None) -> torch.Tensor:
+    """Softmax of (E,) or (E, H) edge scores over each row's valid in-edges,
+    for flat edge arrays; masked edges get 0. Runs on the segment-softmax op
+    (the kernel on the card, its plain version on the CPU) over ``tiles``
+    (``flat_softmax_tiles``; built here when None). Differentiable."""
+    from repro_torch.kernels.segment_softmax.ops import segment_softmax_edges
+
+    if tiles is None:
+        tiles = flat_softmax_tiles(dst, valid, num_rows)
+    return segment_softmax_edges(scores, tiles, dst, valid)

@@ -1,0 +1,191 @@
+"""Rank bodies of tests/test_torch_distributed.py: functions that
+``repro_torch.launch.mesh.spawn_ranks`` runs in every spawned rank (gloo, the
+CPU). They import only the port, so a rank never loads JAX; the test file
+holds their results against the reference's.
+
+The graphs are built from the same numpy code in both packages
+(``graph(name, G, skewed_graph)``), so the partitions are byte-identical.
+"""
+import numpy as np
+import torch
+
+# the cases of tests/test_distributed_equiv.py:54-140, plus forced push and
+# lane batches: graph -> partition config
+GRAPH_CONFIGS = {
+    "stride": dict(p=4, l=2, lane=4, stride=100),
+    "pr": dict(p=4, l=2, lane=4),
+    "hub": dict(p=4, l=2, lane=8, tile_vb=32),
+    "dyn": dict(p=4, l=2, lane=4, stride=100),
+}
+STATIC = dict(dynamic_tile_skip=False)
+PUSH = dict(direction="push")
+# (case id, graph, problem, problem args, problem kwargs, EngineOptions kwargs)
+ENGINE_CASES = [
+    ("stride-bfs", "stride", "bfs", (7,), {}, {}),
+    ("stride-wcc", "stride", "wcc", (), {}, {}),
+    ("stride-sssp", "stride", "sssp", (7,), {}, {}),
+    ("pr-pagerank", "pr", "pagerank", (), dict(tol=1e-5), {}),
+    ("hub-bfs", "hub", "bfs", (3,), {}, {}),
+    ("hub-wcc", "hub", "wcc", (), {}, {}),
+    ("hub-sssp", "hub", "sssp", (3,), {}, {}),
+    ("hub-pagerank", "hub", "pagerank", (), dict(tol=1e-4), {}),
+    ("dyn-bfs", "dyn", "bfs", (2,), {}, {}),
+    ("dyn-wcc", "dyn", "wcc", (), {}, {}),
+    ("dyn-sssp", "dyn", "sssp", (2,), {}, {}),
+    ("dyn-bfs-static", "dyn", "bfs", (2,), {}, STATIC),
+    ("dyn-wcc-static", "dyn", "wcc", (), {}, STATIC),
+    ("dyn-sssp-static", "dyn", "sssp", (2,), {}, STATIC),
+    ("dyn-bfs-push", "dyn", "bfs", (2,), {}, PUSH),
+    ("dyn-sssp-push", "dyn", "sssp", (2,), {}, PUSH),
+    ("stride-bfs-lanes", "stride", "bfs_multi", ((0, 7, 100, 500, 7),), {}, {}),
+    ("stride-sssp-lanes", "stride", "sssp_multi", ((7, 3, 900),), {}, {}),
+    ("hub-bfs-lanes-static", "hub", "bfs_multi", ((3, 0, 40),), {}, STATIC),
+]
+
+
+def graph(name, G, skewed_graph):
+    """The named test graph, from either package's generators."""
+    if name == "stride":
+        return G.symmetrize(G.rmat(10, 8, seed=3))
+    if name == "pr":
+        return G.rmat(10, 8, seed=3)
+    if name == "hub":
+        return skewed_graph(n=512, kind="star", hub_in_degree=1500, avg_degree=2, seed=7)
+    if name == "dyn":
+        return G.symmetrize(G.rmat(10, 6, seed=11))
+    if name == "grid":
+        return G.grid_2d(80, 60)
+    if name == "rmat8":
+        return G.symmetrize(G.rmat(10, 8, seed=1))
+    if name == "gnn":
+        return G.symmetrize(G.rmat(9, 6, seed=1))
+    if name == "gat":
+        return G.symmetrize(G.rmat(8, 6, seed=3))
+    raise KeyError(name)
+
+
+def engine_and_gnn(rank, group, gat_params, gat_feat, gat_labels, agg_feat):
+    """Every ENGINE_CASES run through ``run_distributed``, then the GNN
+    feature aggregation and the GAT loss and gradients (f32 wires and bf16
+    wires)."""
+    import repro_torch.core.graph as G
+    from repro_torch.core import problems as P
+    from repro_torch.core.distributed import build_distributed_run, run_distributed
+    from repro_torch.core.engine import EngineOptions
+    from repro_torch.core.partition import PartitionConfig, partition_2d
+    from repro_torch.data.synthetic import skewed_graph
+    from repro_torch.dist.gat_parallel import make_gat_graphscale_loss
+    from repro_torch.dist.gnn_parallel import make_graphscale_aggregate, shard_features
+    from repro_torch.models.gnn import archs
+
+    out = {"engine": {}}
+    parts = {}
+    for case, gname, pname, args, pkw, okw in ENGINE_CASES:
+        if gname not in parts:
+            g = graph(gname, G, skewed_graph)
+            parts[gname] = (g, partition_2d(g, PartitionConfig(**GRAPH_CONFIGS[gname])))
+        g, pg = parts[gname]
+        res = run_distributed(getattr(P, pname)(*args, **pkw), g, pg, group,
+                              EngineOptions(**okw), device="cpu")
+        out["engine"][case] = (res.labels, res.iterations, res.converged)
+    g, pg = parts["stride"]
+    run_fn = build_distributed_run(P.bfs(7), pg, group, EngineOptions(), device="cpu")
+    out["const_keys"] = run_fn.const_keys
+
+    # GNN feature aggregation over the phased crossbar
+    g = graph("gnn", G, skewed_graph)
+    pg = partition_2d(g, PartitionConfig(p=4, l=3, lane=4, stride=50))
+    sharded = shard_features(agg_feat, pg, group, device="cpu")
+    out["aggregate"] = make_graphscale_aggregate(pg, group, device="cpu")(sharded).numpy()
+
+    # GAT loss and parameter gradients
+    g = graph("gat", G, skewed_graph)
+    pg = partition_2d(g, PartitionConfig(p=4, l=1, lane=4))
+    q = rank
+    cfg = archs.GNNConfig(name="gat", n_layers=2, d_hidden=4, n_heads=4)
+    params = archs.params_from_reference(gat_params, cfg, device="cpu")
+    leaves = [t.requires_grad_() for t in _leaves(params)]
+    feat = shard_features(gat_feat, pg, group, device="cpu")
+    lab = np.zeros(pg.padded_vertices, np.int32)
+    lab[: g.num_vertices] = gat_labels
+    mask = np.zeros(pg.padded_vertices, np.float32)
+    mask[: g.num_vertices] = 1.0
+    vpc = pg.vertices_per_core
+    edges = [torch.from_numpy(np.ascontiguousarray(a[q : q + 1]))
+             for a in (pg.src_gidx, pg.dst_lidx, pg.valid)]
+    lab_t = torch.from_numpy(lab[q * vpc : (q + 1) * vpc])
+    mask_t = torch.from_numpy(mask[q * vpc : (q + 1) * vpc])
+    for name, wire in (("gat", None), ("gat_bf16", torch.bfloat16)):
+        loss_fn = make_gat_graphscale_loss(group, vpc, 4, 4, wire_dtype=wire)
+        loss = loss_fn(params, feat, *edges, lab_t, mask_t)
+        grads = torch.autograd.grad(loss, leaves)
+        out[name] = (float(loss), [gr.numpy() for gr in grads])
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def frontier_and_lookup(rank, group, lookups):
+    """The frontier engine over 8 ranks (BFS on a grid and on RMAT), then the
+    crossbar lookup over a 2 x 4 mesh of the same 8 ranks: rows and the
+    table gradient of each form, and the dropped counts at a small
+    capacity."""
+    import torch.distributed as dist
+
+    import repro_torch.core.graph as G
+    from repro_torch.core import problems as P
+    from repro_torch.core.frontier import run_distributed_frontier
+    from repro_torch.core.partition import PartitionConfig, partition_2d
+    from repro_torch.data.synthetic import skewed_graph
+    from repro_torch.dist.embedding import (
+        crossbar_lookup_local, make_crossbar_lookup, make_exchange,
+    )
+
+    out = {"frontier": {}}
+    for gname, cfg, root in (("grid", dict(p=8, l=2, lane=8, stride=100), 3),
+                             ("rmat8", dict(p=8, l=2, lane=8), 5)):
+        g = graph(gname, G, skewed_graph)
+        pg = partition_2d(g, PartitionConfig(**cfg))
+        res, stats = run_distributed_frontier(P.bfs(root), g, pg, group, budget=64, device="cpu")
+        out["frontier"][gname] = (res.labels, res.iterations, stats)
+
+    # a 2 x 4 mesh ("data", "model"): rank = data * 4 + model
+    d_idx, m_idx = divmod(rank, 4)
+    model = data = None
+    for d in range(2):  # every rank takes part in creating every group
+        grp = dist.new_group([d * 4 + m for m in range(4)])
+        if d == d_idx:
+            model = grp
+    for m in range(4):
+        grp = dist.new_group([m, m + 4])
+        if m == m_idx:
+            data = grp
+    for form, groups, shard in (("model", model, m_idx), ("full", (data, model), rank)):
+        table, ids, cap = lookups[form]
+        n_shards = 4 if form == "model" else 8
+        rows = table.shape[0] // n_shards
+        local = torch.from_numpy(table[shard * rows : (shard + 1) * rows].copy()).requires_grad_()
+        per = ids.shape[0] // 8
+        my_ids = torch.from_numpy(ids[rank * per : (rank + 1) * per])
+        got = make_crossbar_lookup(groups, capacity_factor=4.0)(local, my_ids)
+        (grad,) = torch.autograd.grad((got ** 2).sum(), local)
+        exchange, _ = make_exchange(groups)
+        small, dropped = crossbar_lookup_local(local.detach(), my_ids.reshape(-1), exchange,
+                                               n_shards, cap)
+        out[form] = (got.detach().numpy(), grad.numpy(), small.numpy(), int(dropped))
+    return out
+
+
+def fail_on_rank_one(rank, group):
+    if rank == 1:
+        raise ValueError("rank one fails")
+    import torch.distributed as dist
+
+    dist.barrier(group)  # rank 0 would wait here forever
+    return rank

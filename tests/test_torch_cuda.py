@@ -1685,3 +1685,47 @@ def test_cuda_smollm_full_width_forward_matches_plain_attention(cuda_device, mon
     rel = torch.linalg.vector_norm((got.float() - want.float()).reshape(-1)) / \
         torch.linalg.vector_norm(want.float().reshape(-1))
     assert float(rel) <= 2e-2
+
+
+def _nccl_engine_rank(rank, group):
+    """One rank of the NCCL multi-channel engine: its card's BFS, WCC, SSSP
+    and PageRank runs and the kernel launches it made."""
+    from repro_torch.core.distributed import run_distributed, transport
+
+    g = _with_weights(G.symmetrize(G.rmat(12, 8, seed=5)), 5)
+    pg = partition_2d(g, PartitionConfig(p=4, l=2, tile_vb=64))
+    K.reset_launch_counts()
+    S.reset_launch_counts()
+    out = {name: run_distributed(prob, g, pg, group, device="cuda")
+           for name, prob in (("bfs", P.bfs(0)), ("wcc", P.wcc()), ("sssp", P.sssp(0)),
+                              ("pagerank", P.pagerank()))}
+    torch.cuda.synchronize()
+    return ({k: (r.labels["label"], r.iterations) for k, r in out.items()},
+            sum(K.LAUNCHES.values()) + sum(S.LAUNCHES.values()), transport(group),
+            torch.cuda.current_device())
+
+
+@pytest.mark.cuda
+def test_cuda_distributed_engine_over_nccl_four_cards(cuda_device, tmp_path):
+    """The multi-channel engine over NCCL at p = 4, one card a rank (it needs
+    four cards and skips on fewer): every rank's labels and iterations
+    equal the single-process engine's on one card (min problems bit for
+    bit, PageRank within SUM_TOL), and every rank launched the kernels."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards: NCCL takes one card a rank")
+    from repro_torch.launch.mesh import spawn_ranks
+
+    got = spawn_ranks(_nccl_engine_rank, 4, backend="nccl", timeout=300, init_dir=tmp_path)
+    g = _with_weights(G.symmetrize(G.rmat(12, 8, seed=5)), 5)
+    pg = partition_2d(g, PartitionConfig(p=4, l=2, tile_vb=64))
+    for name, prob in (("bfs", P.bfs(0)), ("wcc", P.wcc()), ("sssp", P.sssp(0)),
+                       ("pagerank", P.pagerank())):
+        want = run(prob, g, pg, device=cuda_device)
+        for rank, (res, launches, how, card) in enumerate(got):
+            assert how == "nccl" and card == rank and launches > 0
+            lab, iters = res[name]
+            assert iters == want.iterations, (name, rank)
+            if name == "pagerank":
+                np.testing.assert_allclose(lab, want.labels["label"], **SUM_TOL)
+            else:
+                assert np.array_equal(lab, want.labels["label"]), (name, rank)
