@@ -253,9 +253,40 @@ heads x 8), attention vectors seeded non-zero:
              train step at published width of each other arch on its cell
              (gcn-cora, schnet, meshgraphnet on full_graph_sm; graphsage on
              minibatch_lg's sizes, a seeded graph, loss on 1024 seed nodes;
-             gin-tu on molecule): the loss must be finite
+             gin-tu on molecule): the loss must be finite; graphsage's
+             batch is a NeighborSampler batch of the smoke graph (1,024
+             seeds, fanouts 15-10, d_feat 602)
 
-The LM family on the flash-attention kernel (after gnn, whose tensors are
+Training infrastructure (after gnn, its tensors freed):
+
+  recovery   (a) pagerank(tol=0.0) through make_iteration under
+             run_with_recovery (checkpoints every 15 steps) on the smoke
+             partition, read back from the distributed phase's files (the
+             fields it does not read dropped there): 40 steps, then a run
+             stopped at 20 and resumed from 15, labels bit for bit the whole
+             run's; #1's launches counted (85 iterations x l); checkpoint
+             bytes, save and restore seconds. (b) graphsage at published
+             width (minibatch_lg) on NeighborSampler batches of the smoke
+             graph through ShardedLoader under run_with_recovery (every 4):
+             12 steps with prefetch(depth 2) and one marked failure at step
+             2 (retried once, the step's batch reused), then without
+             prefetch 6 steps and a resume from 4: the restored state bit
+             for bit the saved one, the final params within GNN_TOL of the
+             whole run's; ms a step with and without prefetch, the
+             sampler's host ms a batch, H2D bytes a batch, sampled edges.
+             (c) python -m repro_torch.launch.train --arch smollm-135m
+             --steps 40 --ckpt DIR --ckpt-every 10, SIGKILLed once
+             step_00000020 exists, rerun past a planted .tmp: it resumes from
+             the newest complete step and ends within 1e-5 of an
+             uninterrupted run's loss (the bits compared too); #6's float32
+             launches from both runs. (d) tests/test_elastic.py's TINY LM in
+             gloo ranks sharing the card (spawn_ranks): 3 steps at 2 ranks
+             with int8 error-feedback sync and a save, a replicated restore
+             at 4 ranks through restore_checkpoint's shardings, 3 more steps;
+             int8 and top-k on the card bit for bit the CPU's; the sync's
+             wire bytes against float32's
+
+The LM family on the flash-attention kernel (after recovery; gnn's tensors
 freed first):
 
   flash_kernel  the kernel against its plain version (its block schedule,
@@ -301,7 +332,9 @@ din, din_train and serve, timed at shape (a); the bag backward's from
 din_train, timed at shape (e); the bucket kernel's from bucket; the
 softmax kernel's from gnn's timed train steps and forwards and the
 distributed GAT layers, timed at shape (a); the flash kernel's from lm's counted prefills and train steps, timed
-at shape (a)) and, last, ``{"ok": true, "device": ...}``.
+at shape (a); its float32 launches from recovery's trainer and ranks, timed
+at shape (c); the gather kernel's sum_f32 launches include recovery's
+PageRank) and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero; it also exits non-zero, printing no
 result, when no CUDA device is present or the port's sources are missing.
 
@@ -322,6 +355,7 @@ import itertools
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -391,6 +425,9 @@ DIN_BATCH, DIN_CANDIDATES, DIN_CHUNK = 512, 4096, 512  # the reference CLI's siz
 # both compute the same float32 values up to reassociation (the oracle run in
 # float32 on the same bf16 inputs, then rounded)
 FLASH_F32_TOL = dict(rtol=2e-5, atol=2e-5)
+# flash_phase's float32 shapes: (c) timed, (e) and (f) the shapes recovery's
+# trainer and elastic ranks give the kernel
+FLASH_F32_SHAPES = ("c_smollm_4k_f32", "e_cli_trainer_f32", "f_elastic_rank_f32")
 FLASH_BF16_TOL = dict(rtol=2 ** -7, atol=1e-6)
 FLASH_REPS = 20  # back-to-back launches a CUDA-event reading
 HOLD_MAX_S = 0.2  # the longest the stream is held while the host enqueues a timed run
@@ -438,6 +475,21 @@ DIST_PR_TOL = dict(rtol=2e-5, atol=1e-8)
 # terms' magnitudes (the float32 reassociation bound), plus a floor
 AGG_REL = 1e-5
 NCCL_SCALE = 16  # the NCCL arm: world size 1, a p = 1 partition of RMAT scale 16
+# recovery: the reference's kill-and-resume schedules (tests/test_fault_tolerance.py),
+# GraphSAGE's on minibatch_lg, the trainer CLI's, and the elastic LM's ranks
+PR_RESUME = dict(steps=40, every=15, stop=20)
+SAGE_RESUME = dict(steps=12, every=4, stop=6, inject_at=2, depth=2)
+# the trainer CLI's LM batch and sequence (its defaults, passed explicitly:
+# flash_phase checks the kernel at the shapes they give it)
+CLI_RESUME = dict(steps=40, every=10, kill_at=20, batch=8, seq=128)
+ELASTIC = dict(before=2, after=4, steps=3, seq=32)  # one row of `seq` tokens a rank
+# tests/test_elastic.py's TINY LM
+ELASTIC_LM = dict(name="t", n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
+                  vocab=128, attn_chunk=16)
+CLI_LOSS_REL = 1e-5  # the resumed trainer's final loss against an uninterrupted run's
+# partition fields a PageRank pull run does not read (the push stream, the weights)
+RECOVERY_UNREAD = ("push_word", "push_word_hi", "push_counts", "push_weights", "push_coverage",
+                   "tile_weights", "weights", "graph_weights")
 
 
 def emit(phase: str, t0: float, **kw) -> None:
@@ -551,6 +603,22 @@ def load_partition(where: Path):
     pg = PartitionedGraph.from_numpy({**meta["scalars"], **arrs,
                                       **{n: None for n in meta["absent"]}})
     return pg, g
+
+
+def drop_partition_fields(where: Path, names) -> int:
+    """Delete ``save_partition``'s files of the array fields ``names`` (read
+    back as absent); returns the bytes freed."""
+    meta = json.loads((where / "meta.json").read_text())
+    freed = 0
+    for n in names:
+        if n in meta["arrays"]:
+            freed += (where / f"{n}.npy").stat().st_size
+            (where / f"{n}.npy").unlink()
+            meta["arrays"].remove(n)
+            if not n.startswith("graph_"):
+                meta["absent"].append(n)
+    (where / "meta.json").write_text(json.dumps(meta))
+    return freed
 
 
 def label_digest(labels: dict) -> str:
@@ -807,6 +875,75 @@ def nccl_rank(rank: int, group, spec: dict) -> dict:
         agree[name] = dict(iterations=got[name].iterations, equal=same)
     return dict(transport=transport(group), launches=launches, agree=agree,
                 edges=g.num_edges, vertices=g.num_vertices)
+
+
+def recovery_rank(rank: int, group, spec: dict) -> dict:
+    """tests/test_elastic.py's TINY LM data-parallel on this card, one row of
+    the global batch (= world size) a rank: restore the newest checkpoint
+    under spec["dir"] onto this world through ``restore_checkpoint``'s
+    shardings (replicated, on a CPU DeviceMesh, then to the card) or start
+    from seeded weights; ``spec["steps"]`` steps with the gradients synced
+    by int8 error feedback; save from rank 0."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.core.distributed import _all_reduce_sum, transport
+    from repro_torch.data.pipeline import ShardedLoader
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.dist.checkpoint import latest_step, restore_checkpoint, save_checkpoint
+    from repro_torch.dist.compression import make_error_feedback, wire_bytes
+    from repro_torch.dist.sharding import P, placements
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.optim import AdamWConfig, tree_flatten, tree_map
+    from repro_torch.train.steps import init_train_state, make_lm_train_step
+
+    dev = torch.device(spec["device"])
+    world = dist.get_world_size(group)
+    mesh = DeviceMesh("cpu", list(range(world)), mesh_dim_names=("data",))
+    cfg = tfm.LMConfig(**spec["cfg"], dtype=torch.float32)
+    ocfg = AdamWConfig(lr=1e-3, total_steps=100)
+    state = init_train_state(tfm.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu"),
+                             ocfg)
+    start, restore_s = 0, None
+    if latest_step(spec["dir"]) is not None:
+        t = time.perf_counter()
+        replicated = tree_map(lambda _: (mesh, placements(P(), mesh)), state)
+        state, meta = restore_checkpoint(spec["dir"], state, shardings=replicated)
+        state = tree_map(lambda x: x.to_local(), state)
+        restore_s = time.perf_counter() - t
+        start = meta["next_step"]
+    state = tree_map(lambda x: x.to(dev), state)
+    ef_init, ef_apply = make_error_feedback("int8")
+    ef = [ef_init(state["params"])]
+
+    def sync(grads):
+        synced, ef[0] = ef_apply(grads, ef[0], group)
+        return synced
+
+    rows = (mesh, placements(P("data", None), mesh))
+    loader = ShardedLoader(
+        lambda seed, i: lm_batch(seed=seed, step=i, batch=world, seq=spec["seq"],
+                                 vocab=cfg.vocab),
+        seed=SEED, shardings={"tokens": rows, "labels": rows}, start_step=start, device="cpu")
+    step = make_lm_train_step(cfg, ocfg, grad_transform=sync)
+    FK.reset_launch_counts()
+    losses = []
+    for _ in range(spec["steps"]):
+        batch = {k: v.to_local().to(dev) for k, v in next(loader).items()}
+        state, m = step(state, batch)
+        losses.append(float(_all_reduce_sum(m["loss"], group)) / world)
+    launches = dict(FK.LAUNCHES)
+    end = loader.state()["next_step"]
+    if rank == 0:
+        save_checkpoint(spec["dir"], end, state, meta={"next_step": end})
+    dist.barrier(group)
+    n = sum(t.numel() for t in tree_flatten(state["params"])[0])
+    return dict(start=start, step=end, losses=losses, restore_seconds=restore_s,
+                transport=transport(group), flash_launches=launches,
+                sync_wire_bytes=wire_bytes(state["params"], "int8"), sync_fp32_bytes=4 * n)
 
 
 def main() -> int:
@@ -1628,7 +1765,9 @@ def main() -> int:
         emit("distributed_nccl", t1, **nccl,
              note="world size 1 over NCCL (device tensors, no host staging) on a p = 1 "
                   "partition; the rehearsal runs it over gloo")
-        shutil.rmtree(where, ignore_errors=True)
+        # recovery's PageRank resume reads the pull stream back from here;
+        # what it does not read goes now
+        drop_partition_fields(where, RECOVERY_UNREAD)
         total = {"gather_reduce_cores": {}, "scatter_reduce_cores": {}, "segment_softmax": {}}
         for ln in [o["launches"] for o in outs] + [nccl["launches"]]:
             for kern, counts in ln.items():
@@ -2819,6 +2958,17 @@ def main() -> int:
               "the bound's 8 H + 5; gbps_*: those bytes over ms; no single PyTorch call computes "
               "a segment softmax (library_ms null)")
 
+    # GraphSAGE's neighbor sampler over the smoke graph: gnn's minibatch_lg
+    # step and recovery (b)
+    from repro_torch.data.neighbor_sampler import NeighborSampler
+
+    sage_dims = get_arch("graphsage").shape("minibatch_lg").dims
+    sage_batch_nodes = sage_dims["batch_nodes"] // (64 if rehearsal else 1)
+    t = time.perf_counter()
+    sampler = NeighborSampler(g, fanouts=(sage_dims["fanout1"], sage_dims["fanout2"]),
+                              d_feat=sage_dims["d_feat"])
+    sampler_build_s = time.perf_counter() - t
+
     # -- GNNs at published width: GAT training and inference, one step of each other arch
     def gnn_phase():
         """gat-cora: 50 train steps on the Cora shape, launches counted, and
@@ -2940,15 +3090,9 @@ def main() -> int:
                                            dims["edges_per"], dims["d_feat"], dims["n_classes"])
                 b, task = b.to(dev), "graph_class"
                 out_dim = dims["n_classes"]
-            elif cell == "minibatch_lg":  # a seeded graph at the sampler's sizes
-                n, e = dims["n_nodes"], dims["n_edges"]
-                if rehearsal:
-                    n, e = n // 64, e // 64
-                erng = np.random.default_rng(SEED + 9)
-                b, lab = graph_batch_from_coo(erng.integers(0, n, e), erng.integers(0, n, e), n,
-                                              dims["d_feat"], seed=SEED,
-                                              n_classes=dims["n_classes"])
-                b, loss_nodes = b.to(dev), dims["batch_nodes"]
+            elif cell == "minibatch_lg":  # a sampled batch of the smoke graph
+                b, lab = sampler.sample(SEED, 0, sage_batch_nodes)
+                b, loss_nodes = b.to(dev), sage_batch_nodes
                 out_dim = dims["n_classes"]
             else:
                 b = cora
@@ -2995,6 +3139,365 @@ def main() -> int:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
+    # -- training infrastructure: checkpoints, kill-and-resume, elastic restore --
+    from repro_torch.core.engine import unpad_labels
+    from repro_torch.data.pipeline import ShardedLoader, prefetch
+    from repro_torch.dist.checkpoint import latest_step, restore_checkpoint, save_checkpoint
+    from repro_torch.dist.compression import int8_compress, topk_sparsify
+    from repro_torch.dist.fault_tolerance import CheckpointPolicy, StepMonitor, run_with_recovery
+
+    class InjectedFault(RuntimeError):
+        """recovery (b)'s marked transient failure."""
+
+    def dir_bytes(path):
+        return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+    def same_bits(a, b):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and bool(torch.equal(a.cpu().reshape(-1).view(torch.uint8),
+                                    b.cpu().reshape(-1).view(torch.uint8))))
+
+    def recovery_pagerank(root):
+        """(a) PageRank through make_iteration under run_with_recovery on the
+        smoke partition (read back from the distributed phase's files): 40
+        steps, then a run stopped at 20 and resumed from 15; bit-equal
+        labels; checkpoint bytes, save and restore seconds, #1's launches."""
+        where = ROOT / "build" / "distributed"
+        t = time.perf_counter()
+        pg_r, g_r = load_partition(where)
+        prob = pagerank(tol=0.0)  # fixed-step power iteration
+        iteration = make_iteration(prob, pg_r, EngineOptions(), dev)
+        set_up_s = time.perf_counter() - t
+
+        def init():
+            return prepare_labels(prob, g_r, pg_r, dev)
+
+        def step_fn(state, i):
+            return iteration(state), {}
+
+        n, every, stop = PR_RESUME["steps"], PR_RESUME["every"], PR_RESUME["stop"]
+        sync()
+        K.reset_launch_counts()
+        t = time.perf_counter()
+        final_a, _ = run_with_recovery(step_fn, init, n, CheckpointPolicy(str(root / "pr_a"), every))
+        sync()
+        whole_s = time.perf_counter() - t
+        pol_b = CheckpointPolicy(str(root / "pr_b"), every_steps=every)
+        run_with_recovery(step_fn, init, stop, pol_b)  # 'preempted' after `stop` steps
+        resumed_from = latest_step(pol_b.directory)
+        check(resumed_from == every, f"recovery (a): newest checkpoint {resumed_from}, not {every}")
+        t = time.perf_counter()
+        final_b, _ = run_with_recovery(step_fn, init, n, pol_b)
+        sync()
+        resume_s = time.perf_counter() - t
+        launches = dict(K.LAUNCHES)
+        a, b = unpad_labels(final_a, pg_r)["label"], unpad_labels(final_b, pg_r)["label"]
+        check(a.tobytes() == b.tobytes(), "recovery (a): resumed PageRank labels differ from "
+              f"the uninterrupted run's (max diff {float(np.abs(a - b).max())})")
+        want = (n + stop + n - every) * pg_r.l
+        if not rehearsal:
+            check(launches == {"sum_f32": want}, f"recovery (a): launches {launches} != {want}")
+        like = init()
+        sync()
+        t = time.perf_counter()
+        path = save_checkpoint(str(root / "pr_timing"), n, final_b, meta={"next_step": n})
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        restored, _ = restore_checkpoint(str(root / "pr_timing"), like)
+        sync()
+        restore_s = time.perf_counter() - t
+        check(all(same_bits(restored[k], final_b[k]) for k in final_b),
+              "recovery (a): restored labels differ from the saved ones")
+        out = dict(vertices=g_r.num_vertices, edges=pg_r.num_edges, p=pg_r.p, l=pg_r.l,
+                   steps=n, every=every, stopped_at=stop, resumed_from=resumed_from,
+                   labels_bit_equal=True, launches=launches, launches_expected=want,
+                   set_up_seconds=set_up_s, whole_run_seconds=whole_s,
+                   resumed_run_seconds=resume_s, checkpoint_bytes=dir_bytes(path),
+                   label_leaves={k: [list(v.shape), str(v.dtype)] for k, v in final_b.items()},
+                   save_seconds=save_s, restore_seconds=restore_s,
+                   rank_sum=float(a.sum()))
+        del pg_r, g_r, iteration, final_a, final_b, restored, like
+        shutil.rmtree(where, ignore_errors=True)
+        return out
+
+    def recovery_graphsage(root):
+        """(b) GraphSAGE at published width on NeighborSampler batches of the
+        smoke graph through ShardedLoader (+ prefetch) under
+        run_with_recovery: one marked failure injected, retried once; a run
+        stopped at 6 and resumed from 4, its restored state bit-equal to the
+        saved one and its final params within GNN_TOL of the whole run's."""
+        sage = get_arch("graphsage")
+        scfg = sage.smoke() if rehearsal else sage.model
+        dims, bn = sage_dims, sage_batch_nodes
+        n, every = SAGE_RESUME["steps"], SAGE_RESUME["every"]
+        ocfg = AdamWConfig(lr=1e-3, total_steps=n, warmup_steps=min(20, n))
+        stp = train_steps.make_gnn_train_step(scfg, ocfg, task="node_class", loss_nodes=bn)
+        host_ms = []
+
+        def make(seed, i):
+            t = time.perf_counter()
+            batch = sampler.sample(seed, i, bn)
+            host_ms.append((time.perf_counter() - t) * 1e3)
+            return batch
+
+        def init_state():
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            return train_steps.init_train_state(
+                gnn_archs.init(scfg, dims["d_feat"], dims["n_classes"], gen, dev), ocfg)
+
+        def sage_run(directory, total, depth, inject_at=None, keep_step=None):
+            start = latest_step(str(directory)) or 0
+            loader = ShardedLoader(make, SEED, start_step=start, device=dev)
+            batches = prefetch(loader, depth) if depth else loader
+            held, attempts, walls, edges, losses, kept = {}, {}, [], [], [], {}
+
+            def step_fn(state, i):
+                t = time.perf_counter()
+                if held.get("i") != i:  # a retry reuses the step's batch
+                    held.update(i=i, batch=next(batches))
+                    check(loader.state()["next_step"] == i + 1,
+                          f"recovery (b): loader cursor {loader.state()} at step {i}")
+                b, lab = held["batch"]
+                attempts[i] = attempts.get(i, 0) + 1
+                if i == inject_at and attempts[i] == 1:
+                    raise InjectedFault(f"injected at step {i}")
+                state, m = stp(state, b, lab)
+                loss = float(m["loss"])  # waits for the step
+                walls.append((time.perf_counter() - t) * 1e3)
+                check(np.isfinite(loss), f"recovery (b): loss {loss} at step {i}")
+                losses.append(loss)
+                edges.append(int(b.edge_mask.sum()))
+                if keep_step is not None and i + 1 == keep_step:
+                    kept["state"] = tree_map(lambda x: x.clone(), state)
+                return state, m
+
+            try:
+                state, _ = run_with_recovery(step_fn, init_state, total,
+                                             CheckpointPolicy(str(directory), every_steps=every))
+            finally:
+                if depth:
+                    batches.close()
+            return state, dict(start=start, attempts=attempts, walls=walls, edges=edges,
+                               losses=losses, kept=kept.get("state"))
+
+        state_a, run_a = sage_run(root / "sage_a", n, SAGE_RESUME["depth"],
+                                  inject_at=SAGE_RESUME["inject_at"])
+        retries = {i: k - 1 for i, k in run_a["attempts"].items() if k > 1}
+        check(retries == {SAGE_RESUME["inject_at"]: 1},
+              f"recovery (b): retries {retries}, not one at step {SAGE_RESUME['inject_at']}")
+        _, run_b1 = sage_run(root / "sage_b", SAGE_RESUME["stop"], 0, keep_step=every)
+        resumed_from = latest_step(str(root / "sage_b"))
+        check(resumed_from == every, f"recovery (b): newest checkpoint {resumed_from}")
+        restored, _ = restore_checkpoint(str(root / "sage_b"), init_state(), step=every)
+        flat_r, flat_k = tree_flatten(restored)[0], tree_flatten(run_b1["kept"])[0]
+        check(len(flat_r) == len(flat_k) and all(same_bits(x, y) for x, y in zip(flat_r, flat_k)),
+              "recovery (b): the restored state differs from the saved one")
+        state_b, run_b2 = sage_run(root / "sage_b", n, 0)
+        check(run_b2["start"] == every, f"recovery (b): resumed at {run_b2['start']}")
+        pa, pb = tree_flatten(state_a["params"])[0], tree_flatten(state_b["params"])[0]
+        param_err = max(float((x - y).abs().max()) for x, y in zip(pa, pb))
+        check(all(torch.allclose(x, y, **GNN_TOL) for x, y in zip(pa, pb)),
+              f"recovery (b): resumed params differ from the whole run's by {param_err}")
+        host, host_lab = sampler.sample(SEED, 0, bn)
+        h2d = sum(getattr(host, f.name).numel() * getattr(host, f.name).element_size()
+                  for f in dataclasses.fields(host)
+                  if isinstance(getattr(host, f.name), torch.Tensor)) + host_lab.nbytes
+        no_pf = run_b1["walls"][1:] + run_b2["walls"][1:]
+        del state_a, state_b, restored, run_b1, flat_r, flat_k
+        return dict(config=dataclasses.asdict(scfg) | {"dtype": str(scfg.dtype)},
+                    batch_nodes=bn, fanouts=list(sampler.fanouts), d_feat=dims["d_feat"],
+                    classes=dims["n_classes"], max_nodes=sampler.max_nodes(bn),
+                    max_edges=sampler.max_edges(bn), sampled_edges=run_a["edges"],
+                    steps=n, every=every, injected_at=SAGE_RESUME["inject_at"],
+                    retries=retries, resumed_from=resumed_from, restored_bit_equal=True,
+                    max_param_diff=param_err, losses_whole=run_a["losses"],
+                    losses_resumed=run_b2["losses"],
+                    ms_per_step_prefetch=dict(median=float(np.median(run_a["walls"][1:])),
+                                              min=min(run_a["walls"][1:]),
+                                              max=max(run_a["walls"][1:]),
+                                              first=run_a["walls"][0]),
+                    ms_per_step_no_prefetch=dict(median=float(np.median(no_pf)),
+                                                 min=min(no_pf), max=max(no_pf),
+                                                 first=run_b2["walls"][0]),
+                    prefetch_depth=SAGE_RESUME["depth"],
+                    sampler_host_ms=dict(median=float(np.median(host_ms)), min=min(host_ms),
+                                         max=max(host_ms), batches=len(host_ms)),
+                    sampler_build_seconds=sampler_build_s, h2d_bytes_per_batch=h2d)
+
+    def recovery_cli(root):
+        """(c) the trainer CLI (smollm-135m's smoke config, --ckpt) SIGKILLed
+        once step 20 is saved, rerun to the end past a planted .tmp, against
+        an uninterrupted run (started beside the killed one: the two share
+        the card); #6's launches from both runs' final lines."""
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        if rehearsal:  # two trainers at once on the CPU: keep them off each other's cores
+            env["OMP_NUM_THREADS"] = "2"
+        argv = ["--arch", "smollm-135m", "--steps", str(CLI_RESUME["steps"]),
+                "--ckpt-every", str(CLI_RESUME["every"]), "--batch", str(CLI_RESUME["batch"]),
+                "--seq", str(CLI_RESUME["seq"])] + (["--device", "cpu"] if rehearsal else [])
+
+        def cmd(d):
+            return [sys.executable, "-m", "repro_torch.launch.train", *argv, "--ckpt", str(d)]
+
+        killed_dir = root / "cli"
+        mark = killed_dir / f"step_{CLI_RESUME['kill_at']:08d}"
+        t = time.perf_counter()
+        whole = subprocess.Popen(cmd(root / "cli_whole"), cwd=ROOT, env=env, text=True,
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        try:  # the uninterrupted run ends with this part, whatever fails
+            with open(root / "cli_killed.log", "w") as log:
+                proc = subprocess.Popen(cmd(killed_dir), cwd=ROOT, env=env, stdout=log,
+                                        stderr=subprocess.STDOUT)
+                try:
+                    deadline = time.monotonic() + 600
+                    while (not mark.exists() and proc.poll() is None
+                           and time.monotonic() < deadline):
+                        time.sleep(0.002)
+                    if proc.poll() is None:
+                        proc.send_signal(signal.SIGKILL)
+                finally:
+                    if proc.poll() is None:
+                        proc.kill()
+                    proc.wait(timeout=60)
+            killed_s = time.perf_counter() - t
+            check(proc.returncode == -signal.SIGKILL,
+                  f"recovery (c): the trainer exited {proc.returncode} before the kill: "
+                  f"{(root / 'cli_killed.log').read_text()[-2000:]}")
+            newest = latest_step(str(killed_dir))
+            check(newest is not None and newest >= CLI_RESUME["kill_at"],
+                  f"recovery (c): newest checkpoint {newest}")
+            left_tmp = sorted(x for x in os.listdir(killed_dir) if x.endswith(".tmp"))
+            stale = killed_dir / f"step_{newest + CLI_RESUME['every']:08d}.tmp"
+            stale.mkdir(exist_ok=True)  # as a save killed mid-write leaves it
+            (stale / "manifest.json").write_text("{")
+            t = time.perf_counter()
+            rerun = subprocess.run(cmd(killed_dir), cwd=ROOT, env=env, capture_output=True,
+                                   text=True, timeout=900)
+            rerun_s = time.perf_counter() - t
+            w_out, w_err = whole.communicate(timeout=900)
+        finally:
+            if whole.poll() is None:
+                whole.kill()
+                whole.wait(timeout=60)
+        runs = {}
+        for name, code, out_, err_, secs in (
+                ("rerun", rerun.returncode, rerun.stdout, rerun.stderr, rerun_s),
+                ("whole", whole.returncode, w_out, w_err, None)):
+            check(code == 0, f"recovery (c): {name} failed: {err_[-3000:]}")
+            last = out_.strip().splitlines()[-1]
+            runs[name] = dict(seconds=secs, resume=out_.splitlines()[0],
+                              last_loss=last.split("last loss ")[1].split(";")[0],
+                              launches=json.loads(last.split("launches ")[1]))
+        check(runs["rerun"]["resume"].startswith(f"resume: step {newest} under"),
+              f"recovery (c): the rerun says {runs['rerun']['resume']!r}, newest is {newest}")
+        check(not any(x.endswith(".tmp") for x in os.listdir(killed_dir)),
+              "recovery (c): a .tmp survived the rerun")
+        a, b = float(runs["rerun"]["last_loss"]), float(runs["whole"]["last_loss"])
+        rel = abs(a - b) / abs(b)
+        check(rel <= CLI_LOSS_REL, f"recovery (c): final loss {a} vs {b} (rel {rel})")
+        flash = sum(sum(r["launches"].get("flash_attention", {}).values()) for r in runs.values())
+        if not rehearsal:
+            check(flash > 0, "recovery (c): the trainer launched no flash kernel")
+        return dict(steps=CLI_RESUME["steps"], every=CLI_RESUME["every"],
+                    killed_after_step_dir=mark.name, killed_seconds=killed_s,
+                    newest_at_kill=newest, tmp_left_by_kill=left_tmp, planted_tmp=stale.name,
+                    runs=runs, rel_diff=rel, bits_match=a == b and runs["rerun"]["last_loss"]
+                    == runs["whole"]["last_loss"], flash_launches=flash)
+
+    def recovery_elastic(root):
+        """(d) the TINY LM data-parallel in ranks sharing the card over gloo:
+        3 steps at 2 ranks with int8 error-feedback sync and a save, a
+        replicated restore at 4 ranks through shardings, 3 more steps; int8
+        and top-k on the card bit-equal to the CPU's."""
+        spec = dict(dir=str(root / "elastic"), device=dev.type, cfg=ELASTIC_LM,
+                    steps=ELASTIC["steps"], seq=ELASTIC["seq"])
+        outs = {}
+        for phase_, world in (("before", ELASTIC["before"]), ("after", ELASTIC["after"])):
+            t = time.perf_counter()
+            got = spawn_ranks(recovery_rank, world, (spec,), backend="gloo",
+                              timeout=DIST_TIMEOUT_S, init_dir=root)
+            outs[phase_] = dict(seconds=time.perf_counter() - t, ranks=got)
+            check(all(o["losses"] == got[0]["losses"] for o in got),
+                  f"recovery (d): ranks disagree on the loss at {world} ranks")
+        before, after = outs["before"]["ranks"][0], outs["after"]["ranks"][0]
+        check(before["step"] == ELASTIC["steps"] and after["start"] == ELASTIC["steps"]
+              and after["step"] == 2 * ELASTIC["steps"],
+              f"recovery (d): steps {before['step']} -> {after['start']}..{after['step']}")
+        check(all(np.isfinite(after["losses"])), f"recovery (d): loss {after['losses']}")
+        crng = np.random.default_rng(SEED + 13)
+        cases = [crng.standard_normal(1 << 20).astype(np.float32),
+                 (crng.integers(-40, 40, 4096) / 2.0).astype(np.float32),
+                 np.repeat(crng.standard_normal(64).astype(np.float32), 16)]
+        for x in cases:
+            cpu, on_dev = torch.from_numpy(x), torch.from_numpy(x).to(dev)
+            (qc, sc), (qd, sd) = int8_compress(cpu), int8_compress(on_dev)
+            check(same_bits(qd, qc) and same_bits(sd, sc), "recovery (d): int8 on the card "
+                  "differs from the CPU's")
+            for frac in (0.1, 0.01):
+                (vc, mc), (vd, md) = topk_sparsify(cpu, frac), topk_sparsify(on_dev, frac)
+                check(same_bits(vd, vc) and torch.equal(md.cpu(), mc),
+                      f"recovery (d): top-k at {frac} on the card differs from the CPU's")
+        flash = sum(sum(o["flash_launches"].values())
+                    for v in outs.values() for o in v["ranks"])
+        return dict(model=ELASTIC_LM, worlds=[ELASTIC["before"], ELASTIC["after"]],
+                    steps_each=ELASTIC["steps"], transport=before["transport"],
+                    losses_before=before["losses"], losses_after=after["losses"],
+                    restore_seconds=[o["restore_seconds"] for o in outs["after"]["ranks"]],
+                    spawn_seconds=[outs["before"]["seconds"], outs["after"]["seconds"]],
+                    sync_wire_bytes=before["sync_wire_bytes"],
+                    sync_fp32_bytes=before["sync_fp32_bytes"],
+                    wire_share=before["sync_wire_bytes"] / before["sync_fp32_bytes"],
+                    compression_cuda_bit_equal_to_cpu=True, flash_launches=flash)
+
+    def recovery_phase():
+        t0 = time.perf_counter()
+        root = ROOT / "build" / "recovery"
+        shutil.rmtree(root, ignore_errors=True)
+        root.mkdir(parents=True)
+        parts = {}
+
+        def part(name, fn):
+            t = time.perf_counter()
+            parts[name] = fn(root)
+            emit(f"recovery_{name}", t, **parts[name])
+            parts[name]["seconds"] = time.perf_counter() - t
+
+        for name, fn in (("pagerank", recovery_pagerank), ("graphsage", recovery_graphsage)):
+            part(name, fn)
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        # (c) and (d) are processes that mostly start up: they run side by side
+        with ThreadPoolExecutor(1) as pool:
+            elastic = pool.submit(part, "elastic", recovery_elastic)
+            part("trainer_cli", recovery_cli)
+            elastic.result()
+        shutil.rmtree(root, ignore_errors=True)
+        emit("recovery", t0, **parts, tolerance=GNN_TOL, cli_loss_rel=CLI_LOSS_REL,
+             note="(a) pagerank(tol=0.0) through make_iteration under run_with_recovery "
+                  "(every 15): 40 steps, then 20 and a resume from 15, on the smoke "
+                  "partition read back from the distributed phase's .npy files; labels bit "
+                  "for bit; save/restore: the label tree once more, timed on the host clock "
+                  "(restore synchronized). (b) graphsage at published width on minibatch_lg "
+                  "(1,024 seeds, fanouts 15-10, d_feat 602, 41 classes), NeighborSampler "
+                  "batches of the smoke graph through ShardedLoader: 12 steps (every 4) "
+                  "with prefetch(depth 2) and one InjectedFault at step 2, then without "
+                  "prefetch 6 steps and a resume from 4 to 12; ms a step: host clock from "
+                  "the step's batch fetch to its loss read, the first step of each run "
+                  "apart; the sampler's host ms a batch; H2D bytes: the batch's tensors "
+                  "and labels. (c) python -m repro_torch.launch.train --arch smollm-135m "
+                  "--steps 40 --ckpt-every 10, SIGKILLed once step_00000020 exists, rerun "
+                  "past a planted .tmp, against an uninterrupted run. (d) the TINY LM at 2 "
+                  "gloo ranks on this card (int8 error feedback) then 4 ranks restored "
+                  "through shardings; wire bytes: what one rank sends a sync (int8 "
+                  "payload and scales) against float32 gradients")
+        return dict(gather=parts["pagerank"]["launches"],
+                    flash_f32=parts["trainer_cli"]["flash_launches"]
+                    + parts["elastic"]["flash_launches"])
+
+    recovery_launches = recovery_phase()
+    del sampler
+
     # -- the flash-attention kernel against its plain version and the oracle ---
     import torch.nn.functional as TF
 
@@ -3031,20 +3534,28 @@ def main() -> int:
         return counts
 
     def flash_phase():
-        """The kernel at four shapes: (a) smollm-135m's layer at prefill_32k's
+        """The kernel at six shapes: (a) smollm-135m's layer at prefill_32k's
         S, (b) llama3-8b's at S = 4096, (c) (a)'s widths at S = 4096 in
-        float32, (d) the train step's layer (smollm-135m, B = 4, S = 4096)."""
+        float32, (d) the train step's layer (smollm-135m, B = 4, S = 4096);
+        in float32 at the shapes recovery's paths gave it: (e) the trainer
+        CLI's (smollm-135m's smoke config), (f) an elastic rank's (TINY)."""
         t0 = time.perf_counter()
-        shapes = {"a_smollm_prefill_32k": ("smollm-135m", 1, 32768, torch.bfloat16),
-                  "b_llama3_8b_4k": ("llama3-8b", 1, 4096, torch.bfloat16),
-                  "c_smollm_4k_f32": ("smollm-135m", 1, 4096, torch.float32),
-                  "d_smollm_train_4k": ("smollm-135m", LM_TRAIN_BATCH, 4096, torch.bfloat16)}
+        smollm = get_arch("smollm-135m")
+        # (config, batch, S, input type, S cut in the CPU rehearsal)
+        shapes = {"a_smollm_prefill_32k": (smollm.model, 1, 32768, torch.bfloat16, True),
+                  "b_llama3_8b_4k": (get_arch("llama3-8b").model, 1, 4096, torch.bfloat16, True),
+                  "c_smollm_4k_f32": (smollm.model, 1, 4096, torch.float32, True),
+                  "d_smollm_train_4k": (smollm.model, LM_TRAIN_BATCH, 4096, torch.bfloat16,
+                                        True),
+                  "e_cli_trainer_f32": (smollm.smoke(), CLI_RESUME["batch"], CLI_RESUME["seq"],
+                                        torch.float32, False),
+                  "f_elastic_rank_f32": (tfm.LMConfig(**ELASTIC_LM, dtype=torch.float32), 1,
+                                         ELASTIC["seq"], torch.float32, False)}
         rows, worst = {}, 0.0
         reps = 2 if rehearsal else FLASH_REPS
-        for label, (arch_id, bsz, s, dtype) in shapes.items():
-            m = get_arch(arch_id).model
+        for label, (m, bsz, s, dtype, cut) in shapes.items():
             hq, hkv, d = m.n_heads, m.n_kv_heads, m.hd
-            if rehearsal:
+            if rehearsal and cut:
                 s = s // 64
             gen = torch.Generator(device=dev).manual_seed(SEED + 13)
             q, k, v = (torch.randn(bsz, h, s, d, generator=gen, device=dev).to(dtype)
@@ -3085,7 +3596,7 @@ def main() -> int:
             ops_ms = flops / (BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S) * 1e3
             timed = kernel_ms(kern, reps, 1, "flash_attention_kernel")
             rows[label] = dict(
-                arch=arch_id, batch=bsz, heads=hq, kv_heads=hkv, seq=s, head_dim=d,
+                arch=m.name, batch=bsz, heads=hq, kv_heads=hkv, seq=s, head_dim=d,
                 dtype=str(dtype), block_q=blocks["block_q"], block_k=blocks["block_k"],
                 max_abs_err=err, max_abs_err_vs_oracle=oerr, oracle_positions=n,
                 max_abs_diff_vs_library=lerr, **timed, tflops=flops / timed["ms"] / 1e9,
@@ -3102,7 +3613,10 @@ def main() -> int:
              note="(a) smollm-135m's layer at prefill_32k's S = 32,768, B = 1 (Hq 9, Hkv 3, D "
                   "64, bf16); (b) llama3-8b's at S = 4096 (Hq 32, Hkv 8, D 128, bf16); (c) "
                   "(a)'s widths at S = 4096, float32; (d) the train step's: (a)'s widths at B "
-                  "= 4, S = 4096, bf16; q, k, v seeded N(0, 1); the model's blocks; tflops: "
+                  "= 4, S = 4096, bf16; float32 at recovery's shapes: (e) the trainer CLI's "
+                  "(smollm-135m's smoke config: Hq 3, Hkv 3, D 16; B 8, S 128), (f) an elastic "
+                  "rank's (TINY: Hq 4, Hkv 2, D 8; B 1, S 32); q, k, v seeded N(0, 1); the "
+                  "model's blocks; tflops: "
                   "the causal flops over ms; sass_tensor_ops: HMMA / HGMMA instructions in "
                   "each kernel's SASS (cuobjdump -sass of the built library); "
                   "ms: CUDA events around back-to-back launches, the stream held while the host "
@@ -3304,7 +3818,34 @@ def main() -> int:
                          tokens_per_s=tbatch * tseq / med * 1e3, steps_per_s=n_steps / wall,
                          loss_first=losses[0], loss_last=losses[-1], first_step=first,
                          launches=train_launches)
-        del state, batches, params
+
+        # the trained state (bf16 params, float32 AdamW moments) through
+        # save_checkpoint and restore_checkpoint onto the card, leaf by leaf
+        ck_dir = ROOT / "build" / "lm_checkpoint"
+        shutil.rmtree(ck_dir, ignore_errors=True)
+        sync()
+        t = time.perf_counter()
+        save_checkpoint(str(ck_dir), n_steps, state, meta={"next_step": n_steps})
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        back, meta = restore_checkpoint(str(ck_dir), state)
+        sync()
+        restore_s = time.perf_counter() - t
+        saved, restored = tree_flatten(state)[0], tree_flatten(back)[0]
+        check(len(saved) == len(restored) and meta == {"next_step": n_steps},
+              f"lm checkpoint: {len(restored)} leaves of {len(saved)}, meta {meta}")
+        for i, (a_, b_) in enumerate(zip(saved, restored)):
+            check(same_bits(a_, b_) and a_.device == b_.device if torch.is_tensor(a_)
+                  else a_ == b_ and type(a_) is type(b_),
+                  f"lm checkpoint: leaf {i} came back changed")
+        tensors = [x for x in saved if torch.is_tensor(x)]
+        ckpt_row = dict(leaves=len(saved), bytes=dir_bytes(ck_dir),
+                        tensor_bytes=sum(x.numel() * x.element_size() for x in tensors),
+                        bf16_leaves=sum(x.dtype == torch.bfloat16 for x in tensors),
+                        f32_leaves=sum(x.dtype == torch.float32 for x in tensors),
+                        save_seconds=save_s, restore_seconds=restore_s, bits_equal=True)
+        shutil.rmtree(ck_dir, ignore_errors=True)
+        del state, batches, params, back, saved, restored, tensors
 
         # one prefill of each other LM arch at published width, B = 1, S = 4096
         others = {}
@@ -3348,7 +3889,7 @@ def main() -> int:
         emit("lm", t0, config=dataclasses.asdict(cfg) | {"dtype": str(cfg.dtype)},
              memory_allocated_at_start=mem0, profiler_probe_events=profiler_probe(),
              prefill=prefill_row, decode=decode_row,
-             train=train_row, other_archs=others,
+             train=train_row, checkpoint=ckpt_row, other_archs=others,
              tolerance=dict(kernel_rel_l2=LM_KERNEL_REL, decode_rel_l2=LM_DECODE_REL,
                             decode_f32_atol=LM_DECODE_F32_ATOL),
              note="smollm-135m at published width (30 layers, d 576, 9/3 heads, D 64, d_ff "
@@ -3364,7 +3905,11 @@ def main() -> int:
                   "= 4096, batch cut from 256 to 4, 10 AdamW steps (lr 1e-3); launches 2 a "
                   "layer a step (forward and the block's recompute); the first step's loss "
                   "and grads against a plain-attention run; profiled_step: one more step under "
-                  "torch.profiler (a floor). other archs: one first prefill "
+                  "torch.profiler (a floor). checkpoint: the trained state (bf16 params, "
+                  "float32 AdamW moments and step) saved with save_checkpoint (host clock "
+                  "from a synchronized card) and restored onto the card into its own template "
+                  "(host clock ending in a synchronize), every leaf bit for bit; bytes: the "
+                  "step directory on disk. other archs: one first prefill "
                   "at B = 1, S = 4096; qwen3-moe-30b-a3b cut from 48 to 12 layers (its 48 "
                   "layers' 61 GB of bf16 weights leave too little room)")
         return launches
@@ -3374,7 +3919,9 @@ def main() -> int:
     kernels = [
         dict(name=f"{kern}_reduce_cores[{v}]", route="cuda", **meta,
              launches=launches[f"{kern}_reduce_cores"].get(v, 0)
-             + dist_launches[f"{kern}_reduce_cores"].get(v, 0), max_abs_err=errs[(kern, v)],
+             + dist_launches[f"{kern}_reduce_cores"].get(v, 0)
+             + (recovery_launches["gather"].get(v, 0) if kern == "gather" else 0),
+             max_abs_err=errs[(kern, v)],
              ms=timing[(kern, v)]["ms"], plain_ms=timing[(kern, v)]["plain_ms"],
              bound_ms=timing[(kern, v)]["bound_ms"], bound_by=timing[(kern, v)]["bound_by"],
              library_ms=None)
@@ -3433,6 +3980,19 @@ def main() -> int:
              bound_ms=flash_rows["a_smollm_prefill_32k"]["bound_ms"],
              bound_by=flash_rows["a_smollm_prefill_32k"]["bound_by"],
              library_ms=flash_rows["a_smollm_prefill_32k"]["library_ms"])
+    ] + [
+        # float32 on recovery's trainer (smollm-135m's smoke config) and
+        # elastic LM: checked at their shapes (e) and (f) and at (c),
+        # smollm-135m's layer at S = 4096, where it is timed
+        dict(name="flash_attention[f32]", route="cuda", **FLASH,
+             launches=recovery_launches["flash_f32"],
+             max_abs_err=max(flash_rows[x]["max_abs_err"] for x in FLASH_F32_SHAPES),
+             max_abs_err_by_shape={x: flash_rows[x]["max_abs_err"] for x in FLASH_F32_SHAPES},
+             ms=flash_rows["c_smollm_4k_f32"]["ms"],
+             plain_ms=flash_rows["c_smollm_4k_f32"]["plain_ms"],
+             bound_ms=flash_rows["c_smollm_4k_f32"]["bound_ms"],
+             bound_by=flash_rows["c_smollm_4k_f32"]["bound_by"],
+             library_ms=flash_rows["c_smollm_4k_f32"]["library_ms"])
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     if rehearsal:

@@ -16,7 +16,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "cuda_tool", "build_library", "load_library"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "KernelLaunchError", "cuda_tool",
+           "build_library", "load_library"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -26,6 +27,11 @@ NVCC_FLAGS = (
 )
 
 _LOADED: dict = {}  # source name -> (ctypes.CDLL, build log)
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel's launcher returned a CUDA error: a device fault, which the
+    training loop's retry (``dist.fault_tolerance``) never swallows."""
 
 
 def cuda_tool(name: str) -> str:

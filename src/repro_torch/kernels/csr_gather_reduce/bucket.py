@@ -71,7 +71,7 @@ def gather_reduce_bucket_plain(payload, src, dstb, valid, weights=None, *, num_r
 
 
 def _launch(payload, src, dstb, valid, weights, num_rows, vb, kind, edge_op, identity):
-    from repro_torch.kernels.build import load_library
+    from repro_torch.kernels.build import KernelLaunchError, load_library
 
     lib, _ = load_library(SOURCE)
     r_blocks, t_tiles, eb = src.shape
@@ -85,7 +85,7 @@ def _launch(payload, src, dstb, valid, weights, num_rows, vb, kind, edge_op, ide
                  int(edge_op == "add"), identity_word(payload.dtype, identity),
                  torch.cuda.current_stream(payload.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"gather_reduce launch failed: CUDA error {err}")
+        raise KernelLaunchError(f"gather_reduce launch failed: CUDA error {err}")
     key = variant_name(payload.dtype, kind, edge_op)
     LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
     return out

@@ -260,7 +260,7 @@ _KIND_CODES = {"min": 0, "sum": 1, "or": 2}  # kMin, kSum, kOr in the .cu file
 
 def _launch(payload, word, counts, word_hi, weights, fetch, num_rows, vb, kind, edge_op,
             identity):
-    from repro_torch.kernels.build import load_library
+    from repro_torch.kernels.build import KernelLaunchError, load_library
 
     lib, _ = load_library(SOURCE)
     p, r_blocks, t_tiles, eb = word.shape
@@ -279,7 +279,7 @@ def _launch(payload, word, counts, word_hi, weights, fetch, num_rows, vb, kind, 
     with torch.cuda.device(payload.device):  # the launch goes to the current device
         err = fn(*args, torch.cuda.current_stream(payload.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"gather_reduce_cores launch failed: CUDA error {err}")
+        raise KernelLaunchError(f"gather_reduce_cores launch failed: CUDA error {err}")
     key = variant_name(payload.dtype, kind, edge_op, lanes=payload.dim() == 2)
     LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
     return out

@@ -73,7 +73,7 @@ def scatter_reduce_cores_plain(
 
 def _launch(payload, word, counts, word_hi, weights, fetch, num_rows, kind, edge_op,
             identity):
-    from repro_torch.kernels.build import load_library
+    from repro_torch.kernels.build import KernelLaunchError, load_library
 
     lib, _ = load_library(SOURCE)
     p, b_blocks, t_tiles, eb = word.shape
@@ -92,7 +92,7 @@ def _launch(payload, word, counts, word_hi, weights, fetch, num_rows, kind, edge
     with torch.cuda.device(payload.device):  # the launch goes to the current device
         err = fn(*args, torch.cuda.current_stream(payload.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"scatter_reduce_cores launch failed: CUDA error {err}")
+        raise KernelLaunchError(f"scatter_reduce_cores launch failed: CUDA error {err}")
     key = variant_name(payload.dtype, kind, edge_op, lanes=payload.dim() == 2)
     LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
     return out

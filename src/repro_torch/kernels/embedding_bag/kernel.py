@@ -44,7 +44,7 @@ def vector_width(table: torch.Tensor, out: torch.Tensor) -> int:
 
 def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor, mode: str) -> torch.Tensor:
     """Launch the kernel on checked CUDA operands (see ``ops.embedding_bag``)."""
-    from repro_torch.kernels.build import load_library
+    from repro_torch.kernels.build import KernelLaunchError, load_library
 
     lib, _ = load_library(SOURCE)
     b, length = ids.shape
@@ -60,7 +60,7 @@ def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor, mode: str) -> tor
                  vector_width(table, out), int(mode == "mean"),
                  torch.cuda.current_stream(table.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"embedding_bag launch failed: CUDA error {err}")
+        raise KernelLaunchError(f"embedding_bag launch failed: CUDA error {err}")
     LAUNCHES[mode] = LAUNCHES.get(mode, 0) + 1
     return out
 
@@ -103,7 +103,7 @@ def launch_backward(grad_out: torch.Tensor, order: torch.Tensor, start: torch.Te
                     counts: torch.Tensor | None, length: int, mode: str) -> torch.Tensor:
     """The backward kernel alone on ``backward_runs``' (order, start) and, for
     mean, the (B,) int32 counts of real ids a bag: -> (len(start) - 1, D)."""
-    from repro_torch.kernels.build import load_library
+    from repro_torch.kernels.build import KernelLaunchError, load_library
 
     lib, _ = load_library(BACKWARD_SOURCE)
     num_rows, d = start.shape[0] - 1, grad_out.shape[1]
@@ -118,7 +118,7 @@ def launch_backward(grad_out: torch.Tensor, order: torch.Tensor, start: torch.Te
                  num_rows, length, d, int(mode == "mean"),
                  torch.cuda.current_stream(grad_out.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"embedding_bag backward launch failed: CUDA error {err}")
+        raise KernelLaunchError(f"embedding_bag backward launch failed: CUDA error {err}")
     key = f"{mode}_backward"
     LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
     return grad

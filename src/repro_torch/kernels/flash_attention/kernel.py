@@ -147,7 +147,7 @@ def flash_attention_tiles_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
 
 
 def _launch(q, k, v, causal, scale, block_q, block_k):
-    from repro_torch.kernels.build import load_library
+    from repro_torch.kernels.build import KernelLaunchError, load_library
 
     lib, _ = load_library(SOURCE)
     b, hq, s, d = q.shape
@@ -162,7 +162,7 @@ def _launch(q, k, v, causal, scale, block_q, block_k):
                  k.shape[1], s, d, block_q, block_k, int(causal), scale,
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+        raise KernelLaunchError(f"flash_attention launch failed: CUDA error {err}")
     LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
     return out
 

@@ -86,7 +86,7 @@ def segment_softmax_tiles_plain(scores: torch.Tensor, dstb: torch.Tensor,
 
 
 def _launch(scores, dstb, valid, vb):
-    from repro_torch.kernels.build import load_library
+    from repro_torch.kernels.build import KernelLaunchError, load_library
 
     lib, _ = load_library(SOURCE)
     h, r_blocks, t_tiles, eb = scores.shape
@@ -99,7 +99,7 @@ def _launch(scores, dstb, valid, vb):
                  h, r_blocks, t_tiles * eb, vb,
                  torch.cuda.current_stream(scores.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"segment_softmax launch failed: CUDA error {err}")
+        raise KernelLaunchError(f"segment_softmax launch failed: CUDA error {err}")
     LAUNCHES["f32"] = LAUNCHES.get("f32", 0) + 1
     return out
 

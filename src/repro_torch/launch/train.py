@@ -7,26 +7,36 @@ Counterpart of ``repro.launch.train``:
     PYTHONPATH=src python -m repro_torch.launch.train --arch gat-cora --steps 100
     PYTHONPATH=src python -m repro_torch.launch.train --arch din --steps 100
     PYTHONPATH=src python -m repro_torch.launch.train --arch gin-tu --steps 3 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m --steps 50 \
+        --ckpt results/ckpt --ckpt-every 10
 
 Wiring: configs.registry -> train.steps builders -> a step loop timed by
-``dist.fault_tolerance.StepMonitor``. LM archs train on ``lm_batch(seed=0,
+``dist.fault_tolerance.StepMonitor``; with ``--ckpt DIR`` the loop is
+``dist.fault_tolerance.run_with_recovery`` (``dist.checkpoint``): a save
+after every ``--ckpt-every`` steps, and a rerun with the same arguments
+resumes from the newest complete checkpoint under DIR (a ``.tmp`` left by a
+killed save is ignored) and runs to ``--steps``. LM archs train on ``lm_batch(seed=0,
 step)`` of ``--batch`` x ``--seq`` tokens; GNN node tasks on
 ``symmetrize(rmat(10, 8, seed=0))`` with 16 features and 4 classes, graph
 tasks on ``batched_molecules(step, 16 graphs of 16 nodes / 32 edges)``; DIN
 on ``recsys_batch(0, step)`` of ``--batch`` users, the item rows by a take;
-as the reference's runners do. ``--ckpt`` waits for its slice (ROADMAP.md
-§1).
+as the reference's runners do. Every batch is a pure function of the step,
+so a resumed run sees the batches an uninterrupted one would. The last
+line: the first and last loss of this run, the monitor's summary, the last
+loss in full and the launches of the port's kernels.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import torch
 
 from repro_torch.configs.registry import ARCHS, get
 from repro_torch.device import resolve_device
-from repro_torch.dist.fault_tolerance import StepMonitor
+from repro_torch.dist.checkpoint import latest_step
+from repro_torch.dist.fault_tolerance import CheckpointPolicy, StepMonitor, run_with_recovery
 from repro_torch.train import steps as steps_mod
 from repro_torch.train.optim import AdamWConfig
 
@@ -104,14 +114,12 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true", default=True,
                     help="use the smoke config (the default, as the reference's)")
     ap.add_argument("--ckpt", default=None,
-                    help="not ported yet: waits for dist/{checkpoint,fault_tolerance}.py")
+                    help="checkpoint directory: save every --ckpt-every steps, resume from it")
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
 
     arch = get(args.arch)
-    if args.ckpt:
-        raise SystemExit("--ckpt waits for the port of dist/{checkpoint,fault_tolerance}.py "
-                         "(ROADMAP.md §1, \"Training infrastructure\")")
     dev = resolve_device(args.device)
     cfg = arch.smoke() if args.reduced else arch.model
     ocfg = AdamWConfig(lr=1e-3, total_steps=args.steps, warmup_steps=min(20, args.steps))
@@ -124,16 +132,44 @@ def main(argv=None):
 
     monitor = StepMonitor()
     losses = []
-    state = init_state()
-    for i in range(args.steps):
-        t0 = time.perf_counter()
+
+    def wrapped(state, i):
         state, m = step_fn(state, i)
         loss = float(m["loss"])  # waits for the step to finish
-        monitor.record(i, time.perf_counter() - t0)
         losses.append(loss)
         if i % 10 == 0:
             print(f"step {i:5d}  loss {loss:.4f}", flush=True)
-    print(f"final: loss {losses[0]:.4f} -> {losses[-1]:.4f}; {monitor.summary()}")
+        return state, m
+
+    if args.ckpt:
+        resume = latest_step(args.ckpt)
+        print(f"resume: {'none' if resume is None else f'step {resume}'} under {args.ckpt}",
+              flush=True)
+        policy = CheckpointPolicy(directory=args.ckpt, every_steps=args.ckpt_every)
+        run_with_recovery(wrapped, init_state, args.steps, policy, monitor=monitor)
+    else:
+        state = init_state()
+        for i in range(args.steps):
+            t0 = time.perf_counter()
+            state, _ = wrapped(state, i)
+            monitor.record(i, time.perf_counter() - t0)
+    if not losses:
+        print(f"final: no step left to run (the checkpoint is at --steps {args.steps}); "
+              f"{monitor.summary()}")
+        return
+    print(f"final: loss {losses[0]:.4f} -> {losses[-1]:.4f}; {monitor.summary()}; "
+          f"last loss {losses[-1]!r}; launches {json.dumps(_kernel_launches())}")
+
+
+def _kernel_launches() -> dict:
+    """Launch counts of the port's kernels in this process, by kernel."""
+    from repro_torch.kernels.embedding_bag import kernel as bag
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.segment_softmax import kernel as softmax
+
+    return {name: dict(mod.LAUNCHES) for name, mod in
+            (("embedding_bag", bag), ("flash_attention", flash), ("segment_softmax", softmax))
+            if mod.LAUNCHES}
 
 
 if __name__ == "__main__":

@@ -57,8 +57,13 @@ class GraphBatch:
     def to(self, device) -> "GraphBatch":
         """The same batch with every tensor on ``device``; a softmax layout
         already built on the host is kept (its device copy is made anew)."""
+        return self.map_tensors(lambda t: t.to(device))
+
+    def map_tensors(self, fn) -> "GraphBatch":
+        """The same batch with ``fn`` applied to every tensor field; a
+        softmax layout already built on the host is kept."""
         moved = dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device)
+            f.name: fn(getattr(self, f.name))
             for f in dataclasses.fields(self)
             if isinstance(getattr(self, f.name), torch.Tensor)
         })

@@ -14,8 +14,9 @@ new K/V into the cache in place (the reference's donated
 checkpoints each block (``torch.utils.checkpoint``, non-reentrant), as the
 reference's ``jax.checkpoint`` with ``nothing_saveable``. The GSPMD fields
 of ``LMConfig`` (``act_sharding``, ``logit_sharding``, ``expert_sharding``,
-``attn_sharding``, ``scan_unroll``) are kept, inert, so that configs compare
-value for value.
+``attn_sharding``, ``scan_unroll``) are kept so that configs compare value
+for value; the sharding fields reach ``_wsc`` where the reference
+constrains, the identity while the port's LM runs on plain tensors.
 """
 from __future__ import annotations
 
@@ -69,7 +70,8 @@ class LMConfig:
     dtype: Any = torch.bfloat16
     attn_chunk: int = 1024
     remat: bool = True
-    # the reference's GSPMD activation constraints; inert on one card
+    # the reference's GSPMD activation constraints, passed to _wsc (the identity on
+    # the port's plain tensors)
     act_sharding: Any = None  # (B, S, d)
     logit_sharding: Any = None  # (B, S, V)
     expert_sharding: Any = None  # (E, C, d) MoE dispatch buffers
@@ -175,6 +177,7 @@ def _attention(lp, x, cfg: LMConfig, cos, sin, *, cache=None, length_mask=None):
         k = rms_norm(k, lp["k_norm"])
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    q = _wsc(q, cfg.attn_sharding)
     if cache is None:
         o = flash_attention(q, k, v, causal=True, chunk=min(cfg.attn_chunk, s),
                             **FLASH_BLOCKS[q.dtype])
@@ -204,16 +207,25 @@ def _ffn(lp, x, cfg: LMConfig):
     return out.reshape(b, s, d), aux
 
 
+def _wsc(x, sharding):
+    """The reference's GSPMD sharding constraint, kept where the reference
+    calls it. The identity: the port's LM runs on plain tensors (one card,
+    or a rank's local shard), which no constraint moves."""
+    return x
+
+
 def _block(lp, x, cfg: LMConfig, cos, sin):
-    x = x + _attention(lp, rms_norm(x, lp["ln1"]), cfg, cos, sin)
+    a = _wsc(_attention(lp, rms_norm(x, lp["ln1"]), cfg, cos, sin), cfg.act_sharding)
+    x = _wsc(x + a, cfg.act_sharding)
     f, aux = _ffn(lp, rms_norm(x, lp["ln2"]), cfg)
-    return x + f, aux
+    f = _wsc(f, cfg.act_sharding)
+    return _wsc(x + f, cfg.act_sharding), aux
 
 
 def forward(params, tokens: torch.Tensor, cfg: LMConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> logits (B, S, V), aux_loss (float32 scalar)."""
     b, s = tokens.shape
-    x = params["embed"][tokens.long()]
+    x = _wsc(params["embed"][tokens.long()], cfg.act_sharding)
     cos, sin = rope(torch.arange(s, device=tokens.device), cfg.hd, cfg.rope_theta)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -225,7 +237,7 @@ def forward(params, tokens: torch.Tensor, cfg: LMConfig) -> Tuple[torch.Tensor, 
             x, a = _block(lp, x, cfg, cos, sin)
         aux = aux + a
     x = rms_norm(x, params["final_norm"])
-    return x @ params["unembed"], aux
+    return _wsc(x @ params["unembed"], cfg.logit_sharding), aux
 
 
 # ---------------------------------------------------------------------------
@@ -250,7 +262,7 @@ def decode_step(params, cache, tokens: torch.Tensor, pos: int, cfg: LMConfig):
     b = tokens.shape[0]
     pos = int(pos)
     max_len = cache["k"].shape[3]
-    x = params["embed"][tokens.long()]  # (B, 1, d)
+    x = _wsc(params["embed"][tokens.long()], cfg.act_sharding)  # (B, 1, d)
     cos, sin = rope(torch.tensor([pos], device=tokens.device), cfg.hd, cfg.rope_theta)
     length_mask = (torch.arange(max_len, device=tokens.device)[None, :] <= pos).expand(b, max_len)
     for i in range(cfg.n_layers):

@@ -40,19 +40,35 @@ class AdamWState(NamedTuple):
     nu: Any
 
 
-def tree_flatten(tree) -> Tuple[List[torch.Tensor], Callable[[list], Any]]:
+def tree_flatten(tree, is_leaf=None) -> Tuple[List[Any], Callable[[list], Any]]:
     """(leaves in the reference's order, a function rebuilding the tree from
-    a list of leaves in that order)."""
+    a list of leaves in that order).
+
+    ``jax.tree``'s rules: dict keys sorted, list, tuple and NamedTuple items
+    in order, each rebuilt as its own type; ``None`` is an empty subtree (no
+    leaf, rebuilt as None); anything else (a tensor, a Python scalar, a
+    tuple subclass that is not a NamedTuple) is a leaf. ``is_leaf(node)``
+    true makes ``node`` a leaf."""
     leaves: list = []
 
     def walk(t):
+        if is_leaf is not None and is_leaf(t):
+            leaves.append(t)
+            return lambda it: next(it)
+        if t is None:
+            return lambda it: None
         if isinstance(t, dict):
             keys = sorted(t)
             subs = [walk(t[k]) for k in keys]
             return lambda it: {k: s(it) for k, s in zip(keys, subs)}
-        if isinstance(t, (list, tuple)):
+        if type(t) in (list, tuple) or (isinstance(t, tuple) and hasattr(t, "_fields")):
             subs = [walk(v) for v in t]
-            return lambda it: [s(it) for s in subs]
+            kind = type(t)
+            if kind is list:
+                return lambda it: [s(it) for s in subs]
+            if kind is tuple:
+                return lambda it: tuple(s(it) for s in subs)
+            return lambda it: kind(*(s(it) for s in subs))
         leaves.append(t)
         return lambda it: next(it)
 

@@ -1,7 +1,9 @@
-"""Rank bodies of tests/test_torch_distributed.py: functions that
+"""Rank bodies of tests/test_torch_distributed.py, test_torch_elastic.py,
+test_torch_fault_tolerance.py, test_torch_compression.py and
+test_torch_pipeline.py: functions that
 ``repro_torch.launch.mesh.spawn_ranks`` runs in every spawned rank (gloo, the
-CPU). They import only the port, so a rank never loads JAX; the test file
-holds their results against the reference's.
+CPU). They import only the port, so a rank never loads JAX; the test files
+hold their results against the reference's.
 
 The graphs are built from the same numpy code in both packages
 (``graph(name, G, skewed_graph)``), so the partitions are byte-identical.
@@ -189,3 +191,109 @@ def fail_on_rank_one(rank, group):
 
     dist.barrier(group)  # rank 0 would wait here forever
     return rank
+
+
+def _data_mesh(group):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    torch.set_num_threads(1)  # up to 8 ranks share the CPU; the models are tiny
+    return DeviceMesh("cpu", list(range(dist.get_world_size(group))), mesh_dim_names=("data",))
+
+
+def elastic_restore(rank, group, ckpt_dir):
+    """test_fault_tolerance.py's elastic case: the (8, 8) leaf restored onto
+    this world's 1-D mesh, rows sharded over it."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.dist.sharding import P, placements
+
+    mesh = _data_mesh(group)
+    like = {"w": torch.zeros((8, 8), dtype=torch.float32)}
+    place = placements(P("data", None), mesh)
+    got, meta = restore_checkpoint(ckpt_dir, like, shardings={"w": (mesh, place)})
+    w = got["w"]
+    resaved = save_checkpoint(ckpt_dir + "/resaved", 1, got, meta=meta)
+    return dict(is_dtensor=isinstance(w, DTensor), placements=repr(w.placements),
+                local=w.to_local().numpy(), full=w.full_tensor().numpy(), meta=meta,
+                resaved=resaved)
+
+
+def elastic_lm(rank, group, ckpt_dir, steps, tree, cfg_kw, ocfg_kw, sync):
+    """tests/test_elastic.py's data-parallel LM run, one row of the global
+    batch (= world size) a rank: restore the newest checkpoint under
+    ``ckpt_dir`` onto this world (replicated leaves) or start from the
+    reference's weights ``tree``, train ``steps`` steps with the gradients
+    averaged over the group (``sync`` "mean": an all-reduce; "int8": int8
+    error feedback), save from rank 0. Returns the global loss, the step
+    and the final parameters."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import _all_reduce_sum
+    from repro_torch.data.pipeline import ShardedLoader
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.dist.checkpoint import latest_step, restore_checkpoint, save_checkpoint
+    from repro_torch.dist.compression import make_error_feedback
+    from repro_torch.dist.sharding import P, placements
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.optim import AdamWConfig, tree_flatten, tree_map
+    from repro_torch.train.steps import init_train_state, make_lm_train_step
+
+    world = dist.get_world_size(group)
+    mesh = _data_mesh(group)
+    cfg = tfm.LMConfig(**cfg_kw, dtype=torch.float32)
+    ocfg = AdamWConfig(**ocfg_kw)
+    state = init_train_state(tfm.params_from_reference(tree, cfg, "cpu"), ocfg)
+    start = 0
+    if latest_step(ckpt_dir) is not None:
+        replicated = tree_map(lambda _: (mesh, placements(P(), mesh)), state)
+        state, meta = restore_checkpoint(ckpt_dir, state, shardings=replicated)
+        state = tree_map(lambda t: t.to_local(), state)
+        start = meta["next_step"]
+    if sync == "int8":
+        ef_init, ef_apply = make_error_feedback("int8")
+        ef = [ef_init(state["params"])]
+
+        def transform(grads):
+            synced, ef[0] = ef_apply(grads, ef[0], group)
+            return synced
+    else:
+        def transform(grads):
+            return tree_map(lambda g: _all_reduce_sum(g, group) / world, grads)
+
+    rows = (mesh, placements(P("data", None), mesh))
+    loader = ShardedLoader(
+        lambda seed, i: lm_batch(seed=seed, step=i, batch=world, seq=32, vocab=cfg.vocab),
+        seed=0, shardings={"tokens": rows, "labels": rows}, start_step=start, device="cpu")
+    step = make_lm_train_step(cfg, ocfg, grad_transform=transform)
+    for _ in range(steps):
+        batch = {k: v.to_local() for k, v in next(loader).items()}
+        state, m = step(state, batch)
+    loss = float(_all_reduce_sum(m["loss"], group)) / world
+    end = loader.state()["next_step"]
+    if rank == 0:
+        save_checkpoint(ckpt_dir, end, state, meta={"next_step": end})
+    dist.barrier(group)
+    return dict(loss=loss, step=end,
+                params=[t.numpy() for t in tree_flatten(state["params"])[0]])
+
+
+def compression_sync(rank, group, grads, rounds):
+    """``compressed_psum`` (int8, top-k) of this rank's first gradient, and
+    ``rounds`` rounds of int8 and top-k error feedback over this rank's
+    gradient trees (one a round)."""
+    from repro_torch.dist.compression import compressed_psum, make_error_feedback
+
+    torch.set_num_threads(1)
+    mine = [{k: torch.from_numpy(v) for k, v in g.items()} for g in grads[rank]]
+    out = {mode: compressed_psum(mine[0]["a"], group, mode).numpy() for mode in ("int8", "topk")}
+    for mode in ("int8", "topk"):
+        init, apply = make_error_feedback(mode, frac=0.25)
+        ef = init(mine[0])
+        synced = []
+        for r in range(rounds):
+            s, ef = apply(mine[r], ef, group)
+            synced.append({k: v.numpy() for k, v in s.items()})
+        out["ef/" + mode] = (synced, {k: v.numpy() for k, v in ef.items()})
+    return out

@@ -61,6 +61,7 @@ INF_U32 = 0xFFFFFFFF
 INF_F32 = float(np.finfo(np.float32).max)
 # the kernel sums warp-ordered, the plain version tile-ordered
 SUM_TOL = dict(rtol=1e-5, atol=1e-9)
+GNN_TOL = dict(rtol=1e-5, atol=1e-6)  # index_add_ sums in no fixed order on the card
 
 VARIANTS = {  # variant -> (kind, edge_op, identity)
     "min_u32": ("min", "none", float(INF_U32)),
@@ -1729,3 +1730,115 @@ def test_cuda_distributed_engine_over_nccl_four_cards(cuda_device, tmp_path):
                 np.testing.assert_allclose(lab, want.labels["label"], **SUM_TOL)
             else:
                 assert np.array_equal(lab, want.labels["label"]), (name, rank)
+
+
+# -- training infrastructure: checkpoints, compression, the sampled pipeline -----
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_roundtrip_with_bf16(cuda_device, tmp_path):
+    """CUDA leaves (float32, bf16, a 0-d int32 step) saved and restored: the
+    same bits, back on the template's device in its dtype; a CPU template
+    brings the same bits to the host."""
+    from repro_torch.dist.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.train.optim import AdamWState
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    w = torch.randn((33, 17), generator=g, device=cuda_device)
+    state = {"w": w, "h": w.to(torch.bfloat16),
+             "opt": AdamWState(step=torch.tensor(7, dtype=torch.int32, device=cuda_device),
+                               mu={"w": w * 0.5}, nu={"w": w * w})}
+    save_checkpoint(str(tmp_path), 7, state, meta={"next_step": 7})
+    for dev in (cuda_device, torch.device("cpu")):
+        like = {"w": torch.zeros((33, 17), device=dev),
+                "h": torch.zeros((33, 17), dtype=torch.bfloat16, device=dev),
+                "opt": AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                                  mu={"w": torch.zeros((33, 17), device=dev)},
+                                  nu={"w": torch.zeros((33, 17), device=dev)})}
+        got, meta = restore_checkpoint(str(tmp_path), like)
+        assert meta == {"next_step": 7} and isinstance(got["opt"], AdamWState)
+        for key, a, b in (("w", got["w"], w), ("h", got["h"], state["h"]),
+                          ("step", got["opt"].step, state["opt"].step),
+                          ("nu", got["opt"].nu["w"], state["opt"].nu["w"])):
+            assert a.device.type == dev.type and a.dtype == b.dtype, key
+            bits = torch.int16 if a.dtype == torch.bfloat16 else a.dtype
+            assert torch.equal(a.view(bits).cpu(), b.view(bits).cpu()), key
+
+
+@pytest.mark.cuda
+def test_cuda_compression_bit_equal_to_cpu(cuda_device):
+    """int8 quantization (round half to even, the scale) and top-k (ties at
+    the threshold kept) give the CPU's bits on CUDA tensors; the scale's
+    quotient too over 512 seeded maxima (CUDA turns a division by a Python
+    number into a product with its reciprocal, whose rounding can differ)."""
+    from repro_torch.dist.compression import int8_compress, int8_decompress, topk_sparsify
+
+    rng = np.random.default_rng(0)
+    peaks = rng.standard_normal((512, 1)).astype(np.float32) * np.float32(10.0) ** \
+        rng.integers(-6, 6, (512, 1)).astype(np.float32)
+    rows = torch.from_numpy(peaks * rng.random((512, 33)).astype(np.float32))
+    for r in range(512):
+        assert int8_compress(rows[r].to(cuda_device))[1].cpu().view(torch.int32) == \
+            int8_compress(rows[r])[1].view(torch.int32), r
+    ties = (rng.integers(-40, 40, 600) / 2.0).astype(np.float32)
+    ties[0] = 63.5
+    for x in (rng.standard_normal(1_000_003).astype(np.float32),
+              rng.standard_normal((576, 1536)).astype(np.float32) * 3e-3,
+              ties, np.repeat(rng.standard_normal(25).astype(np.float32), 8),
+              np.zeros(64, np.float32)):
+        cpu, dev = torch.from_numpy(x), torch.from_numpy(x).to(cuda_device)
+        (qc, sc), (qd, sd) = int8_compress(cpu), int8_compress(dev)
+        assert torch.equal(qd.cpu(), qc) and sd.cpu().view(torch.int32) == sc.view(torch.int32)
+        assert torch.equal(int8_decompress(qd, sd).cpu().view(torch.int32),
+                           int8_decompress(qc, sc).view(torch.int32))
+        for frac in (0.01, 0.1):
+            (spc, mc), (spd, md) = topk_sparsify(cpu, frac), topk_sparsify(dev, frac)
+            assert torch.equal(md.cpu(), mc)
+            assert torch.equal(spd.cpu().view(torch.int32), spc.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_sampled_graphsage_step_matches_cpu(cuda_device):
+    """One GraphSAGE train step on NeighborSampler batches that reach the
+    card through ShardedLoader + prefetch (pinned memory, a side stream,
+    the consumer waiting on the copy's event): the batch bit for bit the
+    host's, the loss and gradients within GNN_TOL of the CPU's on the same
+    batch (not the parameters after AdamW: its first update is ~lr *
+    sign(g), which turns the card's reassociation of a near-zero gradient
+    into a step of up to lr), and three train steps finite."""
+    from repro_torch.configs.registry import get as get_arch
+    from repro_torch.data.neighbor_sampler import NeighborSampler
+    from repro_torch.data.pipeline import ShardedLoader, prefetch
+    from repro_torch.models.gnn import archs
+    from repro_torch.train import steps
+    from repro_torch.train.optim import AdamWConfig, tree_flatten, tree_map
+
+    g = G.symmetrize(G.rmat(14, 8, seed=2))
+    sampler = NeighborSampler(g, fanouts=(15, 10), d_feat=602)
+    cfg = get_arch("graphsage").model
+    ocfg = AdamWConfig(lr=1e-3, total_steps=3, warmup_steps=1)
+    step = steps.make_gnn_train_step(cfg, ocfg, task="node_class", loss_nodes=64)
+    make = lambda seed, i: sampler.sample(seed, i, batch_nodes=64)  # noqa: E731
+    it = prefetch(ShardedLoader(make, seed=0, device=cuda_device), depth=2)
+    states = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        gen = torch.Generator(device="cpu").manual_seed(0)
+        params = archs.init(cfg, 602, 41, gen, "cpu")
+        states[dev.type] = steps.init_train_state(tree_map(lambda t: t.to(dev), params), ocfg)
+    batch, labels = next(it)
+    host, host_lab = make(0, 0)
+    assert batch.node_feat.device.type == "cuda"
+    assert torch.equal(batch.node_feat.cpu(), host.node_feat)
+    assert torch.equal(batch.edge_src.cpu(), host.edge_src)
+    loss_fn = steps.make_gnn_loss(cfg, "node_class", loss_nodes=64)
+    l_dev, g_dev = steps.value_and_grad(loss_fn, states["cuda"]["params"], batch, labels)
+    l_cpu, g_cpu = steps.value_and_grad(loss_fn, states["cpu"]["params"], host,
+                                        torch.from_numpy(host_lab))
+    assert torch.allclose(l_dev.cpu(), l_cpu, **GNN_TOL)
+    for a, b in zip(tree_flatten(g_dev)[0], tree_flatten(g_cpu)[0]):
+        assert torch.allclose(a.cpu(), b, **GNN_TOL)
+    got = states["cuda"]
+    for b in [(batch, labels), next(it), next(it)]:
+        got, m = step(got, *b)
+        assert bool(torch.isfinite(m["loss"]))
+    it.close()

@@ -9,8 +9,7 @@
   * ``python -m repro_torch.launch.train --arch gat-cora --steps 3 --device
     cpu`` runs and prints its final line, as do ``--arch smollm-135m`` and
     ``--arch granite-moe-1b-a400m`` with a finite loss, and ``--arch din``
-    (3 steps, its final line); ``--ckpt`` exits with the ROADMAP item it
-    waits for.
+    (3 steps, its final line); ``--ckpt`` saves and a rerun resumes.
 
 Inputs come from numpy seeds.
 """
@@ -204,6 +203,13 @@ def test_train_cli_runs_din_on_cpu():
 
 @pytest.mark.parametrize("args,says", [(("--arch", "gin-tu", "--ckpt", "x"), "--ckpt"),
                                        (("--arch", "din", "--ckpt", "x"), "--ckpt")])
-def test_train_cli_names_what_waits(args, says):
-    proc = _cli(*args, "--steps", "1", "--device", "cpu")
-    assert proc.returncode != 0 and says in proc.stderr and "ROADMAP" in proc.stderr
+def test_train_cli_names_what_waits(args, says, tmp_path):
+    """``--ckpt`` no longer waits: the run saves under the directory (the
+    ``x`` of ``args``, here under ``tmp_path``) and a rerun resumes there."""
+    args = tuple(str(tmp_path / a) if a == "x" else a for a in args)
+    proc = _cli(*args, "--steps", "1", "--ckpt-every", "1", "--device", "cpu")
+    assert proc.returncode == 0 and says not in proc.stderr, proc.stderr
+    assert (tmp_path / "x" / "step_00000001" / "manifest.json").exists()
+    proc = _cli(*args, "--steps", "2", "--ckpt-every", "1", "--device", "cpu")
+    assert proc.returncode == 0, proc.stderr
+    assert "resume: step 1 under" in proc.stdout and "'steps': 1" in proc.stdout
