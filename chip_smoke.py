@@ -177,8 +177,8 @@ parameters drawn on the card from a seeded generator:
              the crossbar lookup at one shard): 128 queries of
              mixed_query_workload(seed=0) with the reference's default mix
              (bfs 0.35, sssp 0.2, ppr 0.2, recommend 0.25) and 512 weighted
-             insertions from edge_insertion_stream in 2 batches, each flushed
-             mid-stream; QPS, latency percentiles, batches and their walls by
+             insertions from edge_insertion_stream in SERVE_FLUSHES (1)
+             batch, flushed mid-stream; QPS, latency percentiles, batches and their walls by
              kind, flushes, and torch.cuda.memory_allocated() around each
              flush (the retired partition's device copies must be freed);
              launches counted as above, one embedding-bag launch per
@@ -316,6 +316,26 @@ freed first):
              (B = 1, S = 4096) of granite-moe-1b-a400m, llama3-8b and
              qwen3-14b at published width and qwen3-moe-30b-a3b cut to 12
              of its 48 layers: finite logits, launches = layers
+  launch     the launch tooling: (a) ``python -m repro_torch.launch.dryrun``
+             on the fake production mesh ``single`` (256 ranks, (data=16,
+             model=16)), one process a cell, for LAUNCH_DRY_CELLS (one a
+             family): each record ``ok``, its per-device FLOPs, bytes,
+             collectives, peak memory and roofline terms kept; (b) ``--on-
+             card`` for LAUNCH_CARD_CELLS, the cells that fit one card at
+             their published shapes (din/serve_p99, a gat-cora train step on
+             full_graph_sm, smollm-135m decoding against long_500k's 524,288
+             slots): each traced fake on a one-rank mesh, then the same step
+             on the card on inputs from the seed; gates: FlopCounterMode's
+             count on the card equal to the trace's (and the kernels'
+             formula FLOPs), the card's peak (max_memory_allocated after
+             reset_peak_memory_stats) at most PEAK_SLACK x predicted + 64
+             MiB; the ratio, the step's ms and the roofline's larger term
+             printed
+
+stream_build (ii)'s host build (the push footprint, then the scale-21
+stream into memmap files) runs in a child process started right after
+``build`` (``stream_child``), overlapping the card phases; stream_build
+joins it and reopens its partition from the files.
 
 Every kernel's ``ms`` is CUDA-event time around back-to-back launches,
 with a spin kernel holding the stream while the host enqueues them; the
@@ -328,10 +348,11 @@ floors.
 Then a ``{"kernels": [...]}`` line (the laneless variants' launches from
 main_path, the lane variants' from lanes_engine, both plus the distributed
 ranks' and the NCCL arm's, the embedding bag's from
-din, din_train and serve, timed at shape (a); the bag backward's from
+din, din_train, serve, the distributed ranks' recommend-for and
+launch (b), timed at shape (a); the bag backward's from
 din_train, timed at shape (e); the bucket kernel's from bucket; the
-softmax kernel's from gnn's timed train steps and forwards and the
-distributed GAT layers, timed at shape (a); the flash kernel's from lm's counted prefills and train steps, timed
+softmax kernel's from gnn's timed train steps and forwards, the
+distributed GAT layers and launch (b)'s GAT steps, timed at shape (a); the flash kernel's from lm's counted prefills and train steps, timed
 at shape (a); its float32 launches from recovery's trainer and ranks, timed
 at shape (c); the gather kernel's sum_f32 launches include recovery's
 PageRank) and, last, ``{"ok": true, "device": ...}``.
@@ -353,6 +374,7 @@ import gc
 import hashlib
 import itertools
 import json
+import multiprocessing
 import os
 import shutil
 import signal
@@ -404,6 +426,9 @@ LANE_VARIANTS = {f"{k}_reduce_cores": tuple(v for v, _ in e) for k, e in LANE_EN
 PPR_RUN_TOL = 1e-4  # the serving router's PPR tolerance
 SERVE_QUERIES = 128
 SERVE_INSERTS = 512
+# the insertions in one batch, flushed once mid-stream (a second flush
+# re-tiles the same ~62 of 64 buckets again: ~50 s more and no new check)
+SERVE_FLUSHES = 1
 EMBAG = dict(source="src/repro_torch/csrc/embedding_bag.cu",
              replaces="src/repro/kernels/embedding_bag/kernel.py:75")
 EMBAG_BWD = dict(source="src/repro_torch/csrc/embedding_bag_backward.cu",
@@ -464,6 +489,7 @@ IDENTITY_FIELDS = (
     "push_coverage",
 )
 STREAM_PUSH_BLOCKS = (65536, 131072)  # push_block candidates of the scale-21 stream
+STREAM_JOIN_TIMEOUT_S = 900  # stream_build waits this long at most for the build child
 # the multi-channel engine: one rank a graph core, sharing the one card over
 # gloo (the crossbar staged through the host); a spawn's time limit
 DIST_TIMEOUT_S = 600
@@ -475,6 +501,19 @@ DIST_PR_TOL = dict(rtol=2e-5, atol=1e-8)
 # terms' magnitudes (the float32 reassociation bound), plus a floor
 AGG_REL = 1e-5
 NCCL_SCALE = 16  # the NCCL arm: world size 1, a p = 1 partition of RMAT scale 16
+# recommend-for at the ranks' table shards: DIN configs and queries a config
+# "spread": the smoke DIN at 12 items (3 rows a shard) and 4 history slots
+# (one id a rank): the smoke graph's 64 hubs spread over the shards, so no
+# queue overflows and every answer is held against the one-shard scorer's
+REC_CONFIGS = ("published", "spread")
+# the launch phase: one dry-run cell a family on the fake single mesh, and the
+# cells that fit one card at their published shapes, run on it
+LAUNCH_DRY_CELLS = (("smollm-135m", "long_500k"), ("gat-cora", "full_graph_sm"),
+                    ("din", "serve_p99"))
+LAUNCH_CARD_CELLS = ("din/serve_p99", "gat-cora/full_graph_sm", "smollm-135m/long_500k")
+PEAK_SLACK = 1.10  # the card's peak may exceed the prediction by 10% (+ 64 MiB)
+LAUNCH_TIMEOUT_S = 600
+REC_QUERIES = 8
 # recovery: the reference's kill-and-resume schedules (tests/test_fault_tolerance.py),
 # GraphSAGE's on minibatch_lg, the trainer CLI's, and the elastic LM's ranks
 PR_RESUME = dict(steps=40, every=15, stop=20)
@@ -619,6 +658,82 @@ def drop_partition_fields(where: Path, names) -> int:
                 meta["absent"].append(n)
     (where / "meta.json").write_text(json.dumps(meta))
     return freed
+
+
+def stream_child(spec: dict) -> None:
+    """stream_build (ii)'s host work in a child process, started right after
+    ``build`` so it overlaps the card phases: the push footprint of each
+    candidate push_block (``stream_push_footprint``), then the symmetric
+    RMATStream's out-of-core build into memmap files under ``spec["dir"]``.
+    Writes ``meta.json`` there: every array field as its memmap file (or a
+    small .npy), the scalars, and the build's figures; ``stream_build``
+    reopens the partition from it (``load_stream_partition``)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+
+    from repro_torch.core.partition import PartitionConfig, partition_2d_streaming
+    from repro_torch.data import RMATStream
+    from repro_torch.push_footprint import stream_push_footprint
+
+    mdir = Path(spec["dir"])
+    shutil.rmtree(mdir, ignore_errors=True)
+    mdir.mkdir(parents=True)
+    stream = RMATStream(scale=spec["scale"], edge_factor=16, seed=SEED, symmetric=True)
+    nv = stream.num_vertices
+    t = time.perf_counter()
+    foot = stream_push_footprint(stream, nv, PartitionConfig(**CFG), STREAM_PUSH_BLOCKS,
+                                 CFG["tile_eb"])
+    foot_s = time.perf_counter() - t
+    best = min(foot, key=lambda r: r["word_bytes"] + r["coverage_bytes"])
+    cfg_ii = {**CFG, "push_block": best["block_sources"]}
+    t = time.perf_counter()
+    with RssPeak() as rss:
+        pm = partition_2d_streaming(stream, nv, PartitionConfig(**cfg_ii),
+                                    memmap_dir=str(mdir / "memmap"))
+    build_s = time.perf_counter() - t
+    arrays, scalars, absent = {}, {}, []
+    for f in dataclasses.fields(pm):
+        v = getattr(pm, f.name)
+        if f.name == "device_cache":
+            continue
+        if isinstance(v, np.memmap):
+            v.flush()
+            arrays[f.name] = dict(file=str(v.filename), dtype=v.dtype.str, shape=list(v.shape),
+                                  offset=int(v.offset))
+        elif isinstance(v, np.ndarray):
+            np.save(mdir / f"{f.name}.npy", v)
+            arrays[f.name] = dict(npy=f"{f.name}.npy")
+        elif v is None:
+            absent.append(f.name)
+        elif f.name == "config":
+            scalars[f.name] = dataclasses.asdict(v)
+        else:
+            scalars[f.name] = int(v)
+    (mdir / "meta.json").write_text(json.dumps(dict(
+        arrays=arrays, scalars=scalars, absent=absent, push_footprint=foot,
+        push_footprint_seconds=foot_s, best=best, config=cfg_ii, build_seconds=build_s,
+        rss=rss.report(), chunk_edges=stream.chunk_edges, stream_edges=stream.num_edges,
+        vertices=nv, pid=os.getpid())))
+
+
+def load_stream_partition(where: Path):
+    """``stream_child``'s partition, its large arrays reopened as read-only
+    memmaps of the child's files, and the child's record."""
+    import numpy as np
+
+    from repro_torch.core.partition import PartitionConfig, PartitionedGraph
+
+    meta = json.loads((where / "meta.json").read_text())
+    fields = {"config": PartitionConfig(**meta["scalars"].pop("config"))}
+    for name, a in meta["arrays"].items():
+        if "npy" in a:
+            fields[name] = np.load(where / a["npy"])
+        else:
+            fields[name] = np.memmap(a["file"], dtype=np.dtype(a["dtype"]), mode="r",
+                                     shape=tuple(a["shape"]), offset=a["offset"])
+    # the constructor, not from_numpy, which would make the memmaps plain arrays
+    pm = PartitionedGraph(**meta["scalars"], **fields, **{n: None for n in meta["absent"]})
+    return pm, meta
 
 
 def label_digest(labels: dict) -> str:
@@ -829,8 +944,65 @@ def distributed_rank(rank: int, group, spec: dict) -> dict:
         grad_max_err=float((g_local - g_want).abs().max()),
         capacity=cap, dropped=int(dropped), dropped_expected=int(((shard >= 0) & ~served).sum()),
         small_rows_equal=bool(torch.equal(small, want_small)), ids=int(ids.shape[0]))
+    out["recommend"] = recommend_sharded_rank(spec, pg, g, dev)
     out.update(transport=transport(group), device_bytes=device_bytes,
                cuda_device=torch.cuda.current_device() if dev.type == "cuda" else None)
+    return out
+
+
+def recommend_config(case: str, rehearsal: bool):
+    """The DIN config of a REC_CONFIGS case (the rehearsal's "published" is
+    the smoke config)."""
+    from repro_torch.configs.registry import get as get_arch
+
+    arch = get_arch("din")
+    if case == "published":
+        return arch.smoke() if rehearsal else arch.model
+    return dataclasses.replace(arch.smoke(), item_vocab=12, seq_len=4)
+
+
+def recommend_params(cfg):
+    """recommend-for's DIN weights, drawn on the host from the seed (the
+    same on every rank and in the parent)."""
+    import torch
+
+    from repro_torch.models.recsys import din
+
+    return din.init(cfg, torch.Generator().manual_seed(SEED + 13), "cpu")
+
+
+def recommend_sharded_rank(spec: dict, pg, g, dev) -> dict:
+    """recommend-for through the router's table-sharded crossbar lookup
+    (one item-table shard a rank, the ids split over the ranks) for
+    ``spec["rec_roots"]``, per DIN config: on the card (bag launches
+    counted), then the same queries on the CPU (not counted)."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag import kernel as EB
+    from repro_torch.serve import RecommendScorer
+    from repro_torch.train.optim import tree_map
+
+    out = {}
+    for case in REC_CONFIGS:
+        cfg = recommend_config(case, spec["rehearsal"])
+        params = recommend_params(cfg)
+        got = {}
+        for where in (dev, torch.device("cpu")):
+            s = RecommendScorer(cfg, pool_size=64, topk=8, device=where,
+                                params=tree_map(lambda t: t.to(where), params))
+            s.refresh_pool(g)
+            EB.reset_launch_counts()
+            t = time.perf_counter()
+            answers, drops = [], []
+            for r in spec["rec_roots"]:
+                before = len(s.dropped)
+                answers.append(s.recommend_for(pg, r))
+                drops.append(sum(s.dropped[before:]))
+            got[where.type] = dict(answers=answers, drops=drops, shards=s.table_shards,
+                                   seconds=time.perf_counter() - t,
+                                   bag_launches=dict(EB.LAUNCHES))
+            del s
+        out[case] = dict(card=got[dev.type], cpu=got["cpu"])
     return out
 
 
@@ -1039,6 +1211,14 @@ def main() -> int:
         emit("build", t0, sources=[m["source"] for m in (GATHER, SCATTER, EMBAG, EMBAG_BWD, BUCKET,
                                                          SOFTMAX, FLASH)],
              ptxas=ptxas)
+
+    # -- stream_build (ii)'s host build, in a child overlapping the card phases
+    st_scale = min(args.stream_scale, 13) if rehearsal else args.stream_scale
+    stream_dir = ROOT / "build" / "stream_build"
+    stream_started = time.perf_counter()
+    stream_proc = multiprocessing.get_context("spawn").Process(
+        target=stream_child, args=(dict(dir=str(stream_dir), scale=st_scale),), daemon=True)
+    stream_proc.start()  # daemonic: ended with this process however it exits
 
     # -- graph ----------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1482,6 +1662,46 @@ def main() -> int:
             emit("static_path_run", t, problem=name, iterations=res.iterations, run_seconds=sec,
                  mteps=n_edges / sec / 1e6)
 
+        # the overlap's cost in this call: the default BFS and PageRank with
+        # stream_build's build child running and paused (SIGSTOP), alternately
+        # (not counted)
+        if stream_proc.is_alive():
+            t_ab = time.perf_counter()
+            overlap_ab = {}
+            for name, problem in (runs[0], runs[3]):
+                got = {"child_running": [], "child_paused": []}
+                for paused in (False, True, False, True):
+                    labels = prepare_labels(problem, g, pg, device=dev)
+                    sync()
+                    if paused:
+                        os.kill(stream_proc.pid, signal.SIGSTOP)
+                    try:
+                        t = time.perf_counter()
+                        res = run(problem, g, pg, EngineOptions(), labels=labels, device=dev)
+                        sync()
+                        sec = time.perf_counter() - t
+                    finally:
+                        if paused:
+                            os.kill(stream_proc.pid, signal.SIGCONT)
+                    check(np.array_equal(res.labels["label"], results[name].labels["label"]),
+                          f"{name}: a rerun differs from the main path's labels")
+                    got["child_paused" if paused else "child_running"].append(n_edges / sec / 1e6)
+                overlap_ab[name] = dict(got, slowdown=max(got["child_paused"])
+                                        / max(got["child_running"]) - 1.0)
+            # what a launch now pays for the dry run's hooks with none active:
+            # recording() and is_fake's type check (host ns a launch)
+            from repro_torch.kernels.fake import is_fake, recording
+            probe = torch.empty(1, device=dev)
+            tg = time.perf_counter()
+            for _ in range(100_000):
+                recording() or is_fake(probe)
+            hook_ns = (time.perf_counter() - tg) * 1e4
+            emit("main_path_overlap", t_ab, mteps=overlap_ab, launch_hook_ns=hook_ns,
+                 note="default options, the build child of stream_build (ii) running, then "
+                      "paused with SIGSTOP, twice; slowdown: the best paused run's MTEPS over "
+                      "the best running run's, less 1; launch_hook_ns: host ns a launch spends "
+                      "in recording() and is_fake() with no recorder active")
+
         # -- the schedule of each min problem, iteration by iteration -------------
         t0 = time.perf_counter()
         schedule = {}
@@ -1669,6 +1889,7 @@ def main() -> int:
                                                                            LANE_K)]
         din_cfg = get_arch("din").model if not rehearsal else get_arch("din").smoke()
         spec = dict(dir=str(where), device=dev.type, ranks=pg.p, roots=roots, budget=DIST_BUDGET,
+                    rec_roots=roots[:REC_QUERIES], rehearsal=rehearsal,
                     d_feat=1433 if not rehearsal else 64, n_classes=7,
                     item_vocab=din_cfg.item_vocab, cate_vocab=din_cfg.cate_vocab,
                     embed_dim=din_cfg.embed_dim, seq_len=din_cfg.seq_len, batch=DIN_BATCH)
@@ -1718,6 +1939,53 @@ def main() -> int:
                   f"distributed lookup differs from the one-shard lookup: {lk}")
         check(sum(o["lookup"]["dropped"] for o in outs) > 0,
               "distributed lookup: the tight queues dropped no id")
+        # recommend-for at p table shards: every rank the same answers; the
+        # card's the CPU's (vertices equal, scores within DIN_TOL); where no id
+        # of a query overflowed, the one-shard scorer's on this card
+        from repro_torch.serve import RecommendScorer
+        from repro_torch.train.optim import tree_map
+
+        rec = {}
+        for case in REC_CONFIGS:
+            cfg = recommend_config(case, rehearsal)
+            one = RecommendScorer(cfg, pool_size=64, topk=8, device=dev,
+                                  params=tree_map(lambda t: t.to(dev), recommend_params(cfg)))
+            one.refresh_pool(g)
+            r0c = r0["recommend"][case]
+            card, cpu = r0c["card"], r0c["cpu"]
+            check(card["shards"] == pg.p and cpu["shards"] == pg.p,
+                  f"recommend {case}: {card['shards']} / {cpu['shards']} table shards")
+            check(card["drops"] == cpu["drops"], f"recommend {case}: drops {card['drops']} on "
+                  f"the card, {cpu['drops']} on the CPU")
+            vs_one, max_err = 0, 0.0
+            for i, r in enumerate(spec["rec_roots"]):
+                a, b = card["answers"][i], cpu["answers"][i]
+                for o in outs[1:]:
+                    x = o["recommend"][case]["card"]["answers"][i]
+                    check(np.array_equal(x["vertices"], a["vertices"])
+                          and np.array_equal(x["scores"], a["scores"]),
+                          f"recommend {case}: ranks answered root {r} differently")
+                check(np.array_equal(a["vertices"], b["vertices"])
+                      and np.allclose(a["scores"], b["scores"], **DIN_TOL),
+                      f"recommend {case}: root {r} on the card differs from the CPU's")
+                max_err = max(max_err, float(np.max(np.abs(a["scores"] - b["scores"]))))
+                if card["drops"][i] == 0:
+                    w = one.recommend_for(pg, r)
+                    check(np.array_equal(a["vertices"], w["vertices"])
+                          and np.allclose(a["scores"], w["scores"], **DIN_TOL),
+                          f"recommend {case}: root {r} (no overflow) differs from one shard")
+                    vs_one += 1
+            rec[case] = dict(item_vocab=cfg.item_vocab, seq_len=cfg.seq_len, shards=card["shards"],
+                             queries=len(spec["rec_roots"]), overflowed_ids=card["drops"],
+                             queries_compared_with_one_shard=vs_one,
+                             max_abs_err_card_vs_cpu=max_err,
+                             seconds_by_rank=[o["recommend"][case]["card"]["seconds"]
+                                              for o in outs],
+                             bag_launches_by_rank=[o["recommend"][case]["card"]["bag_launches"]
+                                                   for o in outs])
+            print(f"recommend {case}: {card['shards']} shards, overflowed ids a query "
+                  f"{card['drops']}", flush=True)
+            del one
         single_bytes = sum(t_.numel() * t_.element_size() for t_ in
                            _edge_constants(bfs(0), pg, EngineOptions(), dev).values()
                            if t_ is not None)
@@ -1740,18 +2008,27 @@ def main() -> int:
                 bfs_mteps=n_edges / o["runs"]["bfs"]["seconds"] / 1e6,
                 setup_seconds=o["setup_seconds"], gat=o["gat"], aggregate=o["aggregate"],
                 lookup=o["lookup"]))
+            if not rehearsal:
+                for case in REC_CONFIGS:
+                    bl = o["recommend"][case]["card"]["bag_launches"]
+                    check(bl == {"sum": REC_QUERIES}, f"rank {q} recommend {case}: bag launches "
+                          f"{bl}, not one a query")
         emit("distributed", t0, ranks=pg.p, transport="gloo (host-staged crossbar, the ranks "
              "sharing one card)", agree=agree,
              frontier=dict(iterations=fr["iterations"], seconds=fr["seconds"], **fr["stats"]),
              per_rank=per_rank, partition_bytes_written=written, save_seconds=save_s,
-             spawn_seconds=spawn_s, roots=roots,
+             spawn_seconds=spawn_s, roots=roots, recommend=rec,
              note="every run against engine.run on this card (BFS/WCC/SSSP labels and "
                   "iterations bit-equal, the static schedule too; PageRank within DIST_PR_TOL; "
                   "the K-lane BFS bit-equal); bfs_mteps = E / the rank's BFS seconds through a "
                   "crossbar staged through the host over gloo with 4 ranks on one card: no "
                   "prediction of a four-card NCCL run; launches: each rank's, counted over its "
                   "engine runs, the frontier engine, the aggregate, one GAT loss and gradient "
-                  "and the lookups (the comparisons after)")
+                  "and the lookups (the comparisons after); recommend: recommend-for through "
+                  "the router's table-sharded crossbar (an item-table row shard a rank, the ids "
+                  "split over the ranks, the reference's capacity 2.0: an id past its shard's "
+                  "queue gets a zero row), REC_QUERIES roots at the published DIN config and "
+                  "at 12 items and 4 history slots (spread), on the card (bag launches counted) and on the CPU")
         t1 = time.perf_counter()
         nccl = spawn_ranks(nccl_rank, 1, (dict(device=dev.type, scale=min(scale, NCCL_SCALE)),),
                            backend="gloo" if rehearsal else "nccl", timeout=DIST_TIMEOUT_S,
@@ -1768,8 +2045,12 @@ def main() -> int:
         # recovery's PageRank resume reads the pull stream back from here;
         # what it does not read goes now
         drop_partition_fields(where, RECOVERY_UNREAD)
-        total = {"gather_reduce_cores": {}, "scatter_reduce_cores": {}, "segment_softmax": {}}
-        for ln in [o["launches"] for o in outs] + [nccl["launches"]]:
+        total = {"gather_reduce_cores": {}, "scatter_reduce_cores": {}, "segment_softmax": {},
+                 "embedding_bag": {}}
+        rec_launches = [o["recommend"][case]["card"]["bag_launches"] for o in outs
+                        for case in REC_CONFIGS]
+        for ln in [o["launches"] for o in outs] + [nccl["launches"]] \
+                + [{"embedding_bag": b} for b in rec_launches]:
             for kern, counts in ln.items():
                 for v, n in counts.items():
                     total[kern][v] = total[kern].get(v, 0) + n
@@ -2629,8 +2910,8 @@ def main() -> int:
 
     workload = mixed_query_workload(SERVE_QUERIES, g.num_vertices, seed=SEED)  # default mix
     n_recommend = sum(1 for q in workload if q["kind"] == "recommend")
-    deltas = edge_insertion_stream(SERVE_INSERTS, g.num_vertices, num_batches=2, weighted=True,
-                                   seed=SEED + 1)
+    deltas = edge_insertion_stream(SERVE_INSERTS, g.num_vertices, num_batches=SERVE_FLUSHES,
+                                   weighted=True, seed=SEED + 1)
     scorer = RecommendScorer(din_cfg, pool_size=64, topk=8, params=din_params, device=dev)
     service = GraphService(g, pg, lanes=LANE_K, scorer=scorer, device=dev)
     del pg  # the service owns the partition now: a flush retires it
@@ -2681,7 +2962,8 @@ def main() -> int:
          batch_log=[dict(kind=b.kind, served=b.served, wall_ms=b.wall_s * 1e3,
                          iterations=b.iterations, cold=b.cold) for b in loop.metrics.batches])
     check(len(completions) == SERVE_QUERIES, f"{len(completions)} answers for {SERVE_QUERIES}")
-    check(len(summ["flushes"]) == 2, f"{len(summ['flushes'])} flushes, expected 2")
+    check(len(summ["flushes"]) == SERVE_FLUSHES,
+          f"{len(summ['flushes'])} flushes, expected {SERVE_FLUSHES}")
     check(service.g.num_edges == n_edges + SERVE_INSERTS, "the served graph lost insertions")
     if not rehearsal:
         check(total == expect, f"serve launches {serve_launches} != sum(iterations) * l = {expect}")
@@ -2726,9 +3008,7 @@ def main() -> int:
         options, the static schedule and the oracle backend. Returns the
         kernels' launches of (ii)'s default run."""
         from repro_torch.core.engine import evict_from_cache
-        from repro_torch.data import RMATStream
         from repro_torch.kernels.csr_gather_reduce.ops import SRC16_LIMIT
-        from repro_torch.push_footprint import stream_push_footprint
 
         t0 = time.perf_counter()
         gc.collect()
@@ -2748,25 +3028,20 @@ def main() -> int:
                            partition_2d_rss=partition_rss.report(), fields_identical=True,
                            sha256={k: v[:16] if v else None for k, v in digests.items()})
 
-        st_scale = min(args.stream_scale, 13) if rehearsal else args.stream_scale
-        stream = RMATStream(scale=st_scale, edge_factor=16, seed=SEED, symmetric=True)
-        nv = stream.num_vertices
+        # (ii) the child's build, started after `build`: joined here
         t = time.perf_counter()
-        foot = stream_push_footprint(stream, nv, PartitionConfig(**CFG), STREAM_PUSH_BLOCKS,
-                                     CFG["tile_eb"])
-        foot_s = time.perf_counter() - t
-        best = min(foot, key=lambda r: r["word_bytes"] + r["coverage_bytes"])
-        cfg_ii = {**CFG, "push_block": best["block_sources"]}
-        mdir = ROOT / "build" / "stream_build"
-        shutil.rmtree(mdir, ignore_errors=True)
-        t = time.perf_counter()
-        with RssPeak() as rss_ii:
-            pm = partition_2d_streaming(stream, nv, PartitionConfig(**cfg_ii), memmap_dir=str(mdir))
-        build_ii = time.perf_counter() - t
+        stream_proc.join(STREAM_JOIN_TIMEOUT_S)
+        join_wait_s = time.perf_counter() - t
+        check(stream_proc.exitcode == 0,
+              f"stream_build (ii): the build child exited with {stream_proc.exitcode}")
+        pm, meta = load_stream_partition(stream_dir)
+        mdir = stream_dir / "memmap"
+        foot, foot_s, best = meta["push_footprint"], meta["push_footprint_seconds"], meta["best"]
+        cfg_ii, build_ii, nv = meta["config"], meta["build_seconds"], meta["vertices"]
         rep_ii = pm.memory_report()
         gathered = pm.p * pm.sub_size
         check(isinstance(pm.tile_word, np.memmap), "stream_build (ii): not memmap-backed")
-        check(pm.num_edges == stream.num_edges, f"stream_build (ii): {pm.num_edges} edges")
+        check(pm.num_edges == meta["stream_edges"], f"stream_build (ii): {pm.num_edges} edges")
         check(pm.src_bits == (32 if gathered > SRC16_LIMIT else 16),
               f"stream_build (ii): src_bits {pm.src_bits} at p * sub_size = {gathered}")
         if not rehearsal:
@@ -2812,11 +3087,13 @@ def main() -> int:
                   f"stream_build (ii): launches {launches_ii} != iterations * l")
         emit("stream_build", t0, smoke_graph=smoke_graph,
              rmat=dict(scale=st_scale, edge_factor=16, seed=SEED, symmetric=True,
-                       chunk_edges=stream.chunk_edges, vertices=nv, edges=pm.num_edges,
+                       chunk_edges=meta["chunk_edges"], vertices=nv, edges=pm.num_edges,
                        gathered=gathered, src_bits=pm.src_bits, push_src_bits=pm.push_src_bits,
                        config=cfg_ii, push_footprint=foot, push_footprint_seconds=foot_s,
                        push_stream_bytes=push_bytes, build_seconds=build_ii,
-                       rss=rss_ii.report(), memmap_dir=str(mdir.relative_to(ROOT)),
+                       rss=meta["rss"], memmap_dir=str(mdir.relative_to(ROOT)),
+                       child=dict(started_s_before_join=time.perf_counter() - stream_started,
+                                  join_wait_s=join_wait_s, pid=meta["pid"]),
                        device_bytes=rep_ii["device"], device_total_bytes=rep_ii["device_total_bytes"],
                        device_bytes_per_edge=rep_ii["device_bytes_per_edge"],
                        host_flat_total_bytes=rep_ii["host_flat_total_bytes"],
@@ -2837,7 +3114,7 @@ def main() -> int:
         evict_from_cache(pm)
         del pm, runs_ii, a, b, o
         gc.collect()
-        shutil.rmtree(mdir, ignore_errors=True)
+        shutil.rmtree(stream_dir, ignore_errors=True)
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         return launches_ii
@@ -3916,6 +4193,100 @@ def main() -> int:
 
     flash_launches = lm_phase()
 
+    def launch_phase():
+        """The launch tooling on the card. (a) The dry run of one cell per
+        family on the fake production mesh `single` (its own process a cell,
+        as the fake world must not leak), each record `ok`. (b) The
+        prediction held against the card (one process): each of
+        LAUNCH_CARD_CELLS built on a mesh of one rank, traced fake, then the
+        same step run here on inputs drawn from the seed; gates: the card's
+        FlopCounterMode count equal to the fake trace's, and the kernels'
+        formula FLOPs too; the card's peak (max_memory_allocated after
+        reset_peak_memory_stats) at most PEAK_SLACK x predicted + 64 MiB.
+        Returns the kernels' launches of (b) (their LAUNCHES counters), by
+        kernel and variant."""
+        t0 = time.perf_counter()
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out_dir = ROOT / "build" / "launch_dry"
+        shutil.rmtree(out_dir, ignore_errors=True)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(ROOT / "src")] + ([os.environ["PYTHONPATH"]] if "PYTHONPATH" in os.environ
+                                   else [])))
+        dryrun = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+        dry = [subprocess.Popen(dryrun + ["--mesh", "single", "--arch", a, "--shape", sh,
+                                          "--out", str(out_dir), "--device", dev.type],
+                                env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+               for a, sh in LAUNCH_DRY_CELLS]
+        cells = LAUNCH_CARD_CELLS if not rehearsal else LAUNCH_CARD_CELLS[:2]
+        try:
+            card = subprocess.run(dryrun + ["--on-card", ",".join(cells), "--seed", str(SEED),
+                                            "--device", dev.type],
+                                  env=env, cwd=ROOT, capture_output=True, text=True,
+                                  timeout=LAUNCH_TIMEOUT_S)
+            logs = [p_.communicate(timeout=LAUNCH_TIMEOUT_S)[0] for p_ in dry]
+        finally:
+            for p_ in dry:
+                if p_.poll() is None:
+                    p_.kill()
+                    p_.wait()
+        dry_rows = {}
+        for (a, sh), p_, log in zip(LAUNCH_DRY_CELLS, dry, logs):
+            f = out_dir / f"{a}__{sh}__single.json"
+            rec = json.loads(f.read_text()) if f.exists() else {}
+            check(p_.returncode == 0 and rec.get("status") == "ok",
+                  f"launch (a): dry run of {a}/{sh} rc {p_.returncode}: {log[-1500:]}")
+            dry_rows[f"{a}/{sh}"] = {k: rec[k] for k in (
+                "chips", "flops_per_device", "bytes_per_device", "collective_bytes_per_device",
+                "compute_s", "memory_s", "collective_s", "dominant", "peak", "memory",
+                "flops_split", "kernel_calls", "replicated", "useful_ratio")}
+            dry_rows[f"{a}/{sh}"]["collective_mix"] = rec["collectives"]["count_by_kind"]
+        recs = [json.loads(ln)["on_card"] for ln in card.stdout.splitlines()
+                if ln.startswith('{"on_card"')]
+        check(card.returncode == 0 and len(recs) == len(cells),
+              f"launch (b): rc {card.returncode}: {card.stdout[-1500:]} {card.stderr[-3000:]}")
+        launches = {}
+        for r in recs:
+            # the rehearsal's CPU run takes the kernels' plain versions: aten FLOPs only
+            check(r["flops_equal"] if not rehearsal
+                  else r["card_aten_flops"] == r["fake_aten_flops"],
+                  f"launch (b) {r['key']}: FLOPs on the card "
+                  f"{r['card_aten_flops']} + kernels {r['card_kernel_flops']}, the fake trace's "
+                  f"{r['fake_aten_flops']} + {r['fake_kernel_flops']}")
+            if not rehearsal:
+                # predicted: the trace's peak plus the cuBLAS workspaces the
+                # step allocated, measured on its first run
+                limit = PEAK_SLACK * r["predicted_peak_bytes"] + 64 * 2 ** 20
+                check(r["card_peak_bytes"] <= limit,
+                      f"launch (b) {r['key']}: peak {r['card_peak_bytes']} B on the card over "
+                      f"{limit:.0f} (predicted {r['predicted_peak_bytes']})")
+                r["peak_within_slack_alone"] = \
+                    r["card_peak_bytes"] <= PEAK_SLACK * r["predicted_peak_bytes"]
+                print(f"launch {r['key']}: peak {r['card_peak_bytes']} / predicted "
+                      f"{r['predicted_peak_bytes']} (traced {r['traced_peak_bytes']} + cuBLAS "
+                      f"workspaces {r['cublas_workspace_bytes']}) = {r['peak_ratio']:.4f}; step "
+                      f"{r['ms']:.3f} ms, roofline {r['roofline']['dominant']} "
+                      f"{r['roofline']['bound_ms']:.4f} ms; launches {r['launches']}", flush=True)
+            for k, by_variant in r["launches"].items():  # the kernels' own counters
+                for v, n in by_variant.items():
+                    launches.setdefault(k, {})[v] = launches.get(k, {}).get(v, 0) + n
+        emit("launch", t0, dry_run=dry_rows, on_card=recs, peak_slack=PEAK_SLACK,
+             note="(a) python -m repro_torch.launch.dryrun --mesh single, one process a cell, "
+                  "on the fake 256-rank (data=16, model=16) world: per-device FLOPs, bytes, "
+                  "collectives and peak memory of one traced step; (b) --on-card: the cell on "
+                  "a one-rank mesh traced fake (FLOPs: flop_counter's formulas + the kernels' "
+                  "own, peak: MemTracker, plus the cuBLAS workspaces the step allocates, "
+                  "measured on a first run), then run here on inputs from the seed: "
+                  "FlopCounterMode's count (the kernels apart, by their formulas), "
+                  "max_memory_allocated after reset_peak_memory_stats (the inputs resident), "
+                  "ms: host clock ending in a synchronize, the median of 3 after the gated run; "
+                  "launches: the kernels' LAUNCHES counters over every run of (b)")
+        return launches
+
+    launch_launches = launch_phase()
+
     kernels = [
         dict(name=f"{kern}_reduce_cores[{v}]", route="cuda", **meta,
              launches=launches[f"{kern}_reduce_cores"].get(v, 0)
@@ -3941,7 +4312,8 @@ def main() -> int:
         # the main path's bag: DIN's profile bag at serve_p99, shape (a)
         dict(name="embedding_bag[sum]", route="cuda", **EMBAG,
              launches=din_launches.get("sum", 0) + serve_launches["embedding_bag"].get("sum", 0)
-             + din_train_launches.get("sum", 0),
+             + din_train_launches.get("sum", 0) + dist_launches["embedding_bag"].get("sum", 0)
+             + launch_launches.get("embedding_bag", {}).get("sum", 0),
              max_abs_err=bag_errs["sum"], ms=bag_rows["a_serve_p99[sum]"]["ms"],
              plain_ms=bag_rows["a_serve_p99[sum]"]["plain_ms"],
              bound_ms=bag_rows["a_serve_p99[sum]"]["bound_ms"],
@@ -3966,7 +4338,8 @@ def main() -> int:
     ] + [
         # the trainer's shape: GAT layer 1 at the Cora shape, shape (a)
         dict(name="segment_softmax[f32]", route="cuda", **SOFTMAX,
-             launches=softmax_launches.get("f32", 0) + dist_launches["segment_softmax"].get("f32", 0),
+             launches=softmax_launches.get("f32", 0) + dist_launches["segment_softmax"].get("f32", 0)
+             + launch_launches.get("segment_softmax", {}).get("f32", 0),
              max_abs_err=sm_err,
              ms=sm_rows["a_cora_layer1"]["ms"], plain_ms=sm_rows["a_cora_layer1"]["plain_ms"],
              bound_ms=sm_rows["a_cora_layer1"]["bound_ms"],

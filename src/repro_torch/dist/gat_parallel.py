@@ -102,6 +102,7 @@ def make_gat_graphscale_loss(
     n_heads: int,
     head_dim: int,
     wire_dtype: Optional[torch.dtype] = None,
+    tiles=None,
 ):
     """Build ``loss(params, feat, sg, dl, vm, labels, lmask) -> scalar``,
     called on every rank with that rank's shard.
@@ -112,7 +113,10 @@ def make_gat_graphscale_loss(
     (1, l=1, E_pad) edge arrays of the partition; ``labels``/``lmask`` are
     (Vl,). The masked softmax cross-entropy is summed over the ranks to the
     global mean. Differentiable in ``params``. ``n_heads`` and ``head_dim``
-    are the reference's arguments; the shapes come from ``params``."""
+    are the reference's arguments; the shapes come from ``params``.
+    ``tiles``: this rank's softmax layout (``flat_softmax_tiles`` of its
+    edges), given when it is built ahead (a trace on fake tensors cannot
+    read the edges); by default built from the edges at the first call."""
     tiles_of = {}
 
     def loss_fn(params, feat, sg, dl, vm, labels, lmask):
@@ -122,19 +126,22 @@ def make_gat_graphscale_loss(
         if sg.shape[1] != 1:
             raise ValueError("GAT layout uses l == 1 (interval fits scratch)")
         e_src, e_dst, e_val = sg[0, 0].long(), dl[0, 0].long(), vm[0, 0]
-        key = (dl.data_ptr(), dl.device)
-        if key not in tiles_of:  # the layout of this edge set, built once
-            tiles_of[key] = flat_softmax_tiles(e_dst, e_val, vpc)
-        tiles = tiles_of[key]
+        if tiles is not None:
+            layout = tiles
+        else:
+            key = (dl.data_ptr(), dl.device)
+            if key not in tiles_of:  # the layout of this edge set, built once
+                tiles_of[key] = flat_softmax_tiles(e_dst, e_val, vpc)
+            layout = tiles_of[key]
 
         leaves, spec = tree_flatten(params)
         rp = tree_unflatten(list(_Replicated.apply(group, *leaves)), spec)
 
         x = mlp(rp["encoder"], x0)  # (Vl, H*hd)
         x = _gat_layer_dist(rp["l1_w"], rp["l1_asrc"], rp["l1_adst"], x, e_src, e_dst, e_val,
-                            tiles, group, final=False, wire_dtype=wire_dtype)
+                            layout, group, final=False, wire_dtype=wire_dtype)
         out = _gat_layer_dist(rp["l2_w"], rp["l2_asrc"], rp["l2_adst"], x, e_src, e_dst,
-                              e_val, tiles, group, final=True, wire_dtype=wire_dtype)
+                              e_val, layout, group, final=True, wire_dtype=wire_dtype)
 
         lg = out.to(torch.float32)
         lse = torch.logsumexp(lg, dim=-1)

@@ -25,6 +25,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.fake import is_fake, nbytes, note, recording
 from repro_torch.kernels.csr_gather_reduce.kernel import (
     _mapped, _min_into, identity_word, pointers, tile_ordered_sum, variant_name,
 )
@@ -73,9 +74,14 @@ def gather_reduce_bucket_plain(payload, src, dstb, valid, weights=None, *, num_r
 def _launch(payload, src, dstb, valid, weights, num_rows, vb, kind, edge_op, identity):
     from repro_torch.kernels.build import KernelLaunchError, load_library
 
-    lib, _ = load_library(SOURCE)
     r_blocks, t_tiles, eb = src.shape
     out = torch.empty(num_rows, dtype=payload.dtype, device=payload.device)
+    if recording():
+        note("gather_reduce", src.numel() * (2 if edge_op == "add" else 1),
+             nbytes(payload, src, dstb, valid, weights, out))
+    if is_fake(payload):  # the output rule: a dry run's trace
+        return out
+    lib, _ = load_library(SOURCE)
     fn = lib.gather_reduce_launch
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_uint32, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -128,7 +134,7 @@ def gather_reduce_bucket(
                              f"{tuple(t.shape)} {t.dtype}")
         if t.device != payload.device:
             raise ValueError(f"{name} is on {t.device}, payload on {payload.device}")
-    if payload.device.type == "cuda":
+    if payload.device.type == "cuda" or is_fake(payload):  # a fake: the output rule
         return _launch(payload, src, dstb, valid, weights, num_rows, vb, kind, edge_op,
                        identity)
     if payload.device.type != "cpu":

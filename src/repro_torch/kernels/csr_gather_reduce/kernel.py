@@ -36,6 +36,7 @@ import struct
 import torch
 
 from repro_torch.core import u32
+from repro_torch.kernels.fake import is_fake, nbytes, note, recording
 
 __all__ = [
     "gather_reduce_cores",
@@ -262,13 +263,19 @@ def _launch(payload, word, counts, word_hi, weights, fetch, num_rows, vb, kind, 
             identity):
     from repro_torch.kernels.build import KernelLaunchError, load_library
 
-    lib, _ = load_library(SOURCE)
     p, r_blocks, t_tiles, eb = word.shape
     lanes = payload.shape[1] if payload.dim() == 2 else 1  # (G,) is (G, 1) in memory
-    if lanes % 4 == 0 and payload.data_ptr() % 16:  # the lane kernel's 16-B loads
-        payload = payload.clone()
     out = torch.empty((p, num_rows) + tuple(payload.shape[1:]), dtype=payload.dtype,
                       device=payload.device)
+    # a slot a lane: the edge op (weights) and the reduce
+    if recording():
+        note("gather_reduce_cores", word.numel() * lanes * (2 if edge_op == "add" else 1),
+             nbytes(payload, word, word_hi, weights, counts, fetch, out))
+    if is_fake(payload):  # the output rule: a dry run's trace
+        return out
+    lib, _ = load_library(SOURCE)
+    if lanes % 4 == 0 and payload.data_ptr() % 16:  # the lane kernel's 16-B loads
+        payload = payload.clone()
     fn = lib.gather_reduce_cores_launch
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_uint32, ctypes.c_void_p]
     args = [*pointers(payload, word, word_hi, weights, counts, fetch, out),
@@ -317,7 +324,7 @@ def gather_reduce_cores(
             f"vb={vb} rows do not fit one block's shared memory "
             f"(at most {smem_limit_rows()}); partition with a smaller tile_vb"
         )
-    if payload.device.type == "cuda":
+    if payload.device.type == "cuda" or is_fake(payload):  # a fake: the output rule
         return _launch(payload, word, counts, word_hi, weights, fetch, num_rows, vb,
                        kind, edge_op, identity)
     return gather_reduce_cores_plain(

@@ -27,6 +27,7 @@ import torch
 from repro_torch.core import u32
 
 __all__ = [
+    "segment_reduce_rows",
     "TileLayout",
     "TilePlan",
     "PushTileLayout",
@@ -766,3 +767,46 @@ def gather_reduce(
     if t.row_pos is not None:  # undo degree-aware row packing
         return out[t.row_pos]
     return out
+
+
+def segment_reduce_rows(
+    contrib: torch.Tensor,  # (p, E) pre-mapped contributions (identity-padded)
+    dst: torch.Tensor,  # (p, E) sorted local rows
+    *,
+    num_rows: int,
+    kind: str,
+    identity: float,
+) -> torch.Tensor:
+    """Reduce-only helper for already-materialized contributions: per core,
+    the segment min or sum of ``contrib`` over ``dst`` into ``num_rows``
+    rows -> (p, num_rows). The reference's public helper for model code
+    (the engine routes through the fused kernel instead); plain torch, as
+    the reference's has no Pallas kernel. Rows outside [0, num_rows) are
+    dropped; an empty row of a min holds the dtype's largest value (+inf for
+    floats), as ``jax.ops.segment_min`` gives, and of a sum 0. The sum adds
+    in index order (``index_add``), ``jax.ops.segment_sum``'s order on the
+    CPU. ``identity`` is kept for the reference's signature."""
+    del identity
+    if kind not in ("min", "sum"):
+        raise ValueError(f"kind must be 'min' or 'sum', got {kind!r}")
+    if contrib.shape != dst.shape or contrib.dim() != 2:
+        raise ValueError(f"contrib {tuple(contrib.shape)} and dst {tuple(dst.shape)} must "
+                         "be the same (p, E)")
+    dt = contrib.dtype
+    wide = dt == torch.uint32  # uint32 has no min or index_add on the CPU
+    vals = contrib.to(torch.int64) if wide else contrib
+    idx = dst.to(torch.int64)
+    keep = (idx >= 0) & (idx < num_rows)
+    rows = []
+    for c in range(contrib.shape[0]):
+        v, d = vals[c][keep[c]], idx[c][keep[c]]
+        if kind == "sum":
+            out = torch.zeros(num_rows, dtype=vals.dtype, device=vals.device).index_add_(0, d, v)
+        else:
+            top = (float("inf") if dt.is_floating_point else 0xFFFFFFFF if wide
+                   else torch.iinfo(dt).max)
+            out = torch.full((num_rows,), top, dtype=vals.dtype, device=vals.device)
+            out = out.scatter_reduce(0, d, v, "amin", include_self=True)
+        rows.append(out)
+    out = torch.stack(rows)
+    return out.to(torch.uint32) if wide else out

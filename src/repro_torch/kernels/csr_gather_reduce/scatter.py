@@ -29,6 +29,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.fake import is_fake, nbytes, note, recording
 from repro_torch.kernels.csr_gather_reduce.kernel import (
     _decode, _mapped, _min_into, _or_into, check_stream, identity_word, pointers,
     tiles_that_run, variant_name,
@@ -75,13 +76,18 @@ def _launch(payload, word, counts, word_hi, weights, fetch, num_rows, kind, edge
             identity):
     from repro_torch.kernels.build import KernelLaunchError, load_library
 
-    lib, _ = load_library(SOURCE)
     p, b_blocks, t_tiles, eb = word.shape
     lanes = payload.shape[1] if payload.dim() == 2 else 1  # (G,) is (G, 1) in memory
-    if lanes % 4 == 0 and payload.data_ptr() % 16:  # the kernel's 16-B payload loads
-        payload = payload.clone()
     out = torch.empty((p, num_rows) + tuple(payload.shape[1:]), dtype=payload.dtype,
                       device=payload.device)
+    if recording():
+        note("scatter_reduce_cores", word.numel() * lanes * (2 if edge_op == "add" else 1),
+             nbytes(payload, word, word_hi, weights, counts, fetch, out))
+    if is_fake(payload):  # the output rule: a dry run's trace
+        return out
+    lib, _ = load_library(SOURCE)
+    if lanes % 4 == 0 and payload.data_ptr() % 16:  # the kernel's 16-B payload loads
+        payload = payload.clone()
     fn = lib.scatter_reduce_cores_launch
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_uint32, ctypes.c_void_p]
     args = [*pointers(payload, word, word_hi, weights, counts, fetch, out),
@@ -121,7 +127,7 @@ def scatter_reduce_cores(
     check_stream(payload, word, counts, word_hi, weights, fetch, src_bits, kind, edge_op)
     if src_bits == 16 and num_rows > 1 << 15:
         raise ValueError(f"num_rows={num_rows} does not fit the 16-bit regime's dst field")
-    if payload.device.type == "cuda":
+    if payload.device.type == "cuda" or is_fake(payload):  # a fake: the output rule
         return _launch(payload, word, counts, word_hi, weights, fetch, num_rows, kind,
                        edge_op, identity)
     return scatter_reduce_cores_plain(

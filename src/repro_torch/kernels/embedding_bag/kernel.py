@@ -17,6 +17,8 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.fake import is_fake, nbytes, note, recording
+
 __all__ = ["embedding_bag_cuda", "embedding_bag_backward_cuda", "backward_runs",
            "launch_backward", "LAUNCHES", "reset_launch_counts", "vector_width"]
 
@@ -46,12 +48,19 @@ def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor, mode: str) -> tor
     """Launch the kernel on checked CUDA operands (see ``ops.embedding_bag``)."""
     from repro_torch.kernels.build import KernelLaunchError, load_library
 
-    lib, _ = load_library(SOURCE)
     b, length = ids.shape
     d = table.shape[1]
     out = torch.empty((b, d), dtype=table.dtype, device=table.device)
     if b == 0 or d == 0:
         return out  # nothing to launch
+    # an add a (bag, slot, column); mean divides each output once; a row
+    # read an id slot (at most the table)
+    if recording():
+        note("embedding_bag", b * length * d + (b * d if mode == "mean" else 0),
+             min(b * length * d * 4, nbytes(table)) + nbytes(ids, out))
+    if is_fake(table):  # the output rule: a dry run's trace
+        return out
+    lib, _ = load_library(SOURCE)
     fn = lib.embedding_bag_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -105,9 +114,14 @@ def launch_backward(grad_out: torch.Tensor, order: torch.Tensor, start: torch.Te
     mean, the (B,) int32 counts of real ids a bag: -> (len(start) - 1, D)."""
     from repro_torch.kernels.build import KernelLaunchError, load_library
 
-    lib, _ = load_library(BACKWARD_SOURCE)
     num_rows, d = start.shape[0] - 1, grad_out.shape[1]
     grad = torch.empty((num_rows, d), dtype=torch.float32, device=grad_out.device)
+    if recording():
+        note("embedding_bag_backward", order.numel() * d,
+             nbytes(grad_out, order, start, counts, grad))
+    if is_fake(grad_out):  # the output rule: a dry run's trace
+        return grad
+    lib, _ = load_library(BACKWARD_SOURCE)
     fn = lib.embedding_bag_backward_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 3 \
         + [ctypes.c_void_p]

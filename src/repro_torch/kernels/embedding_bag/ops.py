@@ -14,7 +14,9 @@ both devices. Unlike the Pallas kernel, any number of bags is accepted
 from __future__ import annotations
 
 import torch
+from torch.overrides import handle_torch_function, has_torch_function
 
+from repro_torch.kernels.fake import is_fake
 from repro_torch.kernels.embedding_bag.kernel import (
     embedding_bag_backward_cuda, embedding_bag_cuda,
 )
@@ -26,7 +28,11 @@ __all__ = ["embedding_bag"]
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor, mode: str = "sum") -> torch.Tensor:
-    """(N, D) float32 table x (B, L) int32 ids (< 0 = padding) -> (B, D)."""
+    """(N, D) float32 table x (B, L) int32 ids (< 0 = padding) -> (B, D).
+    Takes the torch-function protocol (a dry run's
+    ``launch.sharded.ShardedForms``)."""
+    if has_torch_function((table, ids)):
+        return handle_torch_function(embedding_bag, (table, ids), table, ids, mode)
     if mode not in ("sum", "mean"):
         raise ValueError(f"mode must be 'sum' or 'mean', got {mode!r}")
     if table.dim() != 2 or table.dtype != torch.float32:
@@ -48,7 +54,7 @@ class _EmbeddingBag(torch.autograd.Function):
     def forward(ctx, table, ids, mode):
         ctx.save_for_backward(ids)
         ctx.mode, ctx.num_rows = mode, table.shape[0]
-        if table.device.type == "cuda":
+        if table.device.type == "cuda" or is_fake(table):  # a fake: the output rule
             return embedding_bag_cuda(table, ids, mode)
         return embedding_bag_reference(table, ids, mode)
 
@@ -56,7 +62,7 @@ class _EmbeddingBag(torch.autograd.Function):
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
         g = g.contiguous()
-        if g.device.type == "cuda":
+        if g.device.type == "cuda" or is_fake(g):
             grad = embedding_bag_backward_cuda(g, ids, ctx.num_rows, ctx.mode)
         else:
             grad = embedding_bag_backward_reference(g, ids, ctx.num_rows, ctx.mode)

@@ -39,6 +39,8 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.fake import is_fake, nbytes, note, recording
+
 __all__ = ["flash_attention_tiles", "flash_attention_tiles_plain", "LAUNCHES",
            "reset_launch_counts", "MAX_D", "threads_per_row", "shared_bytes",
            "check_launchable"]
@@ -149,10 +151,16 @@ def flash_attention_tiles_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
 def _launch(q, k, v, causal, scale, block_q, block_k):
     from repro_torch.kernels.build import KernelLaunchError, load_library
 
-    lib, _ = load_library(SOURCE)
     b, hq, s, d = q.shape
     code, name = _DTYPES[q.dtype]
     out = torch.empty_like(q)
+    # QK^T and PV over the (query, key) pairs the causal mask keeps
+    pairs = s * (s + 1) // 2 if causal else s * s
+    if recording():
+        note("flash_attention", 4 * b * hq * d * pairs, nbytes(q, k, v, out))
+    if is_fake(q):  # the output rule: a dry run's trace
+        return out
+    lib, _ = load_library(SOURCE)
     fn = lib.flash_attention_launch
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_void_p])
@@ -191,7 +199,7 @@ def flash_attention_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
     scale = (d ** -0.5) if scale is None else float(scale)
-    if q.device.type == "cuda":
+    if q.device.type == "cuda" or is_fake(q):  # a fake: the output rule
         if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
             raise ValueError("kernel operands must be contiguous")
         check_launchable(q.dtype, d, block_q, block_k, b * hq)

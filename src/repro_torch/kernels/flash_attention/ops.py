@@ -11,6 +11,7 @@ O(S·chunk) per call, as the reference's rematerialized scan.
 from __future__ import annotations
 
 import torch
+from torch.overrides import handle_torch_function, has_torch_function
 
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.models.layers import chunked_gqa_attention
@@ -51,6 +52,11 @@ def flash_attention(
 ) -> torch.Tensor:
     """Grouped-query attention -> (B, Hq, S, D) in q's type, differentiable in
     q, k and v; ``chunk`` is the backward's KV chunk (the LM's
-    ``attn_chunk``). Inputs are made contiguous for the kernel."""
+    ``attn_chunk``). Inputs are made contiguous for the kernel. Takes the
+    torch-function protocol (a dry run's ``launch.sharded.ShardedForms``)."""
+    if has_torch_function((q, k, v)):
+        return handle_torch_function(flash_attention, (q, k, v), q, k, v, causal=causal,
+                                     scale=scale, block_q=block_q, block_k=block_k,
+                                     chunk=chunk)
     return _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), causal,
                                  scale, block_q, block_k, chunk)

@@ -23,6 +23,8 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.fake import is_fake, nbytes, note, recording
+
 __all__ = ["segment_softmax_tiles", "segment_softmax_tiles_plain", "LAUNCHES",
            "reset_launch_counts", "MAX_VB"]
 
@@ -88,9 +90,14 @@ def segment_softmax_tiles_plain(scores: torch.Tensor, dstb: torch.Tensor,
 def _launch(scores, dstb, valid, vb):
     from repro_torch.kernels.build import KernelLaunchError, load_library
 
-    lib, _ = load_library(SOURCE)
     h, r_blocks, t_tiles, eb = scores.shape
     out = torch.empty_like(scores)
+    # a (head, slot): the max, the shift, the exp, the sum and the divide
+    if recording():
+        note("segment_softmax", 5 * scores.numel(), nbytes(scores, dstb, valid, out))
+    if is_fake(scores):  # the output rule: a dry run's trace
+        return out
+    lib, _ = load_library(SOURCE)
     fn = lib.segment_softmax_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -126,7 +133,7 @@ def segment_softmax_tiles(scores: torch.Tensor, dstb: torch.Tensor, valid: torch
     for name, t in (("dstb", dstb), ("valid", valid)):
         if t.device != scores.device:
             raise ValueError(f"{name} is on {t.device}, scores on {scores.device}")
-    if scores.device.type == "cuda":
+    if scores.device.type == "cuda" or is_fake(scores):  # a fake: the output rule
         if not (scores.is_contiguous() and dstb.is_contiguous() and valid.is_contiguous()):
             raise ValueError("kernel operands must be contiguous")
         out = _launch(scores, dstb, valid, vb)

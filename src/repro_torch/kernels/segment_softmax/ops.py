@@ -15,6 +15,7 @@ import time
 
 import numpy as np
 import torch
+from torch.overrides import handle_torch_function, has_torch_function
 
 from repro_torch.kernels.csr_gather_reduce.ops import TileLayout, prepare_tiles
 from repro_torch.kernels.segment_softmax import kernel
@@ -158,5 +159,9 @@ def segment_softmax_edges(scores: torch.Tensor, dt: DeviceTiles, dst: torch.Tens
                           valid: torch.Tensor) -> torch.Tensor:
     """GAT's edge softmax: (E[, H]) float32 scores -> weights, differentiable
     in ``scores``. ``dst`` and ``valid`` are the edges' rows and mask, as
-    ``dt`` was built from."""
+    ``dt`` was built from. Takes the torch-function protocol (a dry run's
+    ``launch.sharded.ShardedForms``)."""
+    if has_torch_function((scores, dst, valid)):
+        return handle_torch_function(segment_softmax_edges, (scores, dst, valid), scores, dt,
+                                     dst, valid)
     return _EdgeSoftmax.apply(scores, dt, dst, valid)

@@ -18,6 +18,14 @@ is made:
     sub-interval to the host, exchanges it there and copies the result back
     (``core.distributed``); the kernels still run on the card.
 
+``make_production_mesh`` is the reference's production mesh as a
+``torch.distributed`` ``DeviceMesh`` with its shape and axis names, on a
+fake world (``FakeProcessGroup``: no rank exists but this one, no card is
+touched, every collective returns a tensor of the right shape and no
+meaningful values). The dry run (``launch.dryrun``) traces a cell's step on
+it with fake tensors. ``make_graph_mesh`` is a 1-D mesh over the current
+group (the ``graph`` or ``table`` axis).
+
 ``spawn_ranks`` starts the ranks (``spawn``, a ``file://`` rendezvous in a
 fresh directory, so concurrent runs never share a port), gives each its
 group and collects what each returns, within a time limit: a rank that
@@ -25,6 +33,7 @@ fails or a run that hangs past it ends every rank and raises.
 """
 from __future__ import annotations
 
+import math
 import os
 import queue as queue_mod
 import tempfile
@@ -34,7 +43,8 @@ import traceback
 import torch
 import torch.distributed as dist
 
-__all__ = ["make_graph_group", "spawn_ranks", "HW"]
+__all__ = ["make_graph_group", "spawn_ranks", "make_production_mesh", "make_graph_mesh",
+           "fake_world", "HW"]
 
 TRANSPORTS = ("gloo", "nccl")
 
@@ -141,6 +151,57 @@ def spawn_ranks(fn, world_size: int, args=(), *, backend: str, timeout: float,
     return [got[r] for r in range(world_size)]
 
 
+def fake_world(size: int) -> None:
+    """Make the current group a fake world of ``size`` ranks (this process
+    rank 0). A fake world of another size is replaced; a real group of
+    another size is refused."""
+    if dist.is_initialized():
+        if dist.get_world_size() == size:
+            return
+        if dist.get_backend() != "fake":
+            raise RuntimeError(
+                f"a real {dist.get_backend()!r} group of {dist.get_world_size()} ranks is "
+                f"initialised; the mesh needs {size}")
+        dist.destroy_process_group()
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=size)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """The reference's production mesh as a ``DeviceMesh``: ``(data=16,
+    model=16)``, or ``(pod=2, data=16, model=16)`` with ``multi_pod``.
+
+    256 cards are 32 nodes of 8 H100s: NVLink joins the 8 cards of a node,
+    and one 400 Gb/s InfiniBand port a card joins the nodes. The 16-wide
+    ``model`` axis therefore crosses two NVLink domains, so its collectives
+    are priced at the scale-out link (``HW.IB_BW``), the reference's
+    conservative one-link rule kept; ``pod`` crosses pods (data parallel
+    only). The mesh lives on a fake world of 256 or 512 ranks (made here
+    when no group is initialised; a fake world of another size is
+    replaced, a real group of another size refused): nothing is allocated
+    and no card is touched."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    fake_world(math.prod(shape))
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def make_graph_mesh(num_cores: int, axis: str = "graph"):
+    """A 1-D ``DeviceMesh`` of ``num_cores`` ranks named ``axis`` over the
+    current group, which must hold exactly that many ranks (the GraphScale
+    engine's ``graph`` axis, or the router's ``table`` axis). The device
+    type is the group's: ``cuda`` under NCCL, else ``cpu``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized() or dist.get_world_size() != num_cores:
+        raise ValueError(f"the current group must hold {num_cores} ranks")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, (num_cores,), mesh_dim_names=(axis,))
+
+
 class HW:
     """Roofline constants of one card: NVIDIA's data sheet for the H100 SXM
     (dense rates, no sparsity), which assumes the full power limit; the
@@ -150,5 +211,10 @@ class HW:
 
     PEAK_FLOPS_BF16 = 989e12  # FLOP/s, dense bf16 tensor cores (H100 80GB HBM3, 700 W)
     HBM_BW = 3.35e12  # B/s (H100 80GB HBM3, 700 W)
+    PEAK_FLOPS_F32 = 67e12  # FLOP/s, float32 outside the tensor cores (H100 80GB HBM3, 700 W)
     NVLINK_BW = 900e9  # B/s per card, both directions of its 18 NVLink 4 links (H100 80GB HBM3, 700 W)
+    # B/s per card across nodes: one 400 Gb/s NDR InfiniBand port a card (H100 80GB HBM3,
+    # 700 W, in the 8-card nodes the production mesh assumes); the counterpart of the
+    # reference's ICI_BW, the one-link price of every collective
+    IB_BW = 50e9
     HBM_BYTES = 80e9  # bytes of HBM3 (H100 80GB HBM3, 700 W)

@@ -16,7 +16,8 @@ reference's ``jax.checkpoint`` with ``nothing_saveable``. The GSPMD fields
 of ``LMConfig`` (``act_sharding``, ``logit_sharding``, ``expert_sharding``,
 ``attn_sharding``, ``scan_unroll``) are kept so that configs compare value
 for value; the sharding fields reach ``_wsc`` where the reference
-constrains, the identity while the port's LM runs on plain tensors.
+constrains: a redistribute when the activations are DTensors (the dry run on
+a production mesh), the identity on plain tensors.
 """
 from __future__ import annotations
 
@@ -70,8 +71,8 @@ class LMConfig:
     dtype: Any = torch.bfloat16
     attn_chunk: int = 1024
     remat: bool = True
-    # the reference's GSPMD activation constraints, passed to _wsc (the identity on
-    # the port's plain tensors)
+    # the reference's GSPMD activation constraints, passed to _wsc: (mesh,
+    # placements) pairs on a production mesh, redistributing DTensors
     act_sharding: Any = None  # (B, S, d)
     logit_sharding: Any = None  # (B, S, V)
     expert_sharding: Any = None  # (E, C, d) MoE dispatch buffers
@@ -209,9 +210,14 @@ def _ffn(lp, x, cfg: LMConfig):
 
 def _wsc(x, sharding):
     """The reference's GSPMD sharding constraint, kept where the reference
-    calls it. The identity: the port's LM runs on plain tensors (one card,
-    or a rank's local shard), which no constraint moves."""
-    return x
+    calls it: a DTensor is redistributed to ``sharding``, a ``(DeviceMesh,
+    placements)`` pair (``launch.cells``, on a production mesh). The identity
+    on a plain tensor (one card, or a rank's local shard) and where no
+    sharding is set."""
+    if sharding is None or not hasattr(x, "redistribute"):  # not a DTensor
+        return x
+    mesh, place = sharding
+    return x.redistribute(mesh, place)
 
 
 def _block(lp, x, cfg: LMConfig, cos, sin):

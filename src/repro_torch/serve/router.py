@@ -26,6 +26,7 @@ partition's device copies (``engine.evict_from_cache``).
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Optional
 
@@ -38,7 +39,7 @@ from repro_torch.core.graph import COOGraph, in_degrees
 from repro_torch.core.partition import PartitionConfig, PartitionedGraph, partition_2d
 from repro_torch.core.problems import INF_U32, bfs_multi, ppr_multi, sssp_multi
 from repro_torch.device import resolve_device
-from repro_torch.dist.embedding import make_crossbar_lookup
+from repro_torch.dist.embedding import crossbar_lookup_local, make_crossbar_lookup, make_exchange
 from repro_torch.models.recsys import din
 from repro_torch.serve.delta import DeltaBuffer
 from repro_torch.serve.metrics import FlushRecord
@@ -74,6 +75,38 @@ class BatchResult:
     cold: bool
 
 
+def _table_sharded_lookup(group, dropped: list, capacity_factor: float = 2.0):
+    """The reference's ``make_crossbar_lookup(mesh, "table", "table")`` over
+    ``group``: each rank holds one row shard of the table (the rows in rank
+    order), the ids (the same on every rank) are split over the ranks (the
+    flat ids padded with -1 to a multiple of the world, rank r taking the
+    r-th share), each share goes through the crossbar against the shards,
+    and the rows come back all-gathered in rank order. Ids past a
+    destination's queue (``capacity_factor`` of the uniform load) return
+    zero rows, as the reference's do; each call appends the ids dropped on
+    all ranks to ``dropped``."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import all_reduce_int, crossbar_exchange
+
+    exchange, n = make_exchange(group)
+    rank = dist.get_rank(group)
+
+    def lookup(table, ids):
+        flat = ids.reshape(-1)
+        share = -(-flat.shape[0] // n)
+        padded = torch.full((share * n,), -1, dtype=flat.dtype, device=flat.device)
+        padded[: flat.shape[0]] = flat
+        capacity = max(1, math.ceil(share * capacity_factor / n))
+        rows, drop = crossbar_lookup_local(table, padded[rank * share:(rank + 1) * share],
+                                           exchange, n, capacity)
+        dropped.append(all_reduce_int(int(drop), "sum", group))
+        rows = crossbar_exchange(rows.contiguous(), group)[: flat.shape[0]]
+        return rows.reshape(*ids.shape, table.shape[-1])
+
+    return lookup
+
+
 class RecommendScorer:
     """recommend-for: DIN retrieval scoring over a fixed-size candidate pool.
 
@@ -87,8 +120,16 @@ class RecommendScorer:
     ``params`` takes carried-across weights (``din.params_from_reference``);
     without them the scorer draws ``din.init`` from a generator seeded with
     ``seed`` on ``device``. ``lookup='crossbar'`` routes item-table reads
-    through ``dist.embedding.make_crossbar_lookup`` (one shard on one card);
-    ``'take'`` is the plain take.
+    through the crossbar: under an initialised ``torch.distributed`` group of
+    ``world`` ranks the item table is split into ``world`` row shards, one a
+    rank (``dist.sharding.local_shard`` on a ``table`` mesh axis), and the
+    ids over the ranks too (``_table_sharded_lookup``), as the reference
+    shards it over one table shard a device; where ``item_vocab % world !=
+    0``, and with no group, it runs at one shard (``make_crossbar_lookup``).
+    ``table_shards`` says which; ``dropped`` lists the ids each sharded
+    lookup dropped. ``'take'`` is the plain take. Every rank of a group
+    builds its scorer with the same parameters and answers the same
+    queries.
     """
 
     def __init__(
@@ -109,13 +150,28 @@ class RecommendScorer:
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = din.init(self.cfg, gen, self.device)
-        self._params = params
+        self.table_shards = 1
+        self.dropped: list = []
         if lookup == "crossbar":
-            self._lookup_fn = make_crossbar_lookup()
+            import torch.distributed as dist
+
+            world = dist.get_world_size() if dist.is_initialized() else 1
+            if world > 1 and self.cfg.item_vocab % world == 0:
+                from repro_torch.dist.sharding import P, local_shard, placements
+                from repro_torch.launch.mesh import make_graph_mesh
+
+                mesh = make_graph_mesh(world, axis="table")
+                shard = local_shard(params["item_table"], mesh, placements(P("table", None), mesh))
+                params = {**params, "item_table": shard.to_local().to(self.device)}
+                self.table_shards = world
+                self._lookup_fn = _table_sharded_lookup(mesh.get_group("table"), self.dropped)
+            else:
+                self._lookup_fn = make_crossbar_lookup()
         elif lookup == "take":
             self._lookup_fn = None
         else:
             raise ValueError(f"lookup must be 'crossbar' or 'take', got {lookup!r}")
+        self._params = params
         self._pool_items = None
         self._pool_vertices = None
         self._pool_device = None

@@ -297,3 +297,46 @@ def compression_sync(rank, group, grads, rounds):
             synced.append({k: v.numpy() for k, v in s.items()})
         out["ef/" + mode] = (synced, {k: v.numpy() for k, v in ef.items()})
     return out
+
+
+# recommend-for at 4 table shards (tests/test_torch_distributed.py): case ->
+# (graph, item_vocab, history length, roots). "spread": interior grid
+# vertices (4 in-neighbours, no padding) and a pool spread over the shards,
+# so no queue overflows; "skewed": RMAT hubs crowd one shard's queue;
+# "uneven": item_vocab % 4 != 0, one shard
+REC_CASES = {
+    "spread": ("grid", 8, 4, (100, 200, 300)),
+    "skewed": ("hub", 500, 12, (0, 3, 9, 40)),
+    "uneven": ("stride", 501, 12, (0, 7, 100)),
+}
+
+
+def recommend_sharded(rank, group, params_by_case):
+    """recommend-for through the router's table-sharded crossbar lookup on
+    every rank: per case the answers, the scorer's shard count and the ids
+    each query's two lookups dropped (summed over the ranks)."""
+    import dataclasses
+
+    import repro_torch.core.graph as G
+    from repro_torch.configs.registry import get
+    from repro_torch.core.partition import PartitionConfig, partition_2d
+    from repro_torch.data.synthetic import skewed_graph
+    from repro_torch.models.recsys import din
+    from repro_torch.serve import RecommendScorer
+
+    torch.set_num_threads(1)
+    out = {}
+    for case, (gname, vocab, seq, roots) in REC_CASES.items():
+        g = graph(gname, G, skewed_graph)
+        pg = partition_2d(g, PartitionConfig(p=2, l=2))
+        cfg = dataclasses.replace(get("din").smoke(), item_vocab=vocab, seq_len=seq)
+        s = RecommendScorer(cfg, pool_size=64, topk=8, device="cpu",
+                            params=din.params_from_reference(params_by_case[case], "cpu"))
+        s.refresh_pool(g)
+        answers, drops = [], []
+        for r in roots:
+            before = len(s.dropped)
+            answers.append(s.recommend_for(pg, r))
+            drops.append(sum(s.dropped[before:]))
+        out[case] = (answers, drops, s.table_shards)
+    return out

@@ -1842,3 +1842,112 @@ def test_cuda_sampled_graphsage_step_matches_cpu(cuda_device):
         got, m = step(got, *b)
         assert bool(torch.isfinite(m["loss"]))
     it.close()
+
+
+# ---------------------------------------------------------------------------
+# the launch tooling: the kernels' output rules on fake tensors, and the dry
+# run's prediction held against the card
+
+
+def _rule_cases(dev):
+    """(name, launcher, real CUDA args, kwargs, launch counters) for each of
+    the seven kernel entry points, at small shapes."""
+    from repro_torch.kernels.csr_gather_reduce import bucket as B
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_backward_cuda
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.segment_softmax import kernel as SK
+
+    rng = np.random.default_rng(31)
+    pg = partition_2d(G.symmetrize(G.rmat(9, 8, seed=5)),
+                      PartitionConfig(p=2, l=2, tile_vb=64, build_push=True))
+    m = 0
+    pay = torch.from_numpy((rng.random(pg.gathered_size) / 7).astype(np.float32))
+    gather = (pay, torch.from_numpy(pg.tile_word[:, m].copy()),
+              torch.from_numpy(pg.tile_counts[:, m].copy()),
+              None if pg.tile_word_hi is None else torch.from_numpy(pg.tile_word_hi[:, m].copy()))
+    scatter = (pay, torch.from_numpy(pg.push_word[:, m].copy()),
+               torch.from_numpy(pg.push_counts[:, m].copy()),
+               None if pg.push_word_hi is None else torch.from_numpy(pg.push_word_hi[:, m].copy()))
+    shape = (3, 4, 32)
+    src = torch.from_numpy(rng.integers(0, 100, shape).astype(np.int32))
+    dstb = torch.from_numpy(rng.integers(0, 16, shape).astype(np.int32))
+    valid = torch.from_numpy(rng.random(shape) < 0.7)
+    table = torch.from_numpy(rng.random((50, 18)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(-1, 50, (6, 9)).astype(np.int32))
+    q = torch.from_numpy(rng.standard_normal((2, 4, 40, 16)).astype(np.float32))
+    kv = torch.from_numpy(rng.standard_normal((2, 2, 40, 16)).astype(np.float32))
+    to = (lambda *ts: [t.to(dev) if t is not None else None for t in ts])
+    return [
+        ("gather_reduce_cores", K.gather_reduce_cores, to(*gather),
+         dict(num_rows=pg.packed_rows_per_core, vb=pg.tile_vb, src_bits=pg.src_bits,
+              kind="sum"), K.LAUNCHES),
+        ("scatter_reduce_cores", S.scatter_reduce_cores, to(*scatter),
+         dict(num_rows=pg.vertices_per_core, src_bits=pg.push_src_bits, kind="min",
+              identity=INF_F32), S.LAUNCHES),
+        ("gather_reduce", B.gather_reduce_bucket, to(pay[:100], src, dstb, valid),
+         dict(num_rows=3 * 16, vb=16, kind="sum"), B.LAUNCHES),
+        ("embedding_bag", EB.embedding_bag_cuda, to(table, ids) + ["sum"], {}, EB.LAUNCHES),
+        ("embedding_bag_backward", embedding_bag_backward_cuda,
+         to(torch.ones(6, 18), ids) + [50, "sum"], {}, EB.LAUNCHES),
+        ("segment_softmax", SK.segment_softmax_tiles,
+         to(torch.from_numpy(rng.standard_normal((2,) + shape).astype(np.float32)), dstb, valid),
+         dict(vb=16), SK.LAUNCHES),
+        ("flash_attention", FK.flash_attention_tiles, to(q, kv, kv.clone()),
+         dict(block_q=32, block_k=32), FK.LAUNCHES),
+    ]
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_output_rules_match_the_kernels(cuda_device):
+    """Each entry point on fake CUDA tensors (a dry run's trace) returns the
+    kernel's output shape and dtype on the same inputs, launches nothing
+    and counts no launch; the real call launches once."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels.fake import KernelWork, is_fake
+
+    for name, fn, args, kw, counter in _rule_cases(cuda_device):
+        before = sum(counter.values())
+        with KernelWork() as real_work:
+            got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert sum(counter.values()) == before + 1, name
+        mode = FakeTensorMode()
+        fargs = [mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args]
+        with mode, KernelWork() as fake_work:
+            fake = fn(*fargs, **kw)
+        assert is_fake(fake) and sum(counter.values()) == before + 1, name
+        assert fake.shape == got.shape and fake.dtype == got.dtype, name
+        assert fake.device == got.device, name
+        assert fake_work.calls == real_work.calls == {name: 1}, name
+        assert fake_work.flops == real_work.flops > 0 and fake_work.bytes == real_work.bytes, name
+
+
+@pytest.mark.cuda
+def test_cuda_dry_run_prediction_of_din_serve_p99(cuda_device, tmp_path):
+    """din/serve_p99 traced fake on a one-rank mesh, then run on the card
+    (its own process): FlopCounterMode's count equal to the trace's, the
+    bag kernel's FLOPs equal, the card's peak within 1.10 x the prediction
+    (the trace's peak plus the measured cuBLAS workspaces) + 64 MiB, and the
+    bag kernel's own counter at one launch a run (the workspace run, the
+    gated run and 3 timed runs)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root / "src"), os.environ.get("PYTHONPATH", "")]))
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--on-card",
+                          "din/serve_p99"], capture_output=True, text=True, env=env, cwd=root,
+                         timeout=600)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
+    rec = [json.loads(ln)["on_card"] for ln in res.stdout.splitlines()
+           if ln.startswith('{"on_card"')][0]
+    assert rec["flops_equal"] and rec["card_aten_flops"] == rec["fake_aten_flops"] > 0
+    assert rec["card_kernel_flops"] == rec["fake_kernel_flops"] > 0
+    assert rec["card_peak_bytes"] <= 1.10 * rec["predicted_peak_bytes"] + 64 * 2 ** 20
+    assert rec["predicted_peak_bytes"] == rec["traced_peak_bytes"] + rec["cublas_workspace_bytes"]
+    assert rec["launches"] == {"embedding_bag": {"sum": 5}}

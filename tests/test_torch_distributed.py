@@ -138,6 +138,44 @@ for form, taxes, rows, d, n, cap in (("model", "model", 64, 8, 32, 2),
     for k, v in (("table", table), ("ids", ids), ("cap", cap), ("rows", rows_out),
                  ("grad", grad), ("small", small), ("dropped", dropped)):
         out[f"lookup/{form}/{k}"] = np.asarray(v)
+
+# recommend-for at 4 table shards: the reference's own 4-device scorer cannot
+# split a (1, L) history over 4 shards (shard_map raises), so its crossbar
+# (make_crossbar_lookup over a 4-device "table" mesh) runs on the flat ids
+# split as the port splits them: padded with -1 to a multiple of 4
+import dataclasses
+from repro.configs.registry import get as rget
+from repro.data.synthetic import skewed_graph
+from repro.models.recsys import din as rdin
+from repro.serve.router import RecommendScorer as RScorer
+sys.path.insert(0, sys.argv[2])
+from _torch_ranks import REC_CASES, graph
+rlookup = make_crossbar_lookup(make_graph_mesh(4, axis="table"), "table", "table")
+
+def split_lookup(table, ids):
+    flat = ids.reshape(-1)
+    n = flat.shape[0]
+    share = -(-n // 4)
+    padded = jnp.full((share * 4,), -1, flat.dtype).at[:n].set(flat)
+    return rlookup(table, padded)[:n].reshape(ids.shape + (table.shape[-1],))
+
+for case, (gname, vocab, seq, roots) in REC_CASES.items():
+    g = graph(gname, G, skewed_graph)
+    pg = partition_2d(g, PartitionConfig(p=2, l=2))
+    cfg = dataclasses.replace(rget("din").smoke(), item_vocab=vocab, seq_len=seq)
+    for form in ("four", "one"):
+        s = RScorer(cfg, pool_size=64, topk=8, lookup="take", seed=0)
+        if form == "four" and vocab % 4 == 0:
+            s._score = jax.jit(lambda p, b, c=cfg: rdin.score_candidates(
+                p, b, c, lookup_fn=split_lookup))
+        s.refresh_pool(g)
+        for i, r in enumerate(roots):
+            a = s.recommend_for(pg, r)
+            for k in ("vertices", "scores"):
+                out[f"rec/{case}/{form}/{i}/{k}"] = np.asarray(a[k])
+    for path, leaf in jax.tree_util.tree_leaves_with_path(s._params):
+        out[f"rec/{case}/param/" + "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                                            for k in path)] = np.asarray(leaf)
 np.savez(sys.argv[1], **out)
 '''
 
@@ -150,7 +188,8 @@ def ref_multi(tmp_path_factory):
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
                JAX_PLATFORMS="cpu",
                PYTHONPATH=os.pathsep.join([str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
-    res = subprocess.run([sys.executable, "-c", textwrap.dedent(_REF_MULTI), str(path)],
+    res = subprocess.run([sys.executable, "-c", textwrap.dedent(_REF_MULTI), str(path),
+                          str(Path(__file__).parent)],
                          capture_output=True, text=True, env=env, cwd=ROOT, timeout=240)
     assert res.returncode == 0, f"STDOUT:\n{res.stdout}\nSTDERR:\n{res.stderr}"
     with np.load(path) as z:
@@ -299,3 +338,62 @@ def test_spawn_ranks_ends_every_rank_when_one_fails(tmp_path):
 def test_make_graph_group_needs_its_rendezvous():
     with pytest.raises(ValueError, match="not initialised"):
         make_graph_group(4)
+
+
+# ---------------------------------------------------------------------------
+# recommend-for through the router's table-sharded crossbar lookup
+
+
+@pytest.fixture(scope="module")
+def rec_results(ref_multi, tmp_path_factory):
+    """recommend-for in 4 gloo ranks, each case's scorer carrying the
+    reference scorer's weights."""
+    params = {case: _tree(ref_multi, f"rec/{case}/param/") for case in ranks.REC_CASES}
+    out = spawn_ranks(ranks.recommend_sharded, 4, (params,), backend="gloo",
+                      timeout=SPAWN_TIMEOUT, init_dir=tmp_path_factory.mktemp("rec"))
+    return out
+
+
+def _rec_ref(ref_multi, case, form, i):
+    return {k: ref_multi[f"rec/{case}/{form}/{i}/{k}"] for k in ("vertices", "scores")}
+
+
+@pytest.mark.parametrize("case", list(ranks.REC_CASES))
+def test_sharded_recommend_matches_reference(case, rec_results, ref_multi):
+    """The port's 4-rank answers (every rank the same) against the
+    reference's crossbar at 4 table shards (one shard where item_vocab % 4 !=
+    0): vertices equal, scores within DIN_TOL (rtol 1e-5, atol 1e-6)."""
+    _, vocab, _, roots = ranks.REC_CASES[case]
+    answers0, drops0, shards = rec_results[0][case]
+    assert shards == (4 if vocab % 4 == 0 else 1)
+    for answers, drops, sh in (r[case] for r in rec_results[1:]):
+        assert sh == shards and drops == drops0
+        for a, b in zip(answers, answers0):
+            np.testing.assert_array_equal(a["vertices"], b["vertices"])
+            np.testing.assert_array_equal(a["scores"], b["scores"])
+    for i in range(len(roots)):
+        want = _rec_ref(ref_multi, case, "four", i)
+        np.testing.assert_array_equal(answers0[i]["vertices"], want["vertices"])
+        np.testing.assert_allclose(answers0[i]["scores"], want["scores"], rtol=1e-5, atol=1e-6)
+
+
+def test_sharded_recommend_drops_as_the_one_shard_lookup_allows(rec_results, ref_multi):
+    """Where no id overflowed a shard's queue the 4-shard answers are the
+    one-shard answers (vertices equal, scores within DIN_TOL); the skewed
+    pool overflows (zero rows, as the reference's), the spread one does not,
+    and one shard never drops."""
+    seen = {True: 0, False: 0}
+    for case, (_, vocab, _, roots) in ranks.REC_CASES.items():
+        answers, drops, shards = rec_results[0][case]
+        if shards == 1:
+            assert drops == [0] * len(roots)
+        for i, d in enumerate(drops):
+            seen[d == 0] += 1
+            if d == 0:
+                want = _rec_ref(ref_multi, case, "one", i)
+                np.testing.assert_array_equal(answers[i]["vertices"], want["vertices"])
+                np.testing.assert_allclose(answers[i]["scores"], want["scores"],
+                                           rtol=1e-5, atol=1e-6)
+    assert sum(rec_results[0]["skewed"][1]) > 0
+    assert sum(rec_results[0]["spread"][1]) == 0
+    assert seen[True] and seen[False]
