@@ -319,11 +319,14 @@ freed first):
   launch     the launch tooling: (a) ``python -m repro_torch.launch.dryrun``
              on the fake production mesh ``single`` (256 ranks, (data=16,
              model=16)), one process a cell, for LAUNCH_DRY_CELLS (one a
-             family): each record ``ok``, its per-device FLOPs, bytes,
-             collectives, peak memory and roofline terms kept; (b) ``--on-
+             family, and granite-moe-1b-a400m/train_4k: the grouped MoE
+             dispatch and the vocab-parallel loss): each record ``ok``, its
+             per-device FLOPs, bytes, collectives, peak memory (by kind, and
+             its largest tensors) and roofline terms kept; (b) ``--on-
              card`` for LAUNCH_CARD_CELLS, the cells that fit one card at
              their published shapes (din/serve_p99, a gat-cora train step on
-             full_graph_sm, smollm-135m decoding against long_500k's 524,288
+             full_graph_sm, smollm-135m and granite-moe-1b-a400m (the
+             ungrouped MoE dispatch) decoding against long_500k's 524,288
              slots): each traced fake on a one-rank mesh, then the same step
              on the card on inputs from the seed; gates: FlopCounterMode's
              count on the card equal to the trace's (and the kernels'
@@ -508,9 +511,13 @@ NCCL_SCALE = 16  # the NCCL arm: world size 1, a p = 1 partition of RMAT scale 1
 REC_CONFIGS = ("published", "spread")
 # the launch phase: one dry-run cell a family on the fake single mesh, and the
 # cells that fit one card at their published shapes, run on it
+# (granite-moe train_4k: the grouped MoE dispatch and the vocab-parallel
+# loss; its long_500k on the card: the ungrouped dispatch, 24 layers against
+# a 524,288-slot bf16 cache, ~29 GB)
 LAUNCH_DRY_CELLS = (("smollm-135m", "long_500k"), ("gat-cora", "full_graph_sm"),
-                    ("din", "serve_p99"))
-LAUNCH_CARD_CELLS = ("din/serve_p99", "gat-cora/full_graph_sm", "smollm-135m/long_500k")
+                    ("din", "serve_p99"), ("granite-moe-1b-a400m", "train_4k"))
+LAUNCH_CARD_CELLS = ("din/serve_p99", "gat-cora/full_graph_sm", "smollm-135m/long_500k",
+                     "granite-moe-1b-a400m/long_500k")
 PEAK_SLACK = 1.10  # the card's peak may exceed the prediction by 10% (+ 64 MiB)
 LAUNCH_TIMEOUT_S = 600
 REC_QUERIES = 8
@@ -4241,7 +4248,8 @@ def main() -> int:
             dry_rows[f"{a}/{sh}"] = {k: rec[k] for k in (
                 "chips", "flops_per_device", "bytes_per_device", "collective_bytes_per_device",
                 "compute_s", "memory_s", "collective_s", "dominant", "peak", "memory",
-                "flops_split", "kernel_calls", "replicated", "useful_ratio")}
+                "flops_split", "kernel_calls", "replicated", "replicated_flops",
+                "useful_ratio")}
             dry_rows[f"{a}/{sh}"]["collective_mix"] = rec["collectives"]["count_by_kind"]
         recs = [json.loads(ln)["on_card"] for ln in card.stdout.splitlines()
                 if ln.startswith('{"on_card"')]

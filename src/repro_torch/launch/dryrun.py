@@ -23,7 +23,9 @@ mode below DTensor sees each rank-local aten op and records:
   * collectives: every functional and c10d collective with its group size,
     priced by ``roofline.collective_bytes``;
   * peak memory: ``MemTracker`` over the step, the inputs tracked (params,
-    optimizer state, batch, cache) and every activation and temporary.
+    optimizer state, batch, cache) and every activation and temporary; the
+    record keeps the peak by kind (``KINDS``) and the largest tensors live
+    at the peak, each with the op that made it.
 
 The reference compiles two more probes (L = 1, 2) because XLA costs a scan
 body once; the eager trace sees every layer, so there are none. A cell whose
@@ -52,6 +54,8 @@ from typing import Any, Dict, List, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.launch import sharded
 
 __all__ = ["TraceCounter", "trace_cell", "run_cell", "check_on_card", "main"]
 
@@ -145,6 +149,7 @@ class TraceCounter(TorchDispatchMode):
         self.flops = 0
         self.bytes = 0
         self.collectives: List[tuple] = []
+        self.flops_by_op: Dict[str, int] = {}
         self.last_op: Optional[str] = None
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -169,7 +174,10 @@ class TraceCounter(TorchDispatchMode):
             self.collectives.append(coll)
             return out
         if packet in flop_registry:
-            self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
+            flops = flop_registry[packet](*args, **kwargs, out_val=out)
+            self.flops += flops
+            self.flops_by_op[packet.__name__] = self.flops_by_op.get(packet.__name__, 0) + flops
+            sharded.note_flops(flops)
         outs = _tensors(out)  # none: a query of metadata (prim.device), no bytes
         if outs and not func.is_view and packet.__name__ not in _VIEW_FREE:
             self.bytes += _bytes((args, kwargs)) + _bytes(outs)
@@ -230,14 +238,117 @@ def _local_inputs(args) -> List[torch.Tensor]:
     return out
 
 
+# MemTracker's kinds as a record names them: the inputs by role (``_input
+# kinds``), the forward's tensors, the backward's (recompute, activation
+# grads), what the backward leaves alive when it ends (the gradients), and
+# what the optimizer update makes after it (with the moments it was given)
+KINDS = {"Parameter": "parameters", "Gradient": "gradients", "Optstate": "optimizer_state",
+         "Activation": "activations", "Temp": "temporaries", "Other": "inputs",
+         "Buffer": "buffers"}
+LARGEST = 8  # the live tensors a record keeps from the peak
+
+
+def _peak_tracker():
+    """A ``MemTracker`` that also keeps the peak's largest live tensors, each
+    with the op that made it, and sorts memory into ``KINDS``. The snapshot
+    of the live tensors is taken at the first free after a new peak (the
+    live set then is the peak's) or at the end."""
+    from torch.distributed._tools.common_utils import get_untyped_storages
+    from torch.distributed._tools.mem_tracker import MemTracker, _MemRefType, _UpdateType
+    from torch.distributed.tensor import DTensor
+
+    class PeakTracker(MemTracker):
+        def __init__(self) -> None:
+            super().__init__()
+            self._dirty = False
+            self._seen_bw = False
+            self.largest: List[dict] = []
+
+        def track_inputs(self, roles) -> None:
+            """``roles``: (tensor, MemTracker kind name, label) of each input."""
+            for t, kind, label in roles:
+                for w in self._update_and_maybe_create_winfos(t, _MemRefType(kind)):
+                    w.made_by = (label, tuple(t.shape), str(t.dtype).replace("torch.", ""))
+
+        def _update_peak_stats(self, peak_state) -> None:
+            before = dict(self._peak_mem)
+            super()._update_peak_stats(peak_state)
+            if self._peak_mem != before:
+                self._dirty = True
+
+        def _delete_callback(self, winfo, w_st) -> None:
+            if self._dirty:
+                self.snapshot_live(winfo)
+            super()._delete_callback(winfo, w_st)
+
+        def snapshot_live(self, dying=None) -> None:
+            """Keep the largest live tensors (the peak's while no free has come
+            since the last new peak)."""
+            self._dirty = False
+            live = {id(w): w for w, _ in self._WINFO.values()}
+            if dying is not None:
+                live[id(dying)] = dying
+            ws = sorted(live.values(), key=lambda w: -w.mem_consumed)
+            self.largest = [dict(zip(("op", "shape", "dtype"), getattr(w, "made_by", ("?",) * 3)),
+                                 bytes=w.mem_consumed, kind=KINDS[w.reftype.value])
+                            for w in ws[:LARGEST]]
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not any(t == DTensor for t in types):
+                if torch._C._current_graph_task_id() != -1:
+                    self._seen_bw = True
+                elif self._seen_bw and not self._in_opt:
+                    # the backward has ended: what it left alive are the
+                    # gradients; what comes now is the optimizer update's
+                    self._in_opt = True
+                    for w, _ in list(self._WINFO.values()):
+                        if w.reftype == _MemRefType.TEMP:
+                            w.reftype = _MemRefType.GRAD
+                            self._update_snap(_UpdateType.REF, w, old_reftype=_MemRefType.TEMP)
+            res = super().__torch_dispatch__(func, types, args, kwargs)
+            if res is not NotImplemented:
+                for t in _tensors(res):
+                    for st in get_untyped_storages(t):
+                        w = self._WINFO.get(st, (None, None))[0]
+                        if w is not None and not hasattr(w, "made_by"):
+                            w.made_by = (str(func), tuple(t.shape),
+                                         str(t.dtype).replace("torch.", ""))
+            return res
+
+    return PeakTracker()
+
+
+def _input_kinds(args) -> List[tuple]:
+    """(local tensor, MemTracker kind, label) of a cell's inputs: a train
+    state's params and optimizer moments, a serving step's params (its first
+    argument), everything else (batches, labels, a KV cache) inputs."""
+    roles = []
+
+    def add(tree, kind, label):
+        for t in _local_inputs(tree):
+            roles.append((t, kind, label))
+
+    for i, a in enumerate(args):
+        if i == 0 and isinstance(a, dict) and "params" in a and "opt" in a:
+            add(a["params"], "Parameter", "input: params")
+            add(a["opt"], "Optstate", "input: optimizer state")
+        elif i == 0:
+            add(a, "Parameter", "input: params")
+        else:
+            add(a, "Other", f"input: argument {i}")
+    return roles
+
+
 def trace_cell(cell) -> Dict[str, Any]:
     """Trace ``cell.fn(*cell.args)`` once under the cell's fake mode: the
     per-device counts ({"flops", "aten_flops", "kernel_flops", "bytes",
     "collectives", "peak_bytes", "input_bytes", "kernel_calls", "replicated":
-    the kernels whose work a DTensor form ran on gathered operands, with
-    the number of ranks doing the same work}).
+    the kernels and forms whose work a DTensor form ran on gathered operands,
+    with the number of ranks doing the same work; "replicated_flops": the
+    aten FLOPs each such form ran; "flops_by_op": the aten FLOPs by op;
+    "peak_by_kind": the peak in ``KINDS``; "peak_largest": the ``LARGEST``
+    largest tensors live at the peak with the op that made each}).
     Raises what the trace raises, with ``last_op`` set on the counter."""
-    from torch.distributed._tools.mem_tracker import MemTracker
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.kernels.fake import KernelWork
@@ -247,21 +358,30 @@ def trace_cell(cell) -> Dict[str, Any]:
         cell.setup()
     counter = TraceCounter()
     cell.trace_counter = counter  # the last op, for a failure's record
-    inputs = _local_inputs(cell.args)
-    mt = MemTracker()
+    roles = _input_kinds(cell.args)
+    inputs = [t for t, _, _ in roles]
+    mt = _peak_tracker()
     with cell.mode:
-        mt.track_external(*inputs)
+        mt.track_inputs(roles)
         with _dtensor_bookkeeping_unseen(), implicit_replication(), KernelWork() as kw, \
                 Replicated() as rep, ShardedForms(), mt, counter:
             out = cell.fn(*cell.args)
+        if mt._dirty:
+            mt.snapshot_live()
         del out
     peak = mt.get_tracker_snapshot("peak")
-    peak_bytes = max((v.get("Total", 0) for v in peak.values()), default=0)
+    dev_snap = max(peak.values(), key=lambda v: v.get("Total", 0), default={"Total": 0})
+    by_kind = {}
+    for k, v in dev_snap.items():
+        if k != "Total" and v:
+            by_kind[KINDS[k.value]] = by_kind.get(KINDS[k.value], 0) + v
     return dict(flops=counter.flops + kw.flops, aten_flops=counter.flops,
                 kernel_flops=kw.flops, bytes=counter.bytes + kw.bytes,
                 kernel_bytes=kw.bytes, collectives=counter.collectives,
-                peak_bytes=peak_bytes, input_bytes=_bytes(inputs),
-                kernel_calls=dict(kw.calls), replicated=dict(rep.factors))
+                peak_bytes=dev_snap.get("Total", 0), input_bytes=_bytes(inputs),
+                kernel_calls=dict(kw.calls), replicated=dict(rep.factors),
+                replicated_flops=dict(rep.flops), flops_by_op=dict(counter.flops_by_op),
+                peak_by_kind=by_kind, peak_largest=mt.largest)
 
 
 def run_cell(arch_id: str, shape_name: str, mesh_name: str, out_dir: str,
@@ -315,10 +435,13 @@ def run_cell(arch_id: str, shape_name: str, mesh_name: str, out_dir: str,
                 "trace_s": t_trace})
     rec = terms.to_dict()
     rec["memory"] = dict(peak_bytes=got["peak_bytes"], input_bytes=got["input_bytes"],
-                         hbm_bytes=HW.HBM_BYTES, fits=got["peak_bytes"] <= HW.HBM_BYTES)
+                         hbm_bytes=HW.HBM_BYTES, fits=got["peak_bytes"] <= HW.HBM_BYTES,
+                         by_kind=got["peak_by_kind"], largest=got["peak_largest"])
     rec["flops_split"] = dict(aten=got["aten_flops"], kernels=got["kernel_flops"])
+    rec["flops_by_op"] = got["flops_by_op"]
     rec["kernel_calls"] = got["kernel_calls"]
     rec["replicated"] = got["replicated"]
+    rec["replicated_flops"] = got["replicated_flops"]
     rec["kernel_bytes"] = got["kernel_bytes"]
     rec["collectives"] = coll
     rec["method"] = METHOD

@@ -34,13 +34,14 @@ def dryrun_table(recs: List[dict]) -> str:
     fit = f"fits {HW.HBM_BYTES / 1e9:.0f}G"
     lines = [
         f"| cell | mesh | chips | trace s | peak bytes/dev GiB | {fit} | "
-        "FLOPs/dev | bytes/dev | coll bytes/dev | collective mix | replicated work |",
-        "|---|---|---|---|---|---|---|---|---|---|---|",
+        "FLOPs/dev | bytes/dev | coll bytes/dev | collective mix | replicated work | "
+        "peak held by |",
+        "|---|---|---|---|---|---|---|---|---|---|---|---|",
     ]
     for r in sorted(recs, key=lambda r: (r["key"], r["mesh"])):
         if r.get("status") != "ok":
             lines.append(f"| {r['key']} | {r['mesh']} | {r['chips']} | FAIL at "
-                         f"`{r['op']}`: {r['error'].splitlines()[0][:120]} |||||||")
+                         f"`{r['op']}`: {r['error'].splitlines()[0][:120]} ||||||||")
             continue
         peak = r["memory"]["peak_bytes"]
         mix = ", ".join(f"{k}:{int(v)}" for k, v in r["collectives"]["count_by_kind"].items()
@@ -49,8 +50,28 @@ def dryrun_table(recs: List[dict]) -> str:
             f"| {r['key']} | {r['mesh']} | {r['chips']} | {r['extras']['trace_s']:.1f} | "
             f"{peak / 2**30:.2f} | {'Y' if peak <= HW.HBM_BYTES else 'NO'} | "
             f"{r['flops_per_device']:.2e} | {r['bytes_per_device']:.2e} | "
-            f"{r['collective_bytes_per_device']:.2e} | {mix} | {_replicated(r)} |")
+            f"{r['collective_bytes_per_device']:.2e} | {mix} | {_replicated(r)} | "
+            f"{_held(r)} |")
     return "\n".join(lines)
+
+
+_SHORT = {"parameters": "params", "gradients": "grads", "optimizer_state": "opt",
+          "activations": "act", "temporaries": "bwd", "inputs": "inputs", "buffers": "buf"}
+
+
+def _held(r: dict) -> str:
+    """What holds the peak: its two largest kinds' shares, and the largest
+    tensor live at the peak with the op that made it."""
+    mem = r.get("memory", {})
+    kinds = sorted(mem.get("by_kind", {}).items(), key=lambda kv: -kv[1])
+    total = mem.get("peak_bytes") or 1
+    out = ", ".join(f"{_SHORT.get(k, k)} {100 * v / total:.0f}%" for k, v in kinds[:2])
+    if mem.get("largest"):
+        t = mem["largest"][0]
+        op = t["op"].replace("aten.", "").replace("_c10d_functional.", "").replace(".default", "")
+        out += (f"; {t['bytes'] / 2**30:.2f} GiB `{op}` "
+                f"{'x'.join(map(str, t['shape']))} {t['dtype']}")
+    return out or "-"
 
 
 def _replicated(r: dict) -> str:

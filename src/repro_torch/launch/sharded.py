@@ -20,9 +20,27 @@ The forms:
   * ``reshape``, ``view``: a split of a dim the reshape merges or splits
     that DTensor's view cannot keep (uneven: K/V heads fewer than the
     ranks) is gathered first, in the forward and in the backward.
+  * ``expand`` of a replicated dim of size 1 to a size the ranks divide
+    (DIN retrieval's one user against every candidate): split over every
+    mesh dim as it is made (``_expand``).
   * the kernels (their entry points take the torch-function protocol):
     ``local_map`` over each rank's local tensors, with the splits each
     kernel's math allows kept (``run_local``).
+  * the MoE dispatch (``moe_ffn_grouped``, ``moe_ffn``; the torch-function
+    protocol): placed as ``expert_sharding`` says (``moe_dispatch``).
+    Grouped, one dispatch group a data shard: the router product on each
+    rank's share of the router's columns, the logits and the group's tokens
+    gathered over the expert dims, the slots routed once a group, each rank
+    running only its experts' (1, E/tp, C, d) slots; the outputs a partial
+    sum over the expert dims, which the next constraint reduce-scatters.
+    Ungrouped (a token count the groups do not divide): the same on all
+    tokens, repeated on every rank of the other dims (``moe_experts``).
+  * ``softmax_xent``, ``masked_softmax_xent`` (the torch-function
+    protocol): the vocab-parallel cross-entropy (``vocab_parallel_rows``);
+    the logits never gathered, the rows kept split.
+  * ``decode_gqa_attention``: as written (DTensor splits it as the cache is
+    split), its work recorded as repeated on the mesh dims that split no
+    dim of the cache (``decode_attention``; a batch that does not divide).
 
 ``torch.autograd.grad`` runs its engine with every torch-function mode off,
 so a checkpointed block's recompute would miss the forms: while the mode is
@@ -32,7 +50,11 @@ held (``with ShardedForms():``) the models' ``checkpoint`` calls get a
 Where the operand that sets a kernel's work is not split over a mesh dim
 (gathered by the form, or too small to split), every rank of that dim does
 the same work: the form says so to every active ``Replicated`` recorder, and
-the dry run writes it into the cell's record.
+the dry run writes it into the cell's record. The forms that repeat aten
+work (the MoE and decode-attention forms) also charge the FLOPs the dry
+run's counter sees while they run to their name (``replicated_work``,
+``note_flops``), so a record splits a rank's FLOPs into what is split and
+what is repeated.
 """
 from __future__ import annotations
 
@@ -44,18 +66,22 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 __all__ = ["ShardedForms", "Replicated", "run_local", "matmul", "take_rows",
-           "segment_sum", "rows_only", "reduce_partial"]
+           "segment_sum", "rows_only", "reduce_partial", "moe_dispatch",
+           "vocab_parallel_rows", "vocab_parallel_xent", "replicated_work", "note_flops"]
 
 _ACTIVE: List["Replicated"] = []
+_WORK: List[str] = []  # the replicating forms running now, innermost last
 
 
 class Replicated:
     """Collects, while active, the kernels whose work a form replicated:
-    ``{name: factor}``, the factor the largest seen (the number of ranks that
-    do the same work)."""
+    ``factors`` ``{name: factor}``, the factor the largest seen (the number
+    of ranks that do the same work), and ``flops`` ``{name: FLOPs}``, the
+    aten FLOPs counted while a form of that name ran (``replicated_work``)."""
 
     def __init__(self) -> None:
         self.factors: Dict[str, int] = {}
+        self.flops: Dict[str, int] = {}
 
     def __enter__(self) -> "Replicated":
         _ACTIVE.append(self)
@@ -69,6 +95,29 @@ def _note_replicated(name: str, factor: int) -> None:
     if factor > 1:
         for rec in _ACTIVE:
             rec.factors[name] = max(rec.factors.get(name, 1), factor)
+
+
+@contextlib.contextmanager
+def replicated_work(name: str, factor: int):
+    """Record ``name`` as work ``factor`` ranks repeat, and charge to it the
+    FLOPs counted while the block runs (``note_flops``)."""
+    _note_replicated(name, factor)
+    if factor <= 1:
+        yield
+        return
+    _WORK.append(name)
+    try:
+        yield
+    finally:
+        _WORK.pop()
+
+
+def note_flops(n: int) -> None:
+    """Charge ``n`` FLOPs of one op to the replicating form running now, if
+    any (the dry run's counter calls it for every op it counts)."""
+    if _WORK and n:
+        for rec in _ACTIVE:
+            rec.flops[_WORK[-1]] = rec.flops.get(_WORK[-1], 0) + n
 
 
 def _dtensor_type():
@@ -163,8 +212,11 @@ def take_rows(table, ids):
     """``table[ids]`` as ``F.embedding`` on the table's rows (trailing dims
     flattened), which DTensor shards for split ids and a row- or column-split
     table; a row-split table's rows come back as a masked partial, reduced
-    here once."""
+    here once; the table's columns are gathered over the mesh dims that split
+    the ids."""
     import torch.nn.functional as F
+
+    from torch.distributed.tensor import Replicate, Shard
 
     trailing = tuple(table.shape[1:])
     flat = table
@@ -173,34 +225,331 @@ def take_rows(table, ids):
         # split rows before the reshape's own backward
         flat = rows_only(table).reshape(table.shape[0], -1)
         flat = rows_only(flat) if _is_dt(flat) else flat
+    if _is_dt(flat) and _is_dt(ids):
+        # a column split on a mesh dim that splits the ids is gathered (FSDP's
+        # weight all-gather): else DTensor gathers the ids, the cheaper move
+        # for this op, and the rows come out whole on every rank of that dim
+        flat = flat.redistribute(flat.device_mesh, [
+            Replicate() if isinstance(pt, Shard) and pt.dim == 1 and isinstance(pi, Shard)
+            else pt for pt, pi in zip(flat.placements, ids.placements)])
+        gathered = _take_gathered(flat, ids)
+        if gathered is not None:
+            return gathered.reshape(*ids.shape, *trailing)
     out = F.embedding(ids, flat)
     out = rows_only(out) if _is_dt(out) else out
     return out.reshape(*ids.shape, *trailing)
+
+
+def _collective(op: str, x, group, *args):
+    """A ``_c10d_functional`` collective of ``x`` over ``group``, waited: the
+    ops themselves, whose names both torch releases the port meets share
+    (the Python wrappers moved and may hold the result in an async
+    wrapper)."""
+    ns = torch.ops._c10d_functional
+    name = group.group_name
+    if op == "all_reduce":
+        out = ns.all_reduce(x, *args, name)
+    else:
+        out = getattr(ns, op)(x.contiguous(), *args, group.size(), name)
+    return torch.ops._c10d_functional.wait_tensor(out)
+
+
+def _free(t) -> None:
+    """Release a whole-size buffer this module made once it is used, as FSDP
+    releases an all-gathered parameter: its storage emptied, whatever still
+    refers to it (a trace's tensors sit in reference cycles until the next
+    collection, and so held a gathered table beside the next layer's sums)."""
+    t.untyped_storage().resize_(0)
+
+
+class _GatheredTake(torch.autograd.Function):
+    """``F.embedding(ids, all-gather of the row shards over group)`` keeping
+    only the ids for the backward: the gradient, a whole-size partial sum of
+    the rows, is reduce-scattered back to this rank's shard."""
+
+    @staticmethod
+    def forward(ctx, tab, ids, group):
+        import torch.nn.functional as F
+
+        ctx.save_for_backward(ids)
+        ctx.rows, ctx.group = tab.shape[0], group
+        whole = _collective("all_gather_into_tensor", tab, group)
+        out = F.embedding(ids, whole)
+        _free(whole)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        (ids,) = ctx.saved_tensors
+        whole = torch.ops.aten.embedding_dense_backward(
+            g, ids, ctx.rows * dist.get_world_size(ctx.group), -1, False)
+        mine = _collective("reduce_scatter_tensor", whole, ctx.group, "sum")
+        _free(whole)
+        return mine, None, None
+
+
+class _TakeGatheredIds(torch.autograd.Function):
+    """The same take with the ids gathered instead: each rank takes every id
+    that falls in its rows (``row0`` on), the rows a partial sum reduce-
+    scattered to each rank's own ids; the gradient all-gathered and added
+    into this rank's rows."""
+
+    @staticmethod
+    def forward(ctx, tab, ids, group, row0):
+        import torch.nn.functional as F
+
+        every = _collective("all_gather_into_tensor", ids.reshape(-1), group)
+        local = every.long() - row0
+        _free(every)
+        mine = (local >= 0) & (local < tab.shape[0])
+        local = local.clamp(0, tab.shape[0] - 1)
+        rows = torch.where(mine[:, None], F.embedding(local, tab), 0)
+        ctx.save_for_backward(local, mine)
+        ctx.rows, ctx.group = tab.shape[0], group
+        out = _collective("reduce_scatter_tensor", rows, group, "sum")
+        _free(rows)
+        return out.reshape(*ids.shape, tab.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        local, mine = ctx.saved_tensors
+        every = _collective("all_gather_into_tensor", g.reshape(-1, g.shape[-1]), ctx.group)
+        whole = torch.where(mine[:, None], every, 0)
+        _free(every)
+        grad = torch.ops.aten.embedding_dense_backward(whole, local, ctx.rows, -1, False)
+        _free(whole)
+        return grad, None, None, None
+
+
+def _take_gathered(flat, ids):
+    """``F.embedding(ids, flat)`` where every mesh dim that splits the
+    table's rows also splits the ids (a graph's node rows taken by its
+    edges, candidates' rows of an item table), each collective over those
+    dims at once: the rows gathered and each rank taking its own ids, the
+    gradient reduce-scattered back (``_GatheredTake``), or, when the ids are
+    fewer than the rows, the ids gathered, each rank taking those in its
+    rows, the rows reduce-scattered (``_TakeGatheredIds``); either keeps one
+    whole-size buffer of the smaller kind. DTensor's own embedding rule goes
+    one mesh dim at a time in the backward and keeps whole-size and
+    half-size buffers on three dims. None where the placements are not of
+    that kind."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = flat.device_mesh
+    if any(isinstance(p, Shard) and p.dim != 0 for p in flat.placements) or \
+            any(p.is_partial() for p in ids.placements):
+        return None
+    dims = [i for i, p in enumerate(flat.placements) if isinstance(p, Shard)]
+    ranks = math.prod(mesh.size(i) for i in dims) if dims else 1
+    if not dims or any(ids.placements[i] != Shard(0) for i in dims) or \
+            flat.shape[0] % ranks or ids.shape[0] % ranks:
+        return None
+    group = _flat_group(mesh, dims)
+    tab_grad = [p if i in dims else Partial() if isinstance(ids.placements[i], Shard)
+                else Replicate() for i, p in enumerate(flat.placements)]
+    if flat.shape[0] <= ids.numel():
+        def take(tab, i):
+            return _GatheredTake.apply(tab, i, group)
+    else:
+        row0 = _shard_offset(flat.shape[0], mesh, dims)
+
+        def take(tab, i):
+            return _TakeGatheredIds.apply(tab, i, group, row0)
+
+    return local_map(take, out_placements=list(ids.placements),
+                     in_placements=(list(flat.placements), list(ids.placements)),
+                     in_grad_placements=(tab_grad, list(ids.placements)), device_mesh=mesh,
+                     redistribute_inputs=True)(flat, ids)
+
+
+def _flat_group(mesh, dims):
+    """The process group of the mesh dims ``dims`` taken as one, ranks in
+    mesh order (outer first, as DTensor chunks a dim split over several).
+    Made with every mode off: the mesh's own bookkeeping runs tensor ops."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    if len(dims) == 1:
+        return mesh.get_group(dims[0])
+    with _disable_current_modes():
+        sub = mesh[tuple(mesh.mesh_dim_names[i] for i in dims)]
+        return sub._flatten().get_group(0)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """A reduce-scatter SUM over ``group`` whose backward all-gathers the
+    gradient; it keeps nothing for the backward (the whole-size partial sum
+    it reduces dies here, not with the step's graph)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = _collective("reduce_scatter_tensor", x, group, "sum")
+        _free(x)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _collective("all_gather_into_tensor", g, ctx.group), None
 
 
 def segment_sum(values, index, num_rows: int):
     """``zeros((num_rows, ...)).index_add(0, index, values)`` for a DTensor
     ``values``: each rank adds its share of the rows into a whole-size
     buffer, a partial sum over the mesh dims that split the rows, reduce-
-    scattered to rows split the same way (DTensor's own ``index_add`` rule
-    gathers the index but not the values); ``index`` is laid out as
-    ``values``' rows."""
+    scattered in one collective over those dims taken together (DTensor's
+    own redistribute goes one mesh dim at a time, and on three dims keeps a
+    half-size buffer between the first two steps) to rows split the same
+    way (DTensor's own ``index_add`` rule gathers the index but not the
+    values); ``index`` is laid out as ``values``' rows."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     values = rows_only(values)
     mesh, pl = values.device_mesh, list(values.placements)
+    split = [i for i, p in enumerate(pl) if isinstance(p, Shard)]
     idx_pl = [Shard(0) if isinstance(p, Shard) else Replicate() for p in pl]
-    out_pl = [Partial() if isinstance(p, Shard) else Replicate() for p in pl]
+    whole = bool(split) and num_rows % math.prod(mesh.size(i) for i in split) == 0
+    group = _flat_group(mesh, split) if whole else None
 
     def add(v, i):
         out = torch.zeros((num_rows,) + tuple(v.shape[1:]), dtype=v.dtype, device=v.device)
-        return out.index_add(0, i, v)
+        out.index_add_(0, i, v)
+        return out if group is None else _ReduceScatter.apply(out, group)
 
+    if whole:
+        return local_map(add, out_placements=idx_pl, in_placements=(pl, idx_pl),
+                         device_mesh=mesh, redistribute_inputs=True)(values, index)
+    out_pl = [Partial() if isinstance(p, Shard) else Replicate() for p in pl]
     partial = local_map(add, out_placements=out_pl, in_placements=(pl, idx_pl),
                         device_mesh=mesh, redistribute_inputs=True)(values, index)
     return partial.redistribute(mesh, [Shard(0) if isinstance(p, Partial) else p
                                        for p in partial.placements])
+
+
+def _shard_offset(size: int, mesh, dims) -> int:
+    """The first index this rank holds of a dim of ``size`` split evenly over
+    the mesh dims ``dims`` (outer first, as DTensor chunks)."""
+    coord = mesh.get_coordinate()
+    idx = 0
+    for i in sorted(dims):
+        idx = idx * mesh.size(i) + coord[i]
+    return idx * (size // math.prod(mesh.size(i) for i in dims))
+
+
+def moe_dispatch(x, router_w, w1, w3, w2, cfg, capacity: int, expert_sharding,
+                 groups: int = 1):
+    """The MoE FFN on a DTensor ``x`` (T, d), placed by ``expert_sharding``:
+    the (G, E, C, d) buffers' ``(mesh, placements)`` when ``groups`` > 1
+    (the mesh dims splitting G hold one dispatch group a rank, those
+    splitting E its experts), else the (E, C, d) buffers'. Returns (out (T,
+    d): rows split over the group dims, a partial sum over the expert dims;
+    aux, a partial sum). The slots are the plain dispatch's
+    (``models.layers.route_logits`` on the group's tokens, the same
+    capacity); FLOPs split over the group and expert dims, and the mesh dims
+    that split neither repeat the router product and the dispatch
+    (``Replicated``: ``moe_experts``)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.models.layers import _mm, combine_experts, route_logits
+
+    mesh, place = expert_sharding
+    ndim = mesh.ndim
+    gdims = {i for i, p in enumerate(place)
+             if groups > 1 and isinstance(p, Shard) and p.dim == 0}
+    edims = {i for i, p in enumerate(place)
+             if isinstance(p, Shard) and p.dim == (1 if groups > 1 else 0)}
+    n_expert_ranks = math.prod(mesh.size(i) for i in edims)
+    repeat = math.prod(mesh.size(i) for i in range(ndim) if i not in gdims | edims)
+
+    def placed(on_g, on_e, other=Replicate):
+        return [on_g() if i in gdims else on_e() if i in edims else other()
+                for i in range(ndim)]
+
+    rows = placed(lambda: Shard(0), Replicate)
+    w_pl = placed(Replicate, lambda: Shard(0))
+    e0 = _shard_offset(cfg.num_experts, mesh, edims)
+    with replicated_work("moe_experts", repeat):
+        x = x.redistribute(mesh, rows)  # the group's tokens
+        router_w = router_w.redistribute(mesh, placed(Replicate, lambda: Shard(1)))
+        # the router product on this rank's columns, the logits gathered
+        logits = _mm(x, router_w).to(torch.float32).redistribute(mesh, rows)
+
+        def dispatch(xl, lg, a, b, c):
+            tok, gate, me, ce = route_logits(lg, cfg, capacity, xl.dtype)
+            mine = slice(e0 * capacity, (e0 + a.shape[0]) * capacity)
+            out = combine_experts(xl, tok[mine], gate[mine], a, b, c, capacity)
+            aux = cfg.router_aux_weight * cfg.num_experts * torch.sum(me * ce)
+            return out, aux / (groups * n_expert_ranks)
+
+        partial_e = placed(lambda: Shard(0), Partial)
+        w_grad = placed(Partial, lambda: Shard(0))
+        return local_map(
+            dispatch, out_placements=(partial_e, placed(Partial, Partial)),
+            in_placements=(rows, rows, w_pl, w_pl, w_pl),
+            in_grad_placements=(partial_e, partial_e, w_grad, w_grad, w_grad),
+            device_mesh=mesh, redistribute_inputs=True)(x, logits, w1, w3, w2)
+
+
+class _SumAcross(torch.autograd.Function):
+    """An all-reduce SUM over ``group`` whose result every rank uses as its
+    own: the gradient passes through (each rank differentiates only its own
+    terms)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _collective("all_reduce", x, group, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def vocab_parallel_rows(logits, labels):
+    """The per-row cross-entropy of DTensor logits (..., V) whose vocab (or
+    class) dim may be split: each rank takes its shard's row max,
+    all-reduced MAX, its sum of exponentials, all-reduced SUM, and the gold
+    logit where its shard holds the label (a masked local take, all-reduced
+    SUM). The rows keep their split; the logits are never gathered, in the
+    forward or the backward."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    logits = reduce_partial(logits)
+    mesh, last = logits.device_mesh, logits.dim() - 1
+    vdims = [i for i, p in enumerate(logits.placements) if isinstance(p, Shard) and p.dim == last]
+    rows = [p if isinstance(p, Shard) and p.dim < last else Replicate()
+            for p in logits.placements]
+    lg_pl = [Shard(last) if i in vdims else p for i, p in enumerate(rows)]
+    groups = [mesh.get_group(i) for i in vdims]
+    v0 = _shard_offset(logits.shape[-1], mesh, vdims)
+
+    def xent(lg, lab):
+        lg = lg.to(torch.float32)
+        m = lg.amax(dim=-1).detach()
+        for g in groups:
+            m = _collective("all_reduce", m, g, "max")
+        s = torch.exp(lg - m[..., None]).sum(dim=-1)
+        idx = lab.long() - v0
+        mine = (idx >= 0) & (idx < lg.shape[-1])
+        gold = torch.gather(lg, -1, idx.clamp(0, lg.shape[-1] - 1)[..., None])[..., 0]
+        gold = torch.where(mine, gold, torch.zeros_like(gold))
+        for g in groups:
+            s, gold = _SumAcross.apply(s, g), _SumAcross.apply(gold, g)
+        return m + torch.log(s) - gold
+
+    return local_map(xent, out_placements=rows, in_placements=(lg_pl, rows), device_mesh=mesh,
+                     redistribute_inputs=True)(logits, labels)
+
+
+def vocab_parallel_xent(logits, labels):
+    """``losses.softmax_xent`` on DTensor logits: the mean of
+    ``vocab_parallel_rows``, a partial sum over the mesh dims that split the
+    rows."""
+    return vocab_parallel_rows(logits, labels).mean()
 
 
 # ---------------------------------------------------------------------------
@@ -248,6 +597,34 @@ def _grad_placed_as(y):
                               shape=y.shape, stride=y.stride())
 
 
+def _expand(x, *sizes):
+    """A replicated DTensor broadcast along one dim of size 1 to a size the
+    ranks divide: each rank's share of the broadcast, split over every mesh
+    dim (a view, nothing moves). Replicated, its consumers would split it
+    one mesh dim at a time, each step copying a chunk of the broadcast."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not _is_dt(x) or any(not isinstance(p, Replicate) for p in x.placements):
+        return NotImplemented
+    sizes = list(sizes[0] if len(sizes) == 1 and isinstance(sizes[0], (tuple, list, torch.Size))
+                 else sizes)
+    if len(sizes) != x.dim():
+        return NotImplemented
+    grown = [i for i, (old, new) in enumerate(zip(x.shape, sizes)) if new not in (-1, old)]
+    mesh = x.device_mesh
+    if len(grown) != 1 or x.shape[grown[0]] != 1 or sizes[grown[0]] % mesh.size():
+        return NotImplemented
+    d = grown[0]
+    local = list(x.shape)
+    local[d] = sizes[d] // mesh.size()
+    # each rank's gradient sums its share of the broadcast: a partial sum
+    out = x.to_local(grad_placements=[Partial()] * mesh.ndim).expand(local)
+    glob = list(x.shape)
+    glob[d] = sizes[d]
+    return DTensor.from_local(out, mesh, [Shard(d)] * mesh.ndim, run_check=False,
+                              shape=torch.Size(glob), stride=out.stride())
+
+
 def _matmul(x, w, *a, **k):
     if a or k or not _is_dt(x) or x.dim() < 3 or w.dim() != 2:
         return NotImplemented
@@ -268,9 +645,25 @@ def _index_select(table, dim, ids):
 
 
 def _index_add(self, dim, index, source, *, alpha=1):
+    """A plain base (the models' ``zeros``, the same on every rank) is added
+    as this rank's rows of it: DTensor would split a replicated operand one
+    mesh dim at a time, copying a chunk of it at each step."""
+    from torch.distributed.tensor import DTensor, Shard
+
     if dim != 0 or alpha != 1 or not _is_dt(source):
         return NotImplemented
-    return self + segment_sum(source, index, self.shape[0])
+    summed = segment_sum(source, index, self.shape[0])
+    mesh = summed.device_mesh
+    dims = [i for i, p in enumerate(summed.placements) if p == Shard(0)]
+    ranks = math.prod(mesh.size(i) for i in dims)
+    if not _is_dt(self) and dims and self.shape[0] % ranks == 0 and \
+            all(i in dims or not p.is_shard() and not p.is_partial()
+                for i, p in enumerate(summed.placements)):
+        n = self.shape[0] // ranks
+        r0 = _shard_offset(self.shape[0], mesh, dims)
+        self = DTensor.from_local(self[r0:r0 + n], mesh, summed.placements, run_check=False,
+                                  shape=self.shape, stride=self.stride())
+    return self + summed
 
 
 def _gather(inp, dim, index, *a, **k):
@@ -326,20 +719,72 @@ def _segment_softmax(scores, dt, dst, valid):
                      ((), (), ()), name="segment_softmax")
 
 
+def _moe_grouped(x, router_w, w1, w3, w2, cfg, capacity, groups, expert_sharding=None):
+    from torch.distributed.tensor import Shard
+
+    if expert_sharding is None or not _is_dt(x):
+        return NotImplemented
+    mesh, place = expert_sharding
+    split = math.prod(mesh.size(i) for i, p in enumerate(place) if p == Shard(0))
+    if split != groups:  # one group a rank of the dims that split G, or no form
+        return NotImplemented
+    return moe_dispatch(x, router_w, w1, w3, w2, cfg, capacity, expert_sharding, groups)
+
+
+def _moe(x, router_w, w1, w3, w2, cfg, capacity, expert_sharding=None):
+    if expert_sharding is None or not _is_dt(x):
+        return NotImplemented
+    return moe_dispatch(x, router_w, w1, w3, w2, cfg, capacity, expert_sharding)
+
+
+def _softmax_xent(logits, labels):
+    if not _is_dt(logits):
+        return NotImplemented
+    return vocab_parallel_xent(logits, labels)
+
+
+def _masked_softmax_xent(logits, labels, mask):
+    if not _is_dt(logits):
+        return NotImplemented
+    per = vocab_parallel_rows(logits, labels) * mask
+    return per.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _decode_attention(q, k_cache, v_cache, length_mask, scale=None):
+    """As written, the forms held over it; the mesh dims that split no dim of
+    the cache repeat its work."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.models.layers import _decode_gqa_attention
+
+    if not _is_dt(k_cache):
+        return NotImplemented
+    mesh = k_cache.device_mesh
+    repeat = math.prod(mesh.size(i) for i, p in enumerate(k_cache.placements)
+                       if not isinstance(p, Shard))
+    with replicated_work("decode_attention", repeat), ShardedForms():
+        return _decode_gqa_attention(q, k_cache, v_cache, length_mask, scale)
+
+
 def _rules() -> dict:
     from repro_torch.kernels.embedding_bag.ops import embedding_bag
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.segment_softmax.ops import segment_softmax_edges
+    from repro_torch.models.layers import decode_gqa_attention, moe_ffn, moe_ffn_grouped
+    from repro_torch.train.losses import masked_softmax_xent, softmax_xent
 
     return {
         torch.Tensor.__matmul__: _matmul, torch.Tensor.matmul: _matmul, torch.matmul: _matmul,
         torch.Tensor.reshape: _reshape, torch.reshape: _reshape, torch.Tensor.view: _reshape,
-        torch.Tensor.__getitem__: _getitem,
+        torch.Tensor.__getitem__: _getitem, torch.Tensor.expand: _expand,
         torch.Tensor.index_select: _index_select, torch.index_select: _index_select,
         torch.Tensor.index_add: _index_add,
         torch.gather: _gather, torch.Tensor.gather: _gather,
         flash_attention: _flash, embedding_bag: _embedding_bag,
         segment_softmax_edges: _segment_softmax,
+        moe_ffn_grouped: _moe_grouped, moe_ffn: _moe, softmax_xent: _softmax_xent,
+        masked_softmax_xent: _masked_softmax_xent,
+        decode_gqa_attention: _decode_attention,
     }
 
 

@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function
 from torch.utils.checkpoint import checkpoint
 
 __all__ = [
@@ -29,6 +30,8 @@ __all__ = [
     "swiglu",
     "moe_ffn",
     "moe_ffn_grouped",
+    "route_logits",
+    "combine_experts",
     "init_dense_ffn",
     "init_moe_ffn",
     "init_attention",
@@ -129,7 +132,15 @@ def decode_gqa_attention(
     length_mask: torch.Tensor,  # (B, S) bool — which cache slots are filled
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Single-step decode attention over the whole cache, masked."""
+    """Single-step decode attention over the whole cache, masked. Takes the
+    torch-function protocol (a dry run's ``launch.sharded.ShardedForms``)."""
+    if has_torch_function((q, k_cache, v_cache, length_mask)):
+        return handle_torch_function(decode_gqa_attention, (q, k_cache, v_cache, length_mask),
+                                     q, k_cache, v_cache, length_mask, scale)
+    return _decode_gqa_attention(q, k_cache, v_cache, length_mask, scale)
+
+
+def _decode_gqa_attention(q, k_cache, v_cache, length_mask, scale=None):
     b, hq, _, d = q.shape
     hkv = k_cache.shape[1]
     group = hq // hkv
@@ -167,9 +178,18 @@ def _top_k(gates: torch.Tensor, k: int):
 def _route(x, router_w, cfg: MoEConfig, capacity: int):
     """Slots of one dispatch group: (token of each slot, t for an empty one;
     its gate in x's type; the mean gates; the expert load)."""
-    t = x.shape[0]
+    return route_logits(_mm(x, router_w).to(torch.float32), cfg, capacity, x.dtype)
+
+
+def route_logits(logits: torch.Tensor, cfg: MoEConfig, capacity: int, dtype: torch.dtype):
+    """``_route`` from the group's router logits (T, E), float32. Every
+    shape is static: each expert's first sorted position comes from
+    ``searchsorted`` on the sorted ids (the reference counts each expert's
+    ids into a fixed-length vector, then takes its exclusive cumulative
+    sum: the same integers), so a fake trace sizes it and the card makes no
+    host sync."""
+    t = logits.shape[0]
     e, k = cfg.num_experts, cfg.top_k
-    logits = _mm(x, router_w).to(torch.float32)  # (T, E)
     gates = torch.softmax(logits, dim=-1)
     top_g, top_i = _top_k(gates, k)
     top_g = top_g / torch.clamp(top_g.sum(-1, keepdim=True), min=1e-9)
@@ -179,16 +199,15 @@ def _route(x, router_w, cfg: MoEConfig, capacity: int):
     eids_s = eids[order]
     tok_s = order // k
     g_s = gvals[order]
-    counts = torch.bincount(eids_s, minlength=e)
-    starts = torch.cumsum(counts, 0) - counts
-    pos = torch.arange(t * k, device=x.device) - starts[eids_s]
+    starts = torch.searchsorted(eids_s, torch.arange(e, device=logits.device))
+    pos = torch.arange(t * k, device=logits.device) - starts[eids_s]
     slot = torch.where(pos < capacity, eids_s * capacity + pos, e * capacity)  # dump slot
-    tok_for_slot = torch.full((e * capacity + 1,), t, dtype=torch.long, device=x.device)
+    tok_for_slot = torch.full((e * capacity + 1,), t, dtype=torch.long, device=logits.device)
     tok_for_slot[slot] = tok_s
-    g_for_slot = torch.zeros((e * capacity + 1,), dtype=x.dtype, device=x.device)
-    g_for_slot[slot] = g_s.to(x.dtype)
+    g_for_slot = torch.zeros((e * capacity + 1,), dtype=dtype, device=logits.device)
+    g_for_slot[slot] = g_s.to(dtype)
     me = gates.mean(dim=0)  # (E,)
-    ce = torch.zeros((e,), dtype=torch.float32, device=x.device).index_add_(
+    ce = torch.zeros((e,), dtype=torch.float32, device=logits.device).index_add_(
         0, eids, torch.ones_like(eids, dtype=torch.float32)) / (t * k)
     return tok_for_slot[:-1], g_for_slot[:-1], me, ce
 
@@ -200,16 +219,37 @@ def _experts(gathered, w1, w3, w2):
     return torch.einsum("...ecf,efd->...ecd", F.silu(h) * h3, w2)
 
 
+def combine_experts(x, tok_for_slot, g_for_slot, w1, w3, w2, capacity: int):
+    """One group's tokens x (T, d) through the experts of ``w1``/``w3``/``w2``
+    (E', ...): slot j of expert i holds token ``tok_for_slot[i * capacity +
+    j]`` (T for an empty slot) with gate ``g_for_slot[...]``; the weighted
+    outputs added into their tokens' rows, (T, d)."""
+    t, d = x.shape
+    x_pad = torch.cat([x, torch.zeros((1, d), dtype=x.dtype, device=x.device)], dim=0)
+    gathered = x_pad[tok_for_slot].reshape(w1.shape[0], capacity, d)
+    out_slots = _experts(gathered, w1, w3, w2)
+    out_slots = out_slots.reshape(-1, d) * g_for_slot[:, None]
+    return torch.zeros((t + 1, d), dtype=x.dtype, device=x.device).index_add_(
+        0, tok_for_slot, out_slots)[:t]
+
+
 def moe_ffn_grouped(
     x: torch.Tensor,  # (T, d)
     router_w, w1, w3, w2,
     cfg: MoEConfig,
     capacity: int,  # PER-GROUP capacity
     groups: int,
-    expert_sharding=None,  # inert on one card (the reference's GSPMD constraint)
+    expert_sharding=None,  # (mesh, placements) of the (G, E, C, d) buffers
 ):
     """Grouped MoE dispatch: tokens split into ``groups`` independent
-    dispatch groups, each with its own capacity."""
+    dispatch groups, each with its own capacity. ``expert_sharding`` is the
+    reference's GSPMD constraint: on plain tensors inert; it places a dry
+    run's DTensor form (``launch.sharded``), which this function reaches
+    through the torch-function protocol."""
+    if has_torch_function((x, router_w, w1, w3, w2)):
+        return handle_torch_function(moe_ffn_grouped, (x, router_w, w1, w3, w2), x, router_w,
+                                     w1, w3, w2, cfg, capacity, groups,
+                                     expert_sharding=expert_sharding)
     t, d = x.shape
     g, e = groups, cfg.num_experts
     tg = t // g
@@ -239,26 +279,23 @@ def moe_ffn(
     w2: torch.Tensor,  # (E, f, d)
     cfg: MoEConfig,
     capacity: int,
-    expert_sharding=None,  # inert on one card (the reference's GSPMD constraint)
+    expert_sharding=None,  # (mesh, placements) of the (E, C, d) buffers
 ):
-    t, d = x.shape
-    e = cfg.num_experts
+    """Ungrouped MoE dispatch; ``expert_sharding`` as ``moe_ffn_grouped``'s."""
+    if has_torch_function((x, router_w, w1, w3, w2)):
+        return handle_torch_function(moe_ffn, (x, router_w, w1, w3, w2), x, router_w, w1, w3,
+                                     w2, cfg, capacity, expert_sharding=expert_sharding)
     tok_for_slot, g_for_slot, me, ce = _route(x, router_w, cfg, capacity)
-    x_pad = torch.cat([x, torch.zeros((1, d), dtype=x.dtype, device=x.device)], dim=0)
-    gathered = x_pad[tok_for_slot].reshape(e, capacity, d)
-    out_slots = _experts(gathered, w1, w3, w2)
-    out_slots = out_slots.reshape(e * capacity, d) * g_for_slot[:, None]
-    out = torch.zeros((t + 1, d), dtype=x.dtype, device=x.device).index_add_(
-        0, tok_for_slot, out_slots)[:t]
+    out = combine_experts(x, tok_for_slot, g_for_slot, w1, w3, w2, capacity)
     # Switch-style load-balance auxiliary loss
-    aux = cfg.router_aux_weight * e * torch.sum(me * ce)
+    aux = cfg.router_aux_weight * cfg.num_experts * torch.sum(me * ce)
     return out, aux
 
 
 # ---------------------------------------------------------------------------
 # Initializers: one layer's leaves, each drawn in float32 from ``generator``
-# (on its device) and stored in ``dtype`` on ``device``. The reference draws
-# from jax.random keys, so the values differ; the scales are the same.
+# (on its device) and stored in ``dtype`` on ``device``. The reference uses
+# JAX random keys, so the values differ; the scales are the same.
 # ---------------------------------------------------------------------------
 
 

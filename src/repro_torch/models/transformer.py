@@ -17,7 +17,8 @@ of ``LMConfig`` (``act_sharding``, ``logit_sharding``, ``expert_sharding``,
 ``attn_sharding``, ``scan_unroll``) are kept so that configs compare value
 for value; the sharding fields reach ``_wsc`` where the reference
 constrains: a redistribute when the activations are DTensors (the dry run on
-a production mesh), the identity on plain tensors.
+a production mesh), the identity on plain tensors. ``expert_sharding``
+reaches the MoE functions, as the reference's ``_ffn`` passes it.
 """
 from __future__ import annotations
 
@@ -201,10 +202,10 @@ def _ffn(lp, x, cfg: LMConfig):
     if cfg.moe_groups > 1:
         out, aux = moe_ffn_grouped(flat, ffn["router"], ffn["w1"], ffn["w3"], ffn["w2"],
                                    cfg.moe, capacity=cfg.capacity(b * s // cfg.moe_groups),
-                                   groups=cfg.moe_groups)
+                                   groups=cfg.moe_groups, expert_sharding=cfg.expert_sharding)
     else:
         out, aux = moe_ffn(flat, ffn["router"], ffn["w1"], ffn["w3"], ffn["w2"], cfg.moe,
-                           capacity=cfg.capacity(b * s))
+                           capacity=cfg.capacity(b * s), expert_sharding=cfg.expert_sharding)
     return out.reshape(b, s, d), aux
 
 

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import torch
+from torch.overrides import handle_torch_function, has_torch_function
 
 __all__ = ["softmax_xent", "masked_softmax_xent", "binary_xent", "mse"]
 
@@ -15,10 +16,19 @@ def _per_row(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy over the rows. Takes the torch-function protocol (a
+    dry run's ``launch.sharded.ShardedForms``: the vocab-parallel form)."""
+    if has_torch_function((logits, labels)):
+        return handle_torch_function(softmax_xent, (logits, labels), logits, labels)
     return _per_row(logits, labels).mean()
 
 
 def masked_softmax_xent(logits, labels, mask) -> torch.Tensor:
+    """Cross-entropy averaged over the rows ``mask`` keeps; the torch-function
+    protocol as ``softmax_xent``."""
+    if has_torch_function((logits, labels, mask)):
+        return handle_torch_function(masked_softmax_xent, (logits, labels, mask), logits,
+                                     labels, mask)
     per = _per_row(logits, labels) * mask
     return per.sum() / torch.clamp(mask.sum(), min=1.0)
 

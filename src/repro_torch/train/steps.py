@@ -28,7 +28,7 @@ from repro_torch.train.optim import (
 __all__ = ["init_train_state", "make_lm_loss", "make_lm_train_step", "make_lm_prefill",
            "make_lm_decode_step", "make_gnn_loss", "make_gnn_train_step", "make_gnn_infer",
            "make_din_loss", "make_din_train_step", "make_din_serve", "make_din_retrieval",
-           "value_and_grad"]
+           "value_and_grad", "mask_vocab_padding"]
 
 
 def init_train_state(params, opt_cfg: AdamWConfig):
@@ -59,15 +59,23 @@ def value_and_grad(loss_fn: Callable, params, *args):
 # ---------------------------------------------------------------------------
 
 
+def mask_vocab_padding(logits: torch.Tensor, vocab_real) -> torch.Tensor:
+    """``logits`` (..., V) with the columns from ``vocab_real`` on set to -1e30
+    (a padded vocab); elementwise, so a vocab-split DTensor keeps its split."""
+    vocab = logits.shape[-1]
+    if vocab_real is None or vocab_real >= vocab:
+        return logits
+    pad_mask = torch.arange(vocab, device=logits.device) >= vocab_real
+    return torch.where(pad_mask, torch.tensor(-1e30, dtype=logits.dtype, device=logits.device),
+                       logits)
+
+
 def make_lm_loss(cfg: tfm.LMConfig):
     """``loss_fn(params, tokens, labels)``: next-token cross-entropy plus the
     MoE aux loss; the padding columns of a padded vocab get -1e30."""
     def loss_fn(params, tokens, labels):
         logits, aux = tfm.forward(params, tokens, cfg)
-        if cfg.vocab_real is not None and cfg.vocab_real < cfg.vocab:
-            pad_mask = torch.arange(cfg.vocab, device=logits.device) >= cfg.vocab_real
-            logits = torch.where(pad_mask, torch.tensor(-1e30, dtype=logits.dtype,
-                                                        device=logits.device), logits)
+        logits = mask_vocab_padding(logits, cfg.vocab_real)
         return losses.softmax_xent(logits, labels) + aux
 
     return loss_fn

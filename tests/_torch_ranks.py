@@ -1,6 +1,6 @@
 """Rank bodies of tests/test_torch_distributed.py, test_torch_elastic.py,
-test_torch_fault_tolerance.py, test_torch_compression.py and
-test_torch_pipeline.py: functions that
+test_torch_fault_tolerance.py, test_torch_compression.py,
+test_torch_pipeline.py and test_torch_sharded_loss.py: functions that
 ``repro_torch.launch.mesh.spawn_ranks`` runs in every spawned rank (gloo, the
 CPU). They import only the port, so a rank never loads JAX; the test files
 hold their results against the reference's.
@@ -339,4 +339,110 @@ def recommend_sharded(rank, group, params_by_case):
             answers.append(s.recommend_for(pg, r))
             drops.append(sum(s.dropped[before:]))
         out[case] = (answers, drops, s.table_shards)
+    return out
+
+
+def vocab_parallel_xent(rank, group, cases):
+    """``losses.softmax_xent`` (or, given a row mask, ``masked_softmax_xent``)
+    of DTensor logits on a (2, 2) CPU mesh under
+    ``launch.sharded.ShardedForms`` (the vocab-parallel form), the padded
+    vocab masked first as the LM loss does: per case (logits, labels,
+    vocab_real, the logits' split dim on each mesh dim, mask or None) the
+    loss, the logits' whole gradient and the loss's placements."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.sharded import ShardedForms
+    from repro_torch.train.losses import masked_softmax_xent, softmax_xent
+    from repro_torch.train.steps import mask_vocab_padding
+
+    torch.set_num_threads(1)
+    mesh = DeviceMesh("cpu", [[0, 1], [2, 3]], mesh_dim_names=("data", "model"))
+    out = {}
+    for name, (logits, labels, vocab_real, dims, mask) in cases.items():
+        place = [Shard(d) if d is not None else Replicate() for d in dims]
+        rows = [p if isinstance(p, Shard) and p.dim < logits.ndim - 1 else Replicate()
+                for p in place]
+        lg = distribute_tensor(torch.from_numpy(logits), mesh, place).requires_grad_(True)
+        lab = distribute_tensor(torch.from_numpy(labels), mesh, rows)
+        with implicit_replication():  # the mask is a plain tensor, as in a dry run
+            with ShardedForms():
+                masked = mask_vocab_padding(lg, vocab_real)
+                loss = (softmax_xent(masked, lab) if mask is None else masked_softmax_xent(
+                    masked, lab, distribute_tensor(torch.from_numpy(mask), mesh, rows)))
+            loss.backward()
+        out[name] = (float(loss.full_tensor()), lg.grad.full_tensor().numpy(),
+                     [type(p).__name__ for p in loss.placements])
+    return out
+
+
+def moe_dispatch_grads(rank, group, args, cfg_kw, capacity, groups, cotangent):
+    """``moe_ffn_grouped`` (``groups`` > 1) or ``moe_ffn`` on DTensors of a
+    (2, 2) CPU mesh under ``ShardedForms`` (``launch.sharded.moe_dispatch``),
+    placed as a dry run places them: tokens over ``data`` (replicated over
+    ``model``, as the sequence gather leaves them), the router's columns and
+    the experts over ``model``, the experts' d_model over ``data``. The
+    output, the aux loss and the gradients of ``sum(out * cotangent) + aux``
+    with respect to every input, whole."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch.sharded import ShardedForms
+    from repro_torch.models import layers
+
+    torch.set_num_threads(1)
+    mesh = DeviceMesh("cpu", [[0, 1], [2, 3]], mesh_dim_names=("data", "model"))
+    place = [[Shard(0) if groups > 1 else Replicate(), Replicate()],  # x (T, d)
+             [Replicate(), Shard(1)],  # router (d, E)
+             [Shard(1), Shard(0)], [Shard(1), Shard(0)],  # w1, w3 (E, d, f)
+             [Shard(2), Shard(0)]]  # w2 (E, f, d)
+    ins = [distribute_tensor(torch.from_numpy(a), mesh, p).requires_grad_(True)
+           for a, p in zip(args, place)]
+    cfg = layers.MoEConfig(**cfg_kw)
+    with ShardedForms():
+        if groups > 1:
+            out, aux = layers.moe_ffn_grouped(*ins, cfg, capacity, groups,
+                                              expert_sharding=(mesh, [Shard(0), Shard(1)]))
+        else:
+            out, aux = layers.moe_ffn(*ins, cfg, capacity,
+                                      expert_sharding=(mesh, [Replicate(), Shard(0)]))
+    ct = distribute_tensor(torch.from_numpy(cotangent), mesh, [Replicate(), Replicate()])
+    ((out * ct).sum() + aux).backward()
+    return dict(out=out.full_tensor().detach().numpy(), aux=float(aux.full_tensor()),
+                grads=[t.grad.full_tensor().numpy() for t in ins])
+
+
+def row_take_and_segment_sum(rank, group, cases):
+    """Per case (table, ids, values, dst, num_rows): ``table[ids]`` and
+    ``zeros(num_rows).index_add(0, dst, values)`` under ``ShardedForms`` on
+    a (2, 2) CPU mesh, every operand's rows split over both axes (a graph's
+    nodes and edges): the take's output and its table gradient (of
+    ``sum(out * out)``), the segment sum and its values gradient (of the
+    same), whole."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.sharded import ShardedForms
+
+    torch.set_num_threads(1)
+    mesh = DeviceMesh("cpu", [[0, 1], [2, 3]], mesh_dim_names=("data", "model"))
+    rows = [Shard(0), Shard(0)]
+    out = []
+    for table, ids, values, dst, num_rows in cases:
+        tab = distribute_tensor(torch.from_numpy(table), mesh, rows).requires_grad_(True)
+        val = distribute_tensor(torch.from_numpy(values), mesh, rows).requires_grad_(True)
+        idx = distribute_tensor(torch.from_numpy(ids), mesh, rows)
+        dsts = distribute_tensor(torch.from_numpy(dst), mesh, rows)
+        with implicit_replication():  # the plain zeros, as in a dry run
+            with ShardedForms():
+                took = tab[idx]
+                summed = torch.zeros((num_rows, values.shape[1])).index_add(0, dsts, val)
+            ((took * took).sum() + (summed * summed).sum()).backward()
+        out.append(dict(took=took.full_tensor().detach().numpy(),
+                        tab_grad=tab.grad.full_tensor().numpy(),
+                        summed=summed.full_tensor().detach().numpy(),
+                        val_grad=val.grad.full_tensor().numpy(),
+                        placements=[repr(took.placements), repr(summed.placements)]))
     return out

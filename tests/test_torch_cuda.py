@@ -30,7 +30,8 @@ kernel against its plain version and the float32 oracle (the reference's
 sweep cases, ragged S, D = 12 to 128, a GQA group of 5, S = 1; float32 and
 bf16), LM smoke configs' forward and grads on the card against the CPU run
 (one launch a layer), and smollm-135m at published width against a
-plain-attention run.
+plain-attention run; the dry run's prediction held against the card on
+one-card cells (din/serve_p99, a reduced granite-moe train and decode step).
 
 Every test here needs an NVIDIA GPU (the kernel has no CPU mode) and skips
 without one. The file imports neither jax nor ``repro``, so it runs on a
@@ -1951,3 +1952,46 @@ def test_cuda_dry_run_prediction_of_din_serve_p99(cuda_device, tmp_path):
     assert rec["card_peak_bytes"] <= 1.10 * rec["predicted_peak_bytes"] + 64 * 2 ** 20
     assert rec["predicted_peak_bytes"] == rec["traced_peak_bytes"] + rec["cublas_workspace_bytes"]
     assert rec["launches"] == {"embedding_bag": {"sum": 5}}
+
+
+_MOE_ON_CARD = r'''
+import dataclasses, json
+from repro_torch.configs.base import ShapeCell
+from repro_torch.configs.registry import get
+from repro_torch.launch.dryrun import check_on_card
+
+a = get("granite-moe-1b-a400m")
+arch = dataclasses.replace(a, model=dataclasses.replace(a.model, n_layers=2), shapes=(
+    ShapeCell("train", "train", dict(seq=512, batch=4)),
+    ShapeCell("decode", "decode", dict(seq=8192, batch=1))))
+for shape in ("train", "decode"):
+    print(json.dumps({"on_card": check_on_card(arch, shape, seed=0, device="cuda", reps=1)}))
+'''
+
+
+@pytest.mark.cuda
+def test_cuda_dry_run_prediction_of_a_reduced_moe_cell(cuda_device):
+    """granite-moe-1b-a400m at its published width cut to 2 layers, a train
+    step (B = 4, S = 512) and a decode step against an 8,192-slot cache, each
+    traced fake on a one-rank mesh and run on the card (its own process):
+    FlopCounterMode's count and the flash kernel's FLOPs equal to the
+    trace's, the card's peak within 1.10 x the prediction + 64 MiB."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root / "src"), os.environ.get("PYTHONPATH", "")]))
+    res = subprocess.run([sys.executable, "-c", _MOE_ON_CARD], capture_output=True, text=True,
+                         env=env, cwd=root, timeout=600)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
+    recs = [json.loads(ln)["on_card"] for ln in res.stdout.splitlines()
+            if ln.startswith('{"on_card"')]
+    assert len(recs) == 2
+    for rec in recs:
+        assert rec["flops_equal"] and rec["card_aten_flops"] == rec["fake_aten_flops"] > 0
+        assert rec["card_peak_bytes"] <= 1.10 * rec["predicted_peak_bytes"] + 64 * 2 ** 20, rec
+    assert recs[0]["card_kernel_flops"] == recs[0]["fake_kernel_flops"] > 0

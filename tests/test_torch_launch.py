@@ -20,7 +20,10 @@ cells, the dry run, the roofline and report, the GAT hillclimb) against
   same cells on a fake (2, 2) mesh trace ``ok``, each device's FLOPs
   between a quarter of the step's and all of it; ``_wsc`` redistributes a
   DTensor; the production meshes' shapes and axis rules; a real group of
-  another size refused.
+  another size refused. On fake (2, 2) and (2, 2, 2) meshes a rank's FLOPs
+  are exactly the one-rank trace's over the rank count, times the
+  replication each record names (granite-moe's MoE dispatch, grouped and
+  ungrouped, included).
 * The hillclimb at p = 4 and 8 on a scale-10 R-MAT: its collective bytes
   equal the count from the layout (a subprocess).
 """
@@ -332,12 +335,19 @@ def cell(arch_id, kind, model=None, **dims):
 
 lm = dataclasses.replace(get("smollm-135m").smoke(), n_layers=1)
 heads = dataclasses.replace(lm, n_heads=4, n_kv_heads=1)  # K/V heads fewer than the ranks
+# 8 experts over a 2-wide model axis; a padded vocab that splits; 512 tokens,
+# so that each group's capacity is the one group's over the group count
+moe = dataclasses.replace(get("granite-moe-1b-a400m").smoke(), n_layers=1, vocab=256,
+                          vocab_real=250)
 din = dataclasses.replace(get("din").smoke(), lookup="crossbar")
 CELLS = {
     "lm": {"train": cell("smollm-135m", "train", heads, seq=32, batch=8),
            "prefill": cell("smollm-135m", "prefill", heads, seq=32, batch=8),
            "decode": cell("smollm-135m", "decode", heads, seq=32, batch=8),
            "train_3_heads": cell("smollm-135m", "train", lm, seq=32, batch=8)},
+    "lm_moe": {"moe_train": cell("granite-moe-1b-a400m", "train", moe, seq=64, batch=8),
+               "moe_prefill": cell("granite-moe-1b-a400m", "prefill", moe, seq=64, batch=8),
+               "moe_decode": cell("granite-moe-1b-a400m", "decode", moe, seq=32, batch=3)},
     "gnn": {"gat_full": cell("gat-cora", "gnn_full", n_nodes=256, n_edges=1024, d_feat=32,
                              n_classes=7),
             "gin_minibatch": cell("gin-tu", "gnn_minibatch", batch_nodes=32, fanout1=3,
@@ -359,7 +369,8 @@ for shape, names in (((1, 1), ("data", "model")), ((2, 2), ("data", "model")),
     for name, arch in CELLS.items():
         got = trace_cell(build_cell(arch, "t", mesh))
         out[name][n] = dict(aten=got["aten_flops"], kernel=got["kernel_flops"],
-                            calls=got["kernel_calls"], replicated=got["replicated"])
+                            calls=got["kernel_calls"], replicated=got["replicated"],
+                            replicated_flops=got["replicated_flops"])
     dist.destroy_process_group()
 print("RESULT " + json.dumps(out))
 '''
@@ -367,9 +378,14 @@ print("RESULT " + json.dumps(out))
 # the kernels whose work each cell's DTensor forms leave on every rank of a
 # mesh dim, as ``launch.sharded.Replicated`` records them: GAT's softmax runs
 # on the gathered edges (its layout is the whole batch's), the retrieval bag
-# is one user's, and 3 heads do not split over a 2-wide model axis
+# is one user's, 3 heads do not split over a 2-wide model axis, and a decode
+# batch of 3 splits over no data axis: its MoE dispatch is ungrouped (the
+# experts split over the model axis) and its attention splits as the cache
+# does, over the model axis only
 REPLICATED = {
     ("lm", "train_3_heads"): {4: {"flash_attention": 2}, 8: {"flash_attention": 2}},
+    ("lm", "moe_decode"): {4: {"moe_experts": 2, "decode_attention": 2},
+                           8: {"moe_experts": 4, "decode_attention": 4}},
     ("gnn", "gat_full"): {4: {"segment_softmax": 4}, 8: {"segment_softmax": 8}},
     ("gnn", "gat_molecule"): {4: {"segment_softmax": 4}, 8: {"segment_softmax": 8}},
     ("din", "retrieval"): {4: {"embedding_bag": 4}, 8: {"embedding_bag": 8}},
@@ -381,12 +397,20 @@ def test_dry_run_splits_work_as_the_specs_imply(family):
     """On fake (2, 2) and (2, 2, 2) meshes, a rank's aten FLOPs are exactly
     the one-rank trace's over the rank count (every split divides evenly, so
     no tolerance), and its kernels' FLOPs too, times the ranks that the
-    recorded replication says do the same work."""
-    res = subprocess.run([sys.executable, "-c", _SPLIT, family], capture_output=True,
-                         text=True, env=_env(), cwd=ROOT, timeout=300)
-    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-6000:]
-    line = [ln for ln in res.stdout.splitlines() if ln.startswith("RESULT ")][-1]
-    got = json.loads(line[len("RESULT "):])
+    recorded replication says do the same work: the aten FLOPs a replicating
+    form ran (``replicated_flops``) count once a group of that many ranks.
+    The grouped MoE dispatch (train, prefill) splits exactly; an ungrouped
+    one (decode) repeats over the data axes."""
+    # the LM family's MoE cells in a second process beside the first
+    procs = [subprocess.Popen([sys.executable, "-c", _SPLIT, part], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=_env(), cwd=ROOT)
+             for part in ([family, "lm_moe"] if family == "lm" else [family])]
+    got = {}
+    for proc in procs:
+        out, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, out[-3000:] + err[-6000:]
+        line = [ln for ln in out.splitlines() if ln.startswith("RESULT ")][-1]
+        got.update(json.loads(line[len("RESULT "):]))
     for name, by_n in got.items():
         one = by_n["1"]
         assert one["aten"] > 0 and one["replicated"] == {}, name
@@ -398,7 +422,13 @@ def test_dry_run_splits_work_as_the_specs_imply(family):
             if "flash_attention" in want:  # its backward (aten) is replicated as well
                 assert one["aten"] < r["aten"] * n < one["aten"] * factor, (name, n)
             else:
-                assert r["aten"] * n == one["aten"], (name, n)
+                rep = r["replicated_flops"]
+                assert set(rep) <= set(want) and all(v * n % want[k] == 0
+                                                     for k, v in rep.items()), (name, n)
+                split = r["aten"] - sum(rep.values())
+                assert split * n + sum(v * n // want[k] for k, v in rep.items()) \
+                    == one["aten"], (name, n)
+                assert ("moe_experts" in rep) == (name == "moe_decode"), (name, n)
             assert r["kernel"] * n == one["kernel"] * factor, (name, n)
             assert r["calls"] == one["calls"], (name, n)
 
@@ -436,7 +466,11 @@ def test_report_renders_records(tmp_path):
               peak="float32 outside the tensor cores", compute_s=1e-5, memory_s=2e-4,
               collective_s=1e-6, model_flops=1.5e9, hlo_flops_total=4e11, useful_ratio=0.004,
               flops_per_device=1.6e9, bytes_per_device=5e8, collective_bytes_per_device=3e4,
-              memory=dict(peak_bytes=9e7), extras=dict(trace_s=0.7),
+              memory=dict(peak_bytes=9e7, by_kind=dict(parameters=6e7, activations=3e7),
+                          largest=[dict(op="_c10d_functional.all_gather_into_tensor.default",
+                                        shape=[4, 1024], dtype="float32",
+                                        bytes=2 ** 29)]),
+              extras=dict(trace_s=0.7),
               collectives=dict(count_by_kind={"all-to-all": 4, "all-gather": 0}))
     bad = dict(key="qwen3-moe-30b-a3b/train_4k", mesh="single", chips=256, status="FAIL",
                op="aten.index_add_.default", error="AssertionError: x")
@@ -446,7 +480,9 @@ def test_report_renders_records(tmp_path):
     table = report.dryrun_table(recs)
     assert "| din/serve_p99 | single | 256 | 0.7 | 0.08 | Y |" in table
     assert "all-to-all:4" in table and "FAIL at `aten.index_add_.default`" in table
-    assert table.splitlines()[2].endswith("| all-to-all:4 | none |")
+    assert table.splitlines()[2].endswith(
+        "| all-to-all:4 | none | params 67%, act 33%; 0.50 GiB `all_gather_into_tensor` "
+        "4x1024 float32 |")
     roof = report.roofline_table(recs, "single")
     assert "**memory**" in roof and "qwen3-moe" not in roof
 

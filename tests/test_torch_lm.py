@@ -15,6 +15,10 @@ At every LM arch's ``smoke()`` config and the reference's ``TINY``
     combine, grouped equal to ungrouped, zero-capacity overflow) against
     ``repro``'s ``moe_ffn`` / ``moe_ffn_grouped``, and inputs with tied
     gates, where the expert choice must follow ``jax.lax.top_k``'s order;
+    on inputs where every float op is exact (dyadic values, gates of 1 or
+    1/2), an expert that gets no token and tied gates: ``_route``'s slots
+    bit-equal to the reference's (read from its traced program) and the
+    outputs bit-equal;
   * ``count_params`` / ``active_params``, ``lm_batch`` bit for bit, the LM
     configs and ``LM_SHAPES`` value for value;
   * ``repro_torch.models.transformer``, ``repro_torch.kernels.flash_attention``
@@ -275,6 +279,77 @@ def test_moe_tied_gates_follow_top_k_order(top_k, groups):
     other, _ = _moe_both(flipped, dict(num_experts=e, top_k=top_k, d_ff_expert=8),
                          capacity=capacity, groups=groups)
     assert not np.allclose(other[0].numpy(), want[0], rtol=1e-3, atol=1e-4)
+
+
+def _reference_scatters(fn, *args):
+    """The outputs of every ``scatter`` the reference's ``fn`` runs on ``args``
+    (its jaxpr evaluated one equation at a time): ``moe_ffn``'s slot tokens
+    and slot gates, (E*C + 1,) each, or (G, E*C + 1) under the grouped
+    dispatch's ``vmap``."""
+    closed = jax.make_jaxpr(fn)(*args)
+    env, got = {}, []
+
+    def read(v):
+        return v.val if isinstance(v, jax.extend.core.Literal) else env[v]
+
+    env.update(zip(closed.jaxpr.constvars, closed.consts))
+    env.update(zip(closed.jaxpr.invars, args))
+    for eqn in closed.jaxpr.eqns:
+        outs = eqn.primitive.bind(*map(read, eqn.invars), **eqn.params)
+        outs = outs if eqn.primitive.multiple_results else [outs]
+        if eqn.primitive.name == "scatter":
+            got.append(np.asarray(outs[0]))
+        env.update(zip(eqn.outvars, outs))
+    return got
+
+
+def _exact_moe_inputs(seed, t, top_k):
+    """Inputs on which every float op of the dispatch is exact in both
+    packages: dyadic x and weights; h = x @ w1 >= 20, where silu(h) = h in
+    float32; top_k 1 (a gate of g / g = 1) with random routing, or top_k 2
+    with experts 1 and 2 always the pair (gates 1/2). Experts 1 and 2 share
+    a router column, so their gates tie bit for bit: with top_k 1 expert 2
+    never wins (the lower index does), with top_k 2 experts 0 and 3 get no
+    token; with top_k 1 expert 3's column keeps it empty."""
+    d, e, f = 8, 4, 4
+    rng = np.random.default_rng(seed)
+    x = rng.integers(2, 6, (t, d)).astype(np.float32) * 0.5
+    router = (rng.standard_normal((d, e)) * 0.3).astype(np.float32)
+    if top_k == 1:
+        router[:, 3] = -4.0
+    else:
+        router[:, [0, 3]] = -0.25
+        router[:, 1] = 0.25
+    router[:, 2] = router[:, 1]
+    w13 = [rng.integers(5, 7, (e, d, f)).astype(np.float32) * 0.5 for _ in range(2)]
+    w2 = rng.integers(-2, 3, (e, f, d)).astype(np.float32) * 0.5
+    return [x, router, w13[0], w13[1], w2]
+
+
+@pytest.mark.parametrize("top_k,groups", [(1, None), (1, 2), (2, None), (2, 2)])
+def test_moe_empty_expert_and_tied_gates_are_bit_equal(top_k, groups):
+    t, capacity = 32, 8  # expert 1 (top_k 1) or 1 and 2 (top_k 2) overflow it
+    args = _exact_moe_inputs(5, t, top_k)
+    cfg_kw = dict(num_experts=4, top_k=top_k, d_ff_expert=4)
+    rcfg, tcfg = rlayers.MoEConfig(**cfg_kw), layers.MoEConfig(**cfg_kw)
+    jargs = list(map(jnp.asarray, args))
+    if groups is None:
+        ref = _reference_scatters(lambda *a: rlayers.moe_ffn(*a, rcfg, capacity=capacity), *jargs)
+    else:
+        ref = _reference_scatters(lambda *a: rlayers.moe_ffn_grouped(
+            *a, rcfg, capacity=capacity, groups=groups), *jargs)
+    tok_ref, gate_ref = (r.reshape(groups or 1, -1)[:, :-1] for r in ref)
+    x, router = torch.from_numpy(args[0]), torch.from_numpy(args[1])
+    load = np.zeros(4, int)
+    for i, xg in enumerate(x.reshape(groups or 1, -1, x.shape[1])):
+        tok, gate, _, ce = layers._route(xg, router, tcfg, capacity)
+        np.testing.assert_array_equal(tok.numpy(), tok_ref[i])
+        np.testing.assert_array_equal(gate.numpy(), gate_ref[i])
+        load += (ce.numpy() * xg.shape[0] * top_k).round().astype(int)
+    assert (load == 0).sum() >= 2 and load.max() > (groups or 1) * capacity  # empty, dropped
+    got, want = _moe_both(args, cfg_kw, capacity=capacity, groups=groups)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    _close(got[1].numpy(), want[1])
 
 
 # -- counts, data, configs ---------------------------------------------------
