@@ -166,9 +166,11 @@ parameters drawn on the card from a seeded generator:
              every gradient within DIN_TOL of the same step with the bag's
              forward and backward through both plain versions on the card,
              cate_table's gradient unlike the one with the bag's output
-             detached; 10 AdamW steps (lr 1e-3, the trainer CLI's schedule)
-             on recsys_batch(0, i): exactly one forward and one backward bag
-             launch a step (counted), step 0's batch re-scored after them
+             detached, and the same step run again bit for bit; 9 AdamW
+             steps (lr 1e-3, the trainer CLI's schedule) on
+             recsys_batch(0, i): exactly one forward and one backward bag
+             launch a step (counted), the segment sum's launches (the four
+             takes' gradients) counted, step 0's batch re-scored after them
              below its first loss; ms a step (median, min, max), steps/s,
              peak device memory, one profiled step's busy and idle share and
              the backward kernel's share
@@ -238,18 +240,32 @@ heads x 8), attention vectors seeded non-zero:
              slots in registers and the warp joining them with a 5-step
              shuffle scan; runs inside a warp's range are stored once, and
              only runs that cross ranges are joined by one thread in order
-  gnn        train: 50 steps of make_gnn_train_step with AdamW(lr 1e-3) on
+  segment_sum_kernel  the fixed-order segment-sum kernel bit for bit
+             against its plain version, and a second launch, at (a) GAT
+             layer 1's aggregate on the smoke graph ((E, 64) float32 by
+             destination over the batch's layout), (b) DIN's history-item
+             take at train_batch ((B * L, 18) float32 into the 10,000,384-row
+             item table), (c) smollm-135m's embedding gradient at train_4k
+             ((4 * 4096, 576) bf16 into the 49,152-row vocab) and (d)
+             granite-moe's combine at lm's reduced cell ((E * C, 1024) bf16
+             into the 2,048 tokens): ms a call (all its levels' launches) and a launch,
+             the op with its layout built, plain ms, the library call's
+             (zeros + index_add_, what it replaces), the byte bound
+  gnn        train: 49 steps of make_gnn_train_step with AdamW(lr 1e-3) on
              full_graph_sm uncut (symmetrize(rmat(12, 2, seed=0)) padded to
              16,384 masked slots, d_feat 1433, 7 classes): ms per step
              (median, min, max), steps/s over the wall, the softmax kernel's
-             launches (counted: 2 a step), the loss falling, and the first
-             step's loss and grads against a plain-softmax run within
-             GNN_TOL. infer: make_gnn_infer on the smoke graph's COO at
+             launches (counted: 2 a step) and the segment sum's, the loss
+             falling, and the first step's loss and grads against a
+             plain-softmax run within GNN_TOL and against a second run bit
+             for bit. infer: make_gnn_infer on the smoke graph's COO at
              ogbn-products' widths (d_feat 100, 47 classes; the graph cut from
              2,449,408 / 61,859,328 to 1,048,576 / 31,403,850 by chip time and
              the host build): ms per forward, edges/s, launches (2 a
-             forward), device idle share of one profiled forward, peak
-             memory, outputs within 1e-4 of a plain-softmax run. Then one
+             forward; the segment sum's 2 a forward times its levels), every
+             forward's output bit for bit the first's, device idle share of
+             one profiled forward, peak memory, outputs within 1e-4 of a
+             plain-softmax run. Then one
              train step at published width of each other arch on its cell
              (gcn-cora, schnet, meshgraphnet on full_graph_sm; graphsage on
              minibatch_lg's sizes, a seeded graph, loss on 1024 seed nodes;
@@ -309,10 +325,13 @@ freed first):
              against decode_32k's 32,768-slot cache, batch cut to 32, 32
              tokens after a 2-token warm run: tokens/s and ms a token, and a
              64-token prompt decoded
-             step by step against the forward (bf16 and float32); train: 10
+             step by step against the forward (bf16 and float32); train: 9
              AdamW steps at train_4k's S = 4096 (batch cut to 4): ms a step,
              2 launches a layer a step, the loss falling, the first step's
-             loss and grads against a plain-attention run. Then one prefill
+             loss and grads against a plain-attention run; granite-moe-1b-
+             a400m cut to 2 layers (B = 4, S = 512, the card tests' reduced
+             cell): one loss-and-gradients step run twice, bit for bit, the
+             segment sum's launches counted. Then one prefill
              (B = 1, S = 4096) of granite-moe-1b-a400m, llama3-8b and
              qwen3-14b at published width and qwen3-moe-30b-a3b cut to 12
              of its 48 layers: finite logits, launches = layers
@@ -352,10 +371,15 @@ Then a ``{"kernels": [...]}`` line (the laneless variants' launches from
 main_path, the lane variants' from lanes_engine, both plus the distributed
 ranks' and the NCCL arm's, the embedding bag's from
 din, din_train, serve, the distributed ranks' recommend-for and
-launch (b), timed at shape (a); the bag backward's from
-din_train, timed at shape (e); the bucket kernel's from bucket; the
+launch (b), timed at shape (a); the bag backward's (the segment-sum
+kernel's launches for it) from din_train, timed at shape (e); the bucket
+kernel's from bucket; the
 softmax kernel's from gnn's timed train steps and forwards, the
-distributed GAT layers and launch (b)'s GAT steps, timed at shape (a); the flash kernel's from lm's counted prefills and train steps, timed
+distributed GAT layers and launch (b)'s GAT steps, timed at shape (a); the
+segment sum's float32 launches from gnn's timed steps and forwards and
+din_train's steps (its bag backward's among them), timed at shape (a) with
+(b) beside it, its bf16 launches from lm's train steps and granite-moe
+pair, timed at shape (c) with (d) beside it; the flash kernel's from lm's counted prefills and train steps, timed
 at shape (a); its float32 launches from recovery's trainer and ranks, timed
 at shape (c); the gather kernel's sum_f32 launches include recovery's
 PageRank) and, last, ``{"ok": true, "device": ...}``.
@@ -434,7 +458,8 @@ SERVE_INSERTS = 512
 SERVE_FLUSHES = 1
 EMBAG = dict(source="src/repro_torch/csrc/embedding_bag.cu",
              replaces="src/repro/kernels/embedding_bag/kernel.py:75")
-EMBAG_BWD = dict(source="src/repro_torch/csrc/embedding_bag_backward.cu",
+# the bag's backward: the segment-sum kernel over the ids' runs
+EMBAG_BWD = dict(source="src/repro_torch/csrc/segment_sum.cu",
                  replaces="none: no TPU counterpart (the reference differentiates its XLA bag, "
                           "src/repro/models/recsys/din.py:84)")
 BUCKET = dict(source="src/repro_torch/csrc/gather_reduce.cu",
@@ -443,6 +468,10 @@ SOFTMAX = dict(source="src/repro_torch/csrc/segment_softmax.cu",
                replaces="src/repro/kernels/segment_softmax/kernel.py:66")
 FLASH = dict(source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:75")
+SEGSUM = dict(source="src/repro_torch/csrc/segment_sum.cu",
+              replaces="none: no TPU counterpart (the reference's jax.ops.segment_sum and the "
+                       "gradients of its takes: src/repro/models/gnn/common.py:63, "
+                       "src/repro/models/layers.py:272, src/repro/models/recsys/din.py:61)")
 BAG_TOL = dict(rtol=1e-5, atol=1e-7)  # both sum in id order (in fact the same bits)
 DIN_TOL = dict(rtol=1e-5, atol=1e-6)
 SOFTMAX_TOL = dict(rtol=1e-5, atol=1e-7)  # online rescaling vs the plain version's final max
@@ -474,12 +503,15 @@ LM_DECODE_REL = 1e-1
 LM_DECODE_F32_ATOL = 2e-3
 LM_PROMPT = 64  # decode-vs-forward prompt
 LM_DECODE_TOKENS, LM_DECODE_BATCH = 32, 32  # decode_32k's batch cut from 128
-LM_TRAIN_BATCH, LM_TRAIN_STEPS = 4, 10  # train_4k's batch cut from 256
+LM_TRAIN_BATCH, LM_TRAIN_STEPS = 4, 9  # train_4k's batch cut from 256
+# granite-moe-1b-a400m at its published width cut to 2 layers, B = 4, S =
+# 512 (the card tests' reduced cell): one loss-and-gradients step, run twice
+LM_MOE_TWICE = dict(arch="granite-moe-1b-a400m", n_layers=2, batch=4, seq=512)
 LM_OTHER = (("granite-moe-1b-a400m", None), ("llama3-8b", None), ("qwen3-14b", None),
             ("qwen3-moe-30b-a3b", 12))  # (arch, layers cut to)
 BAG_ROUNDS = 2  # bag timing: (sum, mean, mean, sum) this many times per shape
 COLD_SETS = 8  # id sets of shape (c) in rotation: ~160 MB of row sectors, past the 50 MB L2
-DIN_TRAIN_STEPS = 10
+DIN_TRAIN_STEPS = 9  # and one more first step, run twice for its bits
 # the sort's traffic a bag-backward id slot: the stable sort writes a key (4 B)
 # and a position (8 B), read back once by the run starts and the kernel
 SORT_BYTES_PER_ID = 24
@@ -596,6 +628,24 @@ def field_digests(pg) -> dict:
 
     with ThreadPoolExecutor(8) as pool:
         return dict(zip(IDENTITY_FIELDS, pool.map(digest, IDENTITY_FIELDS)))
+
+
+def bits_equal(a, b) -> bool:
+    """Two results (tensors, or dicts, lists and tuples of them) bit for bit
+    equal, leaf by leaf, on any devices."""
+    import torch
+
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            bits_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(
+            bits_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                and bool(torch.equal(a.detach().cpu().reshape(-1).view(torch.uint8),
+                                     b.detach().cpu().reshape(-1).view(torch.uint8))))
+    return a == b
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1184,6 +1234,8 @@ def main() -> int:
     from repro_torch.kernels.embedding_bag import kernel as EB
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.segment_softmax import kernel as SK
+    from repro_torch.kernels.segment_sum import kernel as SS
+    from repro_torch.kernels.segment_sum import segment_layout, segment_sum, segment_sum_plain
     from repro_torch.models.recsys import din
 
     def sync():
@@ -1207,16 +1259,15 @@ def main() -> int:
     # -- build: one nvcc per source, all started together ----------------------
     t0 = time.perf_counter()
     if not rehearsal:
-        sources = (K.SOURCE, S.SOURCE, EB.SOURCE, EB.BACKWARD_SOURCE, B.SOURCE, SK.SOURCE,
-                   FK.SOURCE)
+        sources = (K.SOURCE, S.SOURCE, EB.SOURCE, B.SOURCE, SK.SOURCE, FK.SOURCE, SS.SOURCE)
         with ThreadPoolExecutor(len(sources)) as pool:
             logs = dict(zip(sources, pool.map(lambda s: build_library(s)[1], sources)))
         for s in sources:
             load_library(s)
         ptxas = {s: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
                  for s, log in logs.items()}
-        emit("build", t0, sources=[m["source"] for m in (GATHER, SCATTER, EMBAG, EMBAG_BWD, BUCKET,
-                                                         SOFTMAX, FLASH)],
+        emit("build", t0, sources=[m["source"] for m in (GATHER, SCATTER, EMBAG, BUCKET, SOFTMAX,
+                                                         FLASH, SEGSUM)],
              ptxas=ptxas)
 
     # -- stream_build (ii)'s host build, in a child overlapping the card phases
@@ -2579,8 +2630,10 @@ def main() -> int:
              backward_per_launch=bwd_rows, backward_max_abs_err=bwd_errs,
              backward_note="the table's gradient at (e) and (a) from a seeded grad_out: ms: the "
                            "whole backward (stable sort of the ids, run starts, counts for mean, "
-                           "the kernel) by CUDA events, the stream held; kernel_ms: the kernel "
-                           "alone on precomputed runs; plain_ms: the plain version on the card "
+                           "the terms' bags (order // L), for mean the terms divided, the "
+                           "segment-sum kernel) by CUDA events, the stream held; kernel_ms: "
+                           "launch_backward alone on precomputed runs (the bags, the division "
+                           "for mean, the kernel); plain_ms: the plain version on the card "
                            "(index_add_, atomics); library_ms: the CUDA backward of one "
                            "F.embedding_bag on the valid ids with bag offsets (torch.autograd."
                            "grad, the forward done once); launches_per_call: the device "
@@ -2654,7 +2707,7 @@ def main() -> int:
 
                 launches = {k: device_launches(f) for k, f in (
                     ("whole", backward), ("plain", plain), ("library", library))}
-                kr = kernel_ms(backward, reps, 1, "embedding_bag_backward", launches["whole"])
+                kr = kernel_ms(backward, reps, 1, "segment_sum_kernel", launches["whole"])
                 timed = {}
                 for key, f, r in (("kernel", kernel_only, reps),
                                   ("plain", plain, max(1, reps // 5)),
@@ -2827,6 +2880,11 @@ def main() -> int:
         # the first step: the kernels' bag against both plain versions, and
         # against a bag whose output is detached (the fault this slice fixed)
         loss_k, grads_k = train_steps.value_and_grad(loss_fn, din_params, held)
+        # the same step again: the takes' and the bag's sums in a fixed order
+        twice = train_steps.value_and_grad(loss_fn, din_params, held)
+        check(bits_equal((loss_k, grads_k), twice),
+              "din train first step: a second run from the same seed gave other bits")
+        del twice
         with din_bag(lambda table, ids, mode: PlainBag.apply(table, ids, mode)):
             loss_p, grads_p = train_steps.value_and_grad(loss_fn, din_params, held)
         with din_bag(lambda table, ids, mode: embedding_bag(table, ids, mode).detach()):
@@ -2853,6 +2911,7 @@ def main() -> int:
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         EB.reset_launch_counts()
+        SS.reset_launch_counts()
         lat, losses = [], []
         t_all = time.perf_counter()
         for i in range(n_steps):
@@ -2862,6 +2921,10 @@ def main() -> int:
             lat.append((time.perf_counter() - t) * 1e3)
         wall = time.perf_counter() - t_all
         launches = dict(EB.LAUNCHES)
+        ss_launches = dict(SS.LAUNCHES)
+        if not rehearsal:  # four takes a step, each its layout's levels, and the bag's backward
+            check(sum(ss_launches.values()) >= 5 * n_steps and set(ss_launches) == {"f32"},
+                  f"din train: segment_sum launches {ss_launches} over {n_steps} steps")
         peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
         with torch.no_grad():
             held_after = float(loss_fn(state["params"], held))
@@ -2874,7 +2937,7 @@ def main() -> int:
                   f"over {n_steps} steps")
         wall_us, evs = profiled(lambda: step(state, batches[n_steps]))
         dev_us = sum(event_us(e) for e in evs)
-        bwd_us = sum(event_us(e) for e in evs if "embedding_bag_backward" in e.key)
+        ss_us = sum(event_us(e) for e in evs if "segment_sum" in e.key)
         top = sorted(evs, key=event_us, reverse=True)[:8]
         emit("din_train", t0, config={k: (str(v) if k == "dtype" else v)
                                       for k, v in dataclasses.asdict(c).items() if k != "lookup"},
@@ -2886,16 +2949,17 @@ def main() -> int:
              losses=losses, held_batch_loss=[float(loss_k), held_after],
              first_step_loss=[float(loss_k), float(loss_p)], first_step_grad_max_abs_diff=grad_err,
              tolerance=DIN_TOL, cate_grad_bag_part_max_abs=bag_part, launches=launches,
+             segment_sum_launches=ss_launches, first_step_same_bits_twice=True,
              expected_launches={"sum": n_steps, "sum_backward": n_steps},
              peak_memory_bytes=peak,
              profiled_step=dict(wall_us=wall_us, device_busy_us=dev_us,
                                 device_idle_share=1.0 - dev_us / wall_us if wall_us else None,
                                 device_events=sum(e.count for e in evs),
-                                bag_backward_us=bwd_us,
-                                bag_backward_share=bwd_us / dev_us if dev_us else None,
+                                segment_sum_us=ss_us,
                                 top_device_us={e.key[:80]: [event_us(e), e.count] for e in top}),
              note="the first step against a run whose bag runs both plain versions on the card "
                   "(forward: L takes in id order; backward: index_add_) within DIN_TOL, and "
+                  "a second run of it bit for bit, and "
                   "against a detached bag (cate_grad_bag_part_max_abs: the bag's part of "
                   "cate_table's gradient); steps on recsys_batch(0, i) made on the device "
                   "before the timed loop; ms_per_step: host clock around a step ending in the "
@@ -2906,9 +2970,9 @@ def main() -> int:
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-        return launches
+        return launches, sum(ss_launches.values())
 
-    din_train_launches = din_train_phase()
+    din_train_launches, din_ss_launches = din_train_phase()
 
     # -- the serving path: GraphService over the built partition --------------
     t0 = time.perf_counter()
@@ -3242,6 +3306,124 @@ def main() -> int:
               "the bound's 8 H + 5; gbps_*: those bytes over ms; no single PyTorch call computes "
               "a segment softmax (library_ms null)")
 
+    # -- the fixed-order segment sum: the kernel against its plain version ----
+    from repro_torch.models.gnn.common import edge_layout
+
+    def segment_sum_phase():
+        """The segment-sum kernel bit for bit against its plain version on the
+        card, and two launches against each other, at the main path's shapes:
+        (a) GAT layer 1's aggregate on the smoke graph ((E, 64) float32
+        messages summed by destination over the batch's layout), (b) DIN's
+        history-item take at train_batch ((B * L, 18) float32 row gradients
+        summed into the 10,000,384-row item table, padding clamped to row 0
+        as DIN takes it), (c) smollm-135m's embedding gradient at the lm
+        phase's train_4k batch ((B * S, 576) bf16 row gradients into the
+        49,152-row vocab by the phase's first batch's tokens) and (d)
+        granite-moe's combine at the lm phase's reduced cell ((E * C, 1024)
+        bf16 slot outputs into the B * S tokens by a seeded routing, one
+        level of runs of at most E); timed. Returns the rows by shape."""
+        from repro_torch.data.synthetic import lm_batch
+        from repro_torch.models.layers import route_logits
+
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+        c = din_cfg
+        hist = recsys_batch(SEED, 0, din_train_batch, c.seq_len, c.item_vocab, c.cate_vocab,
+                            c.profile_bag_len)["hist_items"]
+        lm_cfg = get_arch("smollm-135m")
+        lm_model = lm_cfg.smoke() if rehearsal else lm_cfg.model
+        lm_seq = lm_cfg.shape("train_4k").dims["seq"] // (64 if rehearsal else 1)
+        toks = lm_batch(SEED, 0, 2 if rehearsal else LM_TRAIN_BATCH, lm_seq,
+                        lm_model.vocab)["tokens"]
+        moe = get_arch(LM_MOE_TWICE["arch"])
+        moe_model = moe.smoke() if rehearsal else moe.model
+        moe_t = LM_MOE_TWICE["batch"] * LM_MOE_TWICE["seq"] // (8 if rehearsal else 1)
+        moe_logits = torch.randn((moe_t, moe_model.moe.num_experts), generator=gen,
+                                 device=dev)
+        moe_rows = route_logits(moe_logits, moe_model.moe, moe_model.capacity(moe_t),
+                                moe_model.dtype)[0]
+        # (label, ids, segments, width, type, layout builder)
+        cases = (("a_gat_smoke_graph", big.edge_dst.long(), big.num_nodes,
+                  gat_cfg.d_hidden * gat_cfg.n_heads, torch.float32, lambda ids, n: edge_layout(big)),
+                 ("b_din_take", torch.from_numpy(np.maximum(hist, 0).reshape(-1)).to(dev),
+                  c.item_vocab, c.embed_dim, torch.float32, segment_layout),
+                 ("c_smollm_embedding_grad", torch.from_numpy(toks.reshape(-1)).long().to(dev),
+                  lm_model.vocab, lm_model.d_model, lm_model.dtype, segment_layout),
+                 ("d_granite_moe_combine", moe_rows, moe_t, moe_model.d_model, moe_model.dtype,
+                  lambda ids, n: segment_layout(ids, n, max_run=moe_model.moe.num_experts)))
+        del moe_logits
+        out_rows = {}
+        for label, seg, n_seg, d, dtype, build in cases:
+            x = torch.randn((seg.shape[0], d), generator=gen, device=dev).to(dtype)
+            sync()
+            t = time.perf_counter()
+            layout = build(seg, n_seg)
+            sync()
+            layout_s = time.perf_counter() - t
+            levels = len(layout.starts)
+            got = segment_sum(x, seg, n_seg, layout)
+            again = segment_sum(x, seg, n_seg, layout)
+            want = segment_sum_plain(x, seg, n_seg)
+            sync()
+            err = float((got.float() - want.float()).abs().max())
+            check(got.dtype == dtype and got.shape == (n_seg, d),
+                  f"segment_sum {label}: {got.dtype} {tuple(got.shape)}")
+            check(bits_equal(got, want),
+                  f"segment_sum {label}: kernel and plain version differ (max err {err})")
+            check(bits_equal(got, again), f"segment_sum {label}: two launches differ")
+            reps = 2 if rehearsal else 10
+            inside = seg[(seg >= 0) & (seg < n_seg)]
+            row = dict(rows=int(seg.shape[0]), width=d, segments=n_seg, dtype=str(dtype),
+                       levels=levels,
+                       longest_run=int(torch.bincount(inside, minlength=n_seg).max()),
+                       layout_seconds=layout_s, max_abs_err=err)
+            row.update(kernel_ms(lambda: segment_sum(x, seg, n_seg, layout), reps, levels,
+                                 "segment_sum_kernel"))
+            row["ms_per_launch"] = row.pop("ms")
+            row["ms"] = device_ms(lambda: segment_sum(x, seg, n_seg, layout), reps, 1,
+                                  launches=levels)
+            row["op_ms"] = device_ms(lambda: segment_sum(x, seg, n_seg), max(1, reps // 5), 1)
+            row["plain_ms"] = device_ms(lambda: segment_sum_plain(x, seg, n_seg), 1, 1)
+            # an id past the segments (the MoE's empty slot) into one more row
+            lib_seg = seg.clamp(0, n_seg)
+            row["library_ms"] = device_ms(
+                lambda: torch.zeros((n_seg + 1, d), dtype=dtype, device=dev).index_add_(
+                    0, lib_seg, x), reps, 1)
+            # x and the ids read once, the sums written once; an add an element
+            nbytes = (x.numel() + n_seg * d) * x.element_size() + seg.numel() * seg.element_size()
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = x.numel() / F32_OPS_PER_S * 1e3
+            row.update(bound_ms=max(bytes_ms, ops_ms), bound_bytes=nbytes,
+                       bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+            out_rows[label] = row
+            del x, got, again, want, layout, lib_seg
+        emit("segment_sum_kernel", t0, per_call=out_rows,
+             note="(a) GAT layer 1's aggregate on the smoke graph: (E, 64) float32 seeded "
+                  "messages by destination over the batch's layout; (b) DIN's history-item "
+                  "take at train_batch: (B * L, 18) float32 seeded row gradients into the "
+                  "10,000,384-row item table by the clamped ids (recsys_batch(0, 0)); (c) "
+                  "smollm-135m's embedding gradient at the lm phase's train_4k batch: "
+                  "(B * S, 576) bf16 seeded row gradients into the 49,152-row vocab by "
+                  "lm_batch(0)'s tokens; (d) granite-moe's combine at the lm phase's reduced "
+                  "cell: (E * C, 1024) bf16 seeded slot outputs into the B * S tokens by "
+                  "route_logits of seeded logits, the empty slots' id T in no segment, the "
+                  "layout's max_run E as the MoE layer builds it; bit for bit the plain "
+                  "version and a second launch; "
+                  "ms: CUDA events around back-to-back calls of the kernel path given the "
+                  "layout (levels launches a call), the stream held while the host enqueues; "
+                  "ms_per_launch beside it (profiler_ms: the kernel's profiler events); op_ms: "
+                  "the op with its layout built (a stable sort, searchsorted, the levels' "
+                  "glue, one host read a level); plain_ms: the plain version in the same "
+                  "order; library_ms: zeros + index_add_ in x's type, the call the kernel "
+                  "replaces; bound: x and the ids read and the sums written once at "
+                  "3.35 TB/s")
+        return out_rows
+
+    segsum_rows = segment_sum_phase()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
     # GraphSAGE's neighbor sampler over the smoke graph: gnn's minibatch_lg
     # step and recovery (b)
     from repro_torch.data.neighbor_sampler import NeighborSampler
@@ -3259,7 +3441,7 @@ def main() -> int:
         inference on the smoke graph at ogbn-products' widths; then one train
         step of each other arch on its cell. Returns the softmax launches."""
         t0 = time.perf_counter()
-        n_steps = 3 if rehearsal else 50
+        n_steps = 3 if rehearsal else 49
         ocfg = AdamWConfig(lr=1e-3, total_steps=n_steps, warmup_steps=min(20, n_steps))
         d_in = cora.node_feat.shape[1]
         params = gat_params(gat_cfg, d_in, 7, SEED)
@@ -3267,6 +3449,11 @@ def main() -> int:
         loss_fn = train_steps.make_gnn_loss(gat_cfg, "node_class")
         # the first step's loss and grads against a run with the plain softmax
         loss_k, grads_k = train_steps.value_and_grad(loss_fn, params, cora, labels)
+        # the same step again: every sum in a fixed order, the same bits
+        twice = train_steps.value_and_grad(loss_fn, params, cora, labels)
+        check(bits_equal((loss_k, grads_k), twice),
+              "gat first step: a second run from the same seed gave other bits")
+        del twice
         with plain_softmax():
             loss_p, grads_p = train_steps.value_and_grad(loss_fn, params, cora, labels)
         gk, gp = tree_flatten(grads_k)[0], tree_flatten(grads_p)[0]
@@ -3281,6 +3468,7 @@ def main() -> int:
         state = train_steps.init_train_state(params, ocfg)
         sync()
         SK.reset_launch_counts()
+        SS.reset_launch_counts()
         lat, losses = [], []
         t_all = time.perf_counter()
         for _ in range(n_steps):
@@ -3290,6 +3478,11 @@ def main() -> int:
             lat.append((time.perf_counter() - t) * 1e3)
         wall = time.perf_counter() - t_all
         train_launches = dict(SK.LAUNCHES)
+        train_ss = dict(SS.LAUNCHES)
+        if not rehearsal:  # the aggregates, the softmax backward, the takes' gradients
+            n_ss = sum(train_ss.values())
+            check(n_ss > 0 and n_ss % n_steps == 0 and set(train_ss) == {"f32"},
+                  f"gat train: segment_sum launches {train_ss} over {n_steps} steps")
         check(all(np.isfinite(losses)) and losses[-1] < losses[0],
               f"gat train: loss did not fall ({losses[0]} -> {losses[-1]})")
         if not rehearsal:
@@ -3301,7 +3494,8 @@ def main() -> int:
                                                      min=min(lat), max=max(lat)),
                      steps_per_s=n_steps / wall, loss_first=losses[0], loss_last=losses[-1],
                      first_step_loss=[float(loss_k), float(loss_p)],
-                     first_step_max_grad_diff=grad_err, launches=train_launches,
+                     first_step_max_grad_diff=grad_err, first_step_same_bits_twice=True,
+                     launches=train_launches, segment_sum_launches=train_ss,
                      profiled_step=dict(wall_us=wall_us, device_busy_us=dev_us,
                                         device_idle_share=1.0 - dev_us / wall_us,
                                         device_events=sum(e.count for e in evs),
@@ -3329,13 +3523,23 @@ def main() -> int:
         del out_p
         n_fwd = 2 if rehearsal else 5
         SK.reset_launch_counts()
-        lat = []
+        SS.reset_launch_counts()
+        lat, first_out = [], None
         for _ in range(n_fwd):
             t = time.perf_counter()
             out = infer(iparams, big)
             sync()
             lat.append((time.perf_counter() - t) * 1e3)
+            if first_out is None:
+                first_out = out
+            check(bits_equal(out, first_out), "gat infer: two forwards gave other bits")
+        del first_out
         infer_launches = dict(SK.LAUNCHES)
+        infer_ss = dict(SS.LAUNCHES)
+        if not rehearsal:  # the two layers' aggregates, each its layout's levels
+            check(sum(infer_ss.values()) == n_fwd * 2 * len(edge_layout(big).starts)
+                  and set(infer_ss) == {"f32"},
+                  f"gat infer: segment_sum launches {infer_ss} over {n_fwd} forwards")
         if not rehearsal:
             check(infer_launches == {"f32": 2 * n_fwd},
                   f"gat infer: softmax launches {infer_launches} != 2 x {n_fwd} forwards")
@@ -3348,7 +3552,7 @@ def main() -> int:
             classes=products["n_classes"], forwards=n_fwd,
             ms_per_forward=dict(median=med, min=min(lat), max=max(lat)),
             edges_per_s=big.num_edges / med * 1e3, max_abs_diff_vs_plain=infer_err,
-            launches=infer_launches,
+            launches=infer_launches, segment_sum_launches=infer_ss, same_bits_every_forward=True,
             peak_memory_bytes=torch.cuda.max_memory_allocated() if dev.type == "cuda" else None,
             profiled_forward=dict(wall_us=wall_us, device_busy_us=dev_us,
                                   device_idle_share=1.0 - dev_us / wall_us,
@@ -3413,9 +3617,10 @@ def main() -> int:
                   "the profiler can miss events late in this run, so busy time is a floor); "
                   "other archs: one step at published width from a fresh state "
                   "(its first step, so it includes first-call costs)")
-        return {"f32": train_launches.get("f32", 0) + infer_launches.get("f32", 0)}
+        return ({"f32": train_launches.get("f32", 0) + infer_launches.get("f32", 0)},
+                sum(train_ss.values()) + sum(infer_ss.values()))
 
-    softmax_launches = gnn_phase()
+    softmax_launches, gnn_ss_launches = gnn_phase()
 
     # the GNN tensors go before the LM phases
     del cora, cora_lab, big
@@ -3435,11 +3640,6 @@ def main() -> int:
 
     def dir_bytes(path):
         return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
-
-    def same_bits(a, b):
-        return (a.dtype == b.dtype and a.shape == b.shape
-                and bool(torch.equal(a.cpu().reshape(-1).view(torch.uint8),
-                                    b.cpu().reshape(-1).view(torch.uint8))))
 
     def recovery_pagerank(root):
         """(a) PageRank through make_iteration under run_with_recovery on the
@@ -3490,7 +3690,7 @@ def main() -> int:
         restored, _ = restore_checkpoint(str(root / "pr_timing"), like)
         sync()
         restore_s = time.perf_counter() - t
-        check(all(same_bits(restored[k], final_b[k]) for k in final_b),
+        check(all(bits_equal(restored[k], final_b[k]) for k in final_b),
               "recovery (a): restored labels differ from the saved ones")
         out = dict(vertices=g_r.num_vertices, edges=pg_r.num_edges, p=pg_r.p, l=pg_r.l,
                    steps=n, every=every, stopped_at=stop, resumed_from=resumed_from,
@@ -3574,7 +3774,7 @@ def main() -> int:
         check(resumed_from == every, f"recovery (b): newest checkpoint {resumed_from}")
         restored, _ = restore_checkpoint(str(root / "sage_b"), init_state(), step=every)
         flat_r, flat_k = tree_flatten(restored)[0], tree_flatten(run_b1["kept"])[0]
-        check(len(flat_r) == len(flat_k) and all(same_bits(x, y) for x, y in zip(flat_r, flat_k)),
+        check(len(flat_r) == len(flat_k) and all(bits_equal(x, y) for x, y in zip(flat_r, flat_k)),
               "recovery (b): the restored state differs from the saved one")
         state_b, run_b2 = sage_run(root / "sage_b", n, 0)
         check(run_b2["start"] == every, f"recovery (b): resumed at {run_b2['start']}")
@@ -3715,11 +3915,11 @@ def main() -> int:
         for x in cases:
             cpu, on_dev = torch.from_numpy(x), torch.from_numpy(x).to(dev)
             (qc, sc), (qd, sd) = int8_compress(cpu), int8_compress(on_dev)
-            check(same_bits(qd, qc) and same_bits(sd, sc), "recovery (d): int8 on the card "
+            check(bits_equal(qd, qc) and bits_equal(sd, sc), "recovery (d): int8 on the card "
                   "differs from the CPU's")
             for frac in (0.1, 0.01):
                 (vc, mc), (vd, md) = topk_sparsify(cpu, frac), topk_sparsify(on_dev, frac)
-                check(same_bits(vd, vc) and torch.equal(md.cpu(), mc),
+                check(bits_equal(vd, vc) and torch.equal(md.cpu(), mc),
                       f"recovery (d): top-k at {frac} on the card differs from the CPU's")
         flash = sum(sum(o["flash_launches"].values())
                     for v in outs.values() for o in v["ranks"])
@@ -4071,6 +4271,7 @@ def main() -> int:
         batches = [lm_tokens(i, tbatch, tseq, cfg.vocab) for i in range(n_steps)]
         sync()
         FK.reset_launch_counts()
+        SS.reset_launch_counts()
         lat, losses = [], []
         t_all = time.perf_counter()
         for bt in batches:
@@ -4080,6 +4281,10 @@ def main() -> int:
             lat.append((time.perf_counter() - t) * 1e3)
         wall = time.perf_counter() - t_all
         train_launches = dict(FK.LAUNCHES)
+        train_ss = dict(SS.LAUNCHES)
+        if not rehearsal:  # the embedding take's gradient, its layout's levels a step
+            check(sum(train_ss.values()) >= n_steps and set(train_ss) == {"bf16"},
+                  f"lm train: segment_sum launches {train_ss} over {n_steps} steps")
         if not rehearsal:  # forward and the block's recompute in backward: 2 a layer
             check(train_launches == {"bf16": 2 * n_layers * n_steps},
                   f"lm train: flash launches {train_launches} != 2 x {n_layers} x {n_steps}")
@@ -4101,7 +4306,42 @@ def main() -> int:
                          ms_per_step=dict(median=med, min=min(lat), max=max(lat)),
                          tokens_per_s=tbatch * tseq / med * 1e3, steps_per_s=n_steps / wall,
                          loss_first=losses[0], loss_last=losses[-1], first_step=first,
-                         launches=train_launches)
+                         launches=train_launches, segment_sum_launches=train_ss)
+
+        # granite-moe, the card tests' reduced cell: one step twice, the same bits
+        # (the MoE dispatch's take and combine, the embedding's take)
+        moe = get_arch(LM_MOE_TWICE["arch"])
+        mcfg = moe.smoke() if rehearsal else dataclasses.replace(
+            moe.model, n_layers=LM_MOE_TWICE["n_layers"])
+        mparams = tfm.init_params(mcfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+        mb = lm_tokens(3, LM_MOE_TWICE["batch"], LM_MOE_TWICE["seq"] // (8 if rehearsal else 1),
+                       mcfg.vocab_real or mcfg.vocab)  # labels in the real vocab
+        mloss = train_steps.make_lm_loss(mcfg)
+        sync()
+        SS.reset_launch_counts()
+        t = time.perf_counter()
+        moe_first = train_steps.value_and_grad(mloss, mparams, mb["tokens"], mb["labels"])
+        sync()
+        moe_ms = (time.perf_counter() - t) * 1e3
+        moe_ss = dict(SS.LAUNCHES)
+        moe_twice = train_steps.value_and_grad(mloss, mparams, mb["tokens"], mb["labels"])
+        sync()
+        moe_ss_both = dict(SS.LAUNCHES)
+        check(bits_equal(moe_first, moe_twice),
+              f"{LM_MOE_TWICE['arch']}: a second step from the same seed gave other bits")
+        # random weights: about the uniform guess's ln(vocab), and finite
+        check(0.0 < float(moe_first[0]) < 2 * np.log(mcfg.vocab_real or mcfg.vocab),
+              f"{LM_MOE_TWICE['arch']}: loss {float(moe_first[0])} at random weights")
+        if not rehearsal:  # a take and a sum a MoE layer, and the embedding's take
+            check(sum(moe_ss.values()) > 2 * mcfg.n_layers and set(moe_ss) == {"bf16"},
+                  f"{LM_MOE_TWICE['arch']}: segment_sum launches {moe_ss}")
+        moe_row = dict(layers=mcfg.n_layers, batch=LM_MOE_TWICE["batch"],
+                       seq=mb["tokens"].shape[1], loss=float(moe_first[0]), first_step_ms=moe_ms,
+                       same_bits_twice=True, segment_sum_launches=moe_ss)
+        # by type: the train steps' and both granite-moe steps'
+        ss_launches = {k_: train_ss.get(k_, 0) + moe_ss_both.get(k_, 0)
+                       for k_ in set(train_ss) | set(moe_ss_both)}
+        del mparams, moe_first, moe_twice
 
         # the trained state (bf16 params, float32 AdamW moments) through
         # save_checkpoint and restore_checkpoint onto the card, leaf by leaf
@@ -4119,7 +4359,7 @@ def main() -> int:
         check(len(saved) == len(restored) and meta == {"next_step": n_steps},
               f"lm checkpoint: {len(restored)} leaves of {len(saved)}, meta {meta}")
         for i, (a_, b_) in enumerate(zip(saved, restored)):
-            check(same_bits(a_, b_) and a_.device == b_.device if torch.is_tensor(a_)
+            check(bits_equal(a_, b_) and a_.device == b_.device if torch.is_tensor(a_)
                   else a_ == b_ and type(a_) is type(b_),
                   f"lm checkpoint: leaf {i} came back changed")
         tensors = [x for x in saved if torch.is_tensor(x)]
@@ -4173,7 +4413,7 @@ def main() -> int:
         emit("lm", t0, config=dataclasses.asdict(cfg) | {"dtype": str(cfg.dtype)},
              memory_allocated_at_start=mem0, profiler_probe_events=profiler_probe(),
              prefill=prefill_row, decode=decode_row,
-             train=train_row, checkpoint=ckpt_row, other_archs=others,
+             train=train_row, moe_twice=moe_row, checkpoint=ckpt_row, other_archs=others,
              tolerance=dict(kernel_rel_l2=LM_KERNEL_REL, decode_rel_l2=LM_DECODE_REL,
                             decode_f32_atol=LM_DECODE_F32_ATOL),
              note="smollm-135m at published width (30 layers, d 576, 9/3 heads, D 64, d_ff "
@@ -4186,19 +4426,22 @@ def main() -> int:
                   "torch.profiler (busy time a floor: the profiler drops events); a 64-token "
                   "prompt fed one token at a time "
                   "against the kernel path's forward, bf16 and float32. train: train_4k's S "
-                  "= 4096, batch cut from 256 to 4, 10 AdamW steps (lr 1e-3); launches 2 a "
+                  "= 4096, batch cut from 256 to 4, 9 AdamW steps (lr 1e-3); launches 2 a "
                   "layer a step (forward and the block's recompute); the first step's loss "
                   "and grads against a plain-attention run; profiled_step: one more step under "
-                  "torch.profiler (a floor). checkpoint: the trained state (bf16 params, "
+                  "torch.profiler (a floor). moe_twice: granite-moe-1b-a400m cut to 2 layers, "
+                  "B = 4, S = 512, one loss-and-gradients step run twice from the same seed, "
+                  "bit for bit (first_step_ms: host clock, its first call). "
+                  "checkpoint: the trained state (bf16 params, "
                   "float32 AdamW moments and step) saved with save_checkpoint (host clock "
                   "from a synchronized card) and restored onto the card into its own template "
                   "(host clock ending in a synchronize), every leaf bit for bit; bytes: the "
                   "step directory on disk. other archs: one first prefill "
                   "at B = 1, S = 4096; qwen3-moe-30b-a3b cut from 48 to 12 layers (its 48 "
                   "layers' 61 GB of bf16 weights leave too little room)")
-        return launches
+        return launches, ss_launches
 
-    flash_launches = lm_phase()
+    flash_launches, lm_ss_launches = lm_phase()
 
     def launch_phase():
         """The launch tooling on the card. (a) The dry run of one cell per
@@ -4295,6 +4538,16 @@ def main() -> int:
 
     launch_launches = launch_phase()
 
+    # the segment sum's launches on the main path by type: the GNN and DIN
+    # trainers' are float32, the LM phase's bf16 (each phase checks its types)
+    launch_ss = launch_launches.get("segment_sum", {})
+    by_phase = dict(f32=dict(gnn=gnn_ss_launches, din_train=din_ss_launches,
+                             launch_b=launch_ss.get("f32", 0)),
+                    bf16=dict(lm=lm_ss_launches.get("bf16", 0),
+                              launch_b=launch_ss.get("bf16", 0)))
+    n_ss = {v: sum(c.values()) for v, c in by_phase.items()}
+    check(sum(lm_ss_launches.values()) == n_ss["bf16"] - launch_ss.get("bf16", 0),
+          f"lm: segment_sum launches {lm_ss_launches} not all bf16")
     kernels = [
         dict(name=f"{kern}_reduce_cores[{v}]", route="cuda", **meta,
              launches=launches[f"{kern}_reduce_cores"].get(v, 0)
@@ -4328,7 +4581,8 @@ def main() -> int:
              bound_by=bag_rows["a_serve_p99[sum]"]["bound_by"],
              library_ms=bag_rows["a_serve_p99[sum]"]["library_ms"])
     ] + [
-        # the trainer's bag backward: DIN's profile bag at train_batch, shape (e)
+        # the trainer's bag backward (the segment-sum kernel over the ids' runs):
+        # DIN's profile bag at train_batch, shape (e)
         dict(name="embedding_bag_backward[sum]", route="cuda", **EMBAG_BWD,
              launches=din_train_launches.get("sum_backward", 0),
              max_abs_err=bag_bwd_errs["sum"], ms=bag_bwd_rows["e_train_batch[sum]"]["ms"],
@@ -4352,6 +4606,24 @@ def main() -> int:
              ms=sm_rows["a_cora_layer1"]["ms"], plain_ms=sm_rows["a_cora_layer1"]["plain_ms"],
              bound_ms=sm_rows["a_cora_layer1"]["bound_ms"],
              bound_by=sm_rows["a_cora_layer1"]["bound_by"], library_ms=None)
+    ] + [
+        # float32: the GNN path's shape, GAT layer 1's aggregate on the smoke graph
+        # (a), DIN's take at train_batch (b) beside it; bf16: the LM path's
+        # shape, smollm-135m's embedding gradient at train_4k (c), granite-moe's
+        # combine (d) beside it
+        dict(name=f"segment_sum[{v}]", route="cuda", **SEGSUM,
+             launches=n_ss[v], launches_by_phase=by_phase[v],
+             max_abs_err=max(segsum_rows[k]["max_abs_err"] for k in shapes),
+             ms=segsum_rows[shapes[0]]["ms"],
+             plain_ms=segsum_rows[shapes[0]]["plain_ms"],
+             bound_ms=segsum_rows[shapes[0]]["bound_ms"],
+             bound_by=segsum_rows[shapes[0]]["bound_by"],
+             library_ms=segsum_rows[shapes[0]]["library_ms"],
+             by_shape={k: {f: segsum_rows[k][f] for f in (
+                 "ms", "ms_per_launch", "levels", "op_ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "max_abs_err")} for k in shapes})
+        for v, shapes in (("f32", ("a_gat_smoke_graph", "b_din_take")),
+                          ("bf16", ("c_smollm_embedding_grad", "d_granite_moe_combine")))
     ] + [
         # the model's shape: smollm-135m's layer at prefill_32k, shape (a)
         dict(name="flash_attention[bf16]", route="cuda", **FLASH, launches=flash_launches,

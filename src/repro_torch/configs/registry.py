@@ -1,5 +1,5 @@
-"""--arch <id> registry of the port: the five LM archs, the six GNNs and
-``din``, as ``repro.configs.registry`` has them."""
+"""--arch <id> registry of the port: the ten ASSIGNED architectures + extra
+pool archs, as ``repro.configs.registry`` has them."""
 from repro_torch.configs import (
     din,
     gat_cora,
@@ -15,11 +15,14 @@ from repro_torch.configs import (
     smollm_135m,
 )
 
-ARCHS = {
-    m.ARCH.arch_id: m.ARCH
-    for m in (qwen3_14b, smollm_135m, llama3_8b, granite_moe_1b_a400m, qwen3_moe_30b_a3b,
-              meshgraphnet, schnet, gat_cora, gin_tu, din, gcn_cora, graphsage)
-}
+ASSIGNED = (
+    qwen3_14b, smollm_135m, llama3_8b, granite_moe_1b_a400m,
+    qwen3_moe_30b_a3b, meshgraphnet, schnet, gat_cora, gin_tu, din,
+)
+EXTRA = (gcn_cora, graphsage)
+
+ARCHS = {m.ARCH.arch_id: m.ARCH for m in ASSIGNED + EXTRA}
+ASSIGNED_IDS = tuple(m.ARCH.arch_id for m in ASSIGNED)
 
 
 def get(arch_id: str):

@@ -7,7 +7,10 @@ source attention scores); everything downstream (the attention softmax, the
 message aggregation, the loss) is local to the destination's rank, because
 every in-edge of a vertex lives in its core's bucket. The softmax runs on
 the segment-softmax op (``models.gnn.common.segment_softmax_xla``: the
-kernel on the card, one launch a layer a rank).
+kernel on the card, one launch a layer a rank), and the messages are summed
+by the fixed-order segment sum (``kernels.segment_sum``) over the edges'
+destination layout, built once beside the softmax's tiles; the softmax's
+backward adds over the same layout.
 
 Numerics match the dense single-device GAT to float32 tolerance;
 ``wire_dtype`` optionally narrows the exchanged payload (e.g. bf16 wires,
@@ -28,6 +31,7 @@ import torch.nn.functional as Fn
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.core.distributed import _all_reduce_sum, crossbar_exchange
+from repro_torch.kernels.segment_sum import segment_layout, segment_sum
 from repro_torch.models.gnn.common import flat_softmax_tiles, mlp, segment_softmax_xla
 
 __all__ = ["make_gat_graphscale_loss"]
@@ -66,10 +70,11 @@ class _Replicated(torch.autograd.Function):
         return (None, *out)
 
 
-def _gat_layer_dist(w, a_src, a_dst, x, e_src, e_dst, e_val, tiles, group, final,
+def _gat_layer_dist(w, a_src, a_dst, x, e_src, e_dst, e_val, tiles, segments, group, final,
                     wire_dtype):
     """One distributed GAT layer on this rank's (Vl, ...) shard. ``e_src``
-    indexes the gathered payload, ``e_dst`` the local interval."""
+    indexes the gathered payload, ``e_dst`` the local interval; ``segments``
+    is ``e_dst``'s segment-sum layout (None: built by each sum)."""
     vl = x.shape[0]
     xp = torch.einsum("nd,dhf->nhf", x, w)  # (Vl, H, hd)
     s_src = (xp * a_src[None]).sum(-1)  # (Vl, H)
@@ -86,11 +91,11 @@ def _gat_layer_dist(w, a_src, a_dst, x, e_src, e_dst, e_val, tiles, group, final
 
     e = Fn.leaky_relu(ssrc_g[e_src] + s_dst[e_dst], negative_slope=0.2)  # (E, H)
     # every in-edge of a dst is local -> the softmax needs no second exchange
-    att = segment_softmax_xla(e, e_dst, e_val, vl, tiles=tiles)
+    att = segment_softmax_xla(e, e_dst, e_val, vl, tiles=tiles, layout=segments)
     msgs = xp_g[e_src] * att[..., None]  # (E, H, hd)
     flat = torch.where(e_val[:, None], msgs.reshape(msgs.shape[0], -1), 0.0)
-    out = torch.zeros((vl, h * hd), dtype=flat.dtype, device=flat.device)
-    out = out.index_add(0, e_dst, flat).reshape(vl, h, hd)
+    out = segment_sum(flat, e_dst, vl, segments)
+    out = out.reshape(vl, h, hd)
     if final:
         return out.mean(dim=1)  # average heads (GAT output layer)
     return Fn.elu(out.reshape(vl, -1))  # concat heads
@@ -116,7 +121,9 @@ def make_gat_graphscale_loss(
     are the reference's arguments; the shapes come from ``params``.
     ``tiles``: this rank's softmax layout (``flat_softmax_tiles`` of its
     edges), given when it is built ahead (a trace on fake tensors cannot
-    read the edges); by default built from the edges at the first call."""
+    read the edges; the segment sums then build their layout per call); by
+    default built from the edges at the first call, with the edges'
+    segment-sum layout by destination."""
     tiles_of = {}
 
     def loss_fn(params, feat, sg, dl, vm, labels, lmask):
@@ -127,21 +134,23 @@ def make_gat_graphscale_loss(
             raise ValueError("GAT layout uses l == 1 (interval fits scratch)")
         e_src, e_dst, e_val = sg[0, 0].long(), dl[0, 0].long(), vm[0, 0]
         if tiles is not None:
-            layout = tiles
+            layout, segments = tiles, None
         else:
             key = (dl.data_ptr(), dl.device)
-            if key not in tiles_of:  # the layout of this edge set, built once
-                tiles_of[key] = flat_softmax_tiles(e_dst, e_val, vpc)
-            layout = tiles_of[key]
+            if key not in tiles_of:  # the layouts of this edge set, built once
+                tiles_of[key] = (flat_softmax_tiles(e_dst, e_val, vpc),
+                                 segment_layout(e_dst, vpc))
+            layout, segments = tiles_of[key]
 
         leaves, spec = tree_flatten(params)
         rp = tree_unflatten(list(_Replicated.apply(group, *leaves)), spec)
 
         x = mlp(rp["encoder"], x0)  # (Vl, H*hd)
         x = _gat_layer_dist(rp["l1_w"], rp["l1_asrc"], rp["l1_adst"], x, e_src, e_dst, e_val,
-                            layout, group, final=False, wire_dtype=wire_dtype)
+                            layout, segments, group, final=False, wire_dtype=wire_dtype)
         out = _gat_layer_dist(rp["l2_w"], rp["l2_asrc"], rp["l2_adst"], x, e_src, e_dst,
-                              e_val, layout, group, final=True, wire_dtype=wire_dtype)
+                              e_val, layout, segments, group, final=True,
+                              wire_dtype=wire_dtype)
 
         lg = out.to(torch.float32)
         lse = torch.logsumexp(lg, dim=-1)

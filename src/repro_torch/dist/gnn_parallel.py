@@ -7,7 +7,10 @@ q holds core q's (1, Vl, D) feature shard and core q's flat per-phase edge
 arrays (a feature row does not fit the packed scalar stream). At phase m
 every rank all-gathers its active sub-interval of rows
 (``core.distributed.crossbar_exchange``), then reads every edge's source
-row from that gathered block and sums it into the destination's row.
+row from that gathered block and sums it into the destination's row, by
+the port's fixed-order segment sum (``kernels.segment_sum``) over each
+phase's destination layout, built once, so a rank's sums have the same bits
+on every run.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch.distributed as dist
 from repro_torch.core.distributed import crossbar_exchange
 from repro_torch.core.partition import PartitionedGraph
 from repro_torch.device import resolve_device
+from repro_torch.kernels.segment_sum import segment_layout, segment_sum
 
 __all__ = ["shard_features", "make_graphscale_aggregate"]
 
@@ -49,6 +53,9 @@ def make_graphscale_aggregate(pg: PartitionedGraph, group, device="cuda"):
     sg = torch.from_numpy(np.ascontiguousarray(pg.src_gidx[q])).to(dev, torch.int64)
     dl = torch.from_numpy(np.ascontiguousarray(pg.dst_lidx[q])).to(dev, torch.int64)
     vm = torch.from_numpy(np.ascontiguousarray(pg.valid[q])).to(dev)
+    # each phase's destinations, an invalid edge's -1 (in no segment)
+    seg = torch.where(vm, dl, -1)
+    layouts = [segment_layout(seg[m], vpc) for m in range(pg.l)]
 
     def agg(feat):
         f = feat[0]
@@ -56,7 +63,7 @@ def make_graphscale_aggregate(pg: PartitionedGraph, group, device="cuda"):
         for m in range(pg.l):
             gathered = crossbar_exchange(f[m * sub : (m + 1) * sub].contiguous(), group)
             msgs = torch.where(vm[m][:, None], gathered[sg[m]], 0.0)  # (E, D) label reads
-            acc = acc + torch.zeros_like(acc).index_add_(0, dl[m], msgs)
+            acc = acc + segment_sum(msgs, seg[m], vpc, layouts[m])
         return acc[None]
 
     return agg

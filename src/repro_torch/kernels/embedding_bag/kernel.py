@@ -6,10 +6,12 @@ table (N, D) float32 x ids (B, L) int32 -> (B, D) float32, an id < 0 is
 padding and mean divides by max(count, 1). ``embedding_bag_cuda`` launches
 the hand-written Hopper kernel in ``csrc/embedding_bag.cu`` (built by
 ``nvcc`` at first use) on CUDA tensors and raises if the build or the
-launch fails; any B is accepted. ``embedding_bag_backward_cuda`` launches
-``csrc/embedding_bag_backward.cu``, the table's gradient summed in (b, i)
-order (the reference has no backward kernel: it differentiates its XLA
-bag). ``ops.embedding_bag`` is the entry point for both.
+launch fails; any B is accepted. ``embedding_bag_backward_cuda`` is the
+table's gradient summed in (b, i) order (the reference has no backward
+kernel: it differentiates its XLA bag), one launch of the fixed-order
+segment-sum kernel (``csrc/segment_sum.cu``, ``kernels.segment_sum``) over
+the ids' runs, each term the bag's gradient row (for mean, divided by the
+bag's count first). ``ops.embedding_bag`` is the entry point for both.
 """
 from __future__ import annotations
 
@@ -23,10 +25,11 @@ __all__ = ["embedding_bag_cuda", "embedding_bag_backward_cuda", "backward_runs",
            "launch_backward", "LAUNCHES", "reset_launch_counts", "vector_width"]
 
 SOURCE = "embedding_bag.cu"
-BACKWARD_SOURCE = "embedding_bag_backward.cu"
 
 # kernel launches per mode: 'sum', 'mean' (forward), 'sum_backward',
-# 'mean_backward'; incremented only where a CUDA kernel is launched
+# 'mean_backward' (launches of the segment-sum kernel, counted in
+# ``kernels.segment_sum.kernel.LAUNCHES`` too); incremented only where a CUDA
+# kernel is launched
 LAUNCHES: dict = {}
 
 
@@ -98,8 +101,6 @@ def embedding_bag_backward_cuda(grad_out: torch.Tensor, ids: torch.Tensor, num_r
                          f"{grad_out.dtype}")
     if not (grad_out.is_contiguous() and ids.is_contiguous()) or ids.dtype != torch.int32:
         raise ValueError("kernel operands must be contiguous, the ids int32")
-    if b * length >= 1 << 31:
-        raise ValueError(f"B * L = {b * length} ids: the kernel indexes them in 32 bits")
     if num_rows == 0 or grad_out.shape[1] == 0:  # nothing to launch
         return torch.empty((num_rows, grad_out.shape[1]), dtype=torch.float32,
                            device=grad_out.device)
@@ -110,29 +111,25 @@ def embedding_bag_backward_cuda(grad_out: torch.Tensor, ids: torch.Tensor, num_r
 
 def launch_backward(grad_out: torch.Tensor, order: torch.Tensor, start: torch.Tensor,
                     counts: torch.Tensor | None, length: int, mode: str) -> torch.Tensor:
-    """The backward kernel alone on ``backward_runs``' (order, start) and, for
-    mean, the (B,) int32 counts of real ids a bag: -> (len(start) - 1, D)."""
-    from repro_torch.kernels.build import KernelLaunchError, load_library
+    """The backward's launch alone on ``backward_runs``' (order, start) and,
+    for mean, the (B,) int32 counts of real ids a bag: -> (len(start) - 1,
+    D). Row n is the segment-sum kernel's walk of its run in (b, i) order,
+    each term grad_out[order[p] // L] (divided by the bag's count first for
+    mean, as the plain version divides), one level however long the run; on
+    CPU tensors the segment sum's plain version walks the same order."""
+    from repro_torch.kernels.segment_sum import kernel as SS
 
     num_rows, d = start.shape[0] - 1, grad_out.shape[1]
-    grad = torch.empty((num_rows, d), dtype=torch.float32, device=grad_out.device)
     if recording():
         note("embedding_bag_backward", order.numel() * d,
-             nbytes(grad_out, order, start, counts, grad))
+             nbytes(grad_out, order, start, counts) + num_rows * d * 4)
     if is_fake(grad_out):  # the output rule: a dry run's trace
-        return grad
-    lib, _ = load_library(BACKWARD_SOURCE)
-    fn = lib.embedding_bag_backward_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(grad_out.device):
-        err = fn(grad_out.data_ptr(), order.data_ptr(), start.data_ptr(),
-                 counts.data_ptr() if counts is not None else None, grad.data_ptr(),
-                 num_rows, length, d, int(mode == "mean"),
-                 torch.cuda.current_stream(grad_out.device).cuda_stream)
-    if err != 0:
-        raise KernelLaunchError(f"embedding_bag backward launch failed: CUDA error {err}")
-    key = f"{mode}_backward"
-    LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
+        return torch.empty((num_rows, d), dtype=torch.float32, device=grad_out.device)
+    terms = grad_out
+    if counts is not None:
+        terms = grad_out / counts.clamp(min=1).to(torch.float32)[:, None]
+    grad = SS.fold_runs(terms.contiguous(), order // max(length, 1), start, torch.float32)
+    if num_rows and d and grad.device.type == "cuda":  # else nothing was launched
+        key = f"{mode}_backward"
+        LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
     return grad

@@ -9,10 +9,11 @@ gives the same bits; a batched product (the reference's einsum) sums in
 another order and differs by rounding where the rows cancel.
 
 ``embedding_bag_backward_reference`` is the plain version of the backward
-kernel (``csrc/embedding_bag_backward.cu``): the table's gradient, each row
-the sum of its terms in (b, i) order from +0. On the CPU ``index_add_``
-adds its source rows one index after another, in that order (the tests hold
-it to ``np.add.at``); on the card it adds with atomics, in an order that
+(the segment-sum kernel, ``csrc/segment_sum.cu``, over the ids' runs): the
+table's gradient, each row the sum of its terms in (b, i) order from +0.
+On the CPU ``index_add_`` adds its source rows one index after another, in
+that order (the tests hold it to ``np.add.at``); on the card it adds with
+atomics, in an order that
 changes from run to run.
 """
 from __future__ import annotations

@@ -15,6 +15,11 @@ reports its own operation count and the bytes it must move (each operand
 read once, each output written once) through ``note``. With none active a
 launch does neither test nor count beyond ``recording()`` and, for a plain
 tensor, ``is_fake``'s type check.
+
+The fixed-order segment sum (``kernels.segment_sum``) stands in for an
+``index_add`` and notes nothing: its output rule (``segment_sum_rule``) is
+that ``index_add`` on the fake operands, so a dry run's FLOPs (none for it)
+and bytes stay those of the op it replaced, on every mesh.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ from typing import Dict, List
 
 import torch
 
-__all__ = ["is_fake", "note", "recording", "KernelWork", "nbytes"]
+__all__ = ["is_fake", "note", "recording", "KernelWork", "nbytes", "segment_sum_rule"]
 
 _ACTIVE: List["KernelWork"] = []  # the recorders now active, innermost last
 
@@ -33,6 +38,13 @@ def is_fake(t: torch.Tensor) -> bool:
     from torch._subclasses.fake_tensor import is_fake as _is_fake
 
     return _is_fake(t)
+
+
+def segment_sum_rule(x: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """The segment sum's output on fake operands x (E, d), seg (E,): the
+    ``zeros.index_add_`` it stands in for (a fake checks no index)."""
+    out = torch.zeros((num_segments,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    return out.index_add_(0, seg.reshape(-1), x)
 
 
 def nbytes(*tensors) -> int:

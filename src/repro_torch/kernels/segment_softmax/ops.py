@@ -6,12 +6,16 @@ Counterpart of ``repro.kernels.segment_softmax.ops``. The layout comes from
 the scores' device once. ``segment_softmax_edges`` is GAT's differentiable
 form: (E, H) scores, the kernel (or, on the CPU, its plain version) forward,
 and torch ops backward, ``ds = w * (g - segsum(w * g)[dst])`` (the reference
-trains through the jnp form and has no backward kernel).
+trains through the jnp form and has no backward kernel), its ``segsum`` the
+port's fixed-order segment sum (``kernels.segment_sum``) over the caller's
+destination layout (a GNN batch's ``edge_layout``), so the backward has the
+same bits on every run.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -20,6 +24,7 @@ from torch.overrides import handle_torch_function, has_torch_function
 from repro_torch.kernels.csr_gather_reduce.ops import TileLayout, prepare_tiles
 from repro_torch.kernels.segment_softmax import kernel
 from repro_torch.kernels.segment_softmax.ref import segment_softmax_reference
+from repro_torch.kernels.segment_sum import SegmentLayout, segment_sum
 
 __all__ = ["EdgeTiles", "DeviceTiles", "build_edge_tiles", "device_tiles",
            "segment_softmax_tiled", "segment_softmax", "segment_softmax_edges"]
@@ -139,29 +144,32 @@ def segment_softmax(
 
 class _EdgeSoftmax(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, scores, dt, dst, valid):
+    def forward(ctx, scores, dt, dst, valid, layout):
         w = _to_edges(segment_softmax_tiled(scores, dt), dt, scores.shape[0])
         ctx.save_for_backward(w, dst)
-        ctx.num_rows = int(dt.dstb.shape[0]) * dt.vb
+        ctx.layout = layout
+        ctx.num_rows = layout.num_segments if layout is not None \
+            else int(dt.dstb.shape[0]) * dt.vb
         return w
 
     @staticmethod
     def backward(ctx, g):
         w, dst = ctx.saved_tensors
         idx = dst.long()
-        wg = w * g
-        seg = torch.zeros((ctx.num_rows,) + tuple(wg.shape[1:]), dtype=wg.dtype,
-                          device=wg.device).index_add_(0, idx, wg)
-        return w * (g - seg[idx]), None, None, None
+        wg = w * g  # 0 on masked edges
+        seg = segment_sum(wg, idx, ctx.num_rows, ctx.layout)
+        return w * (g - seg[idx]), None, None, None, None
 
 
 def segment_softmax_edges(scores: torch.Tensor, dt: DeviceTiles, dst: torch.Tensor,
-                          valid: torch.Tensor) -> torch.Tensor:
+                          valid: torch.Tensor,
+                          layout: Optional[SegmentLayout] = None) -> torch.Tensor:
     """GAT's edge softmax: (E[, H]) float32 scores -> weights, differentiable
     in ``scores``. ``dst`` and ``valid`` are the edges' rows and mask, as
-    ``dt`` was built from. Takes the torch-function protocol (a dry run's
-    ``launch.sharded.ShardedForms``)."""
+    ``dt`` was built from; ``layout``: the segment-sum layout of ``dst``
+    (``segment_layout``) the backward adds in, built there when None. Takes
+    the torch-function protocol (a dry run's ``launch.sharded.ShardedForms``)."""
     if has_torch_function((scores, dst, valid)):
         return handle_torch_function(segment_softmax_edges, (scores, dst, valid), scores, dt,
-                                     dst, valid)
-    return _EdgeSoftmax.apply(scores, dt, dst, valid)
+                                     dst, valid, layout=layout)
+    return _EdgeSoftmax.apply(scores, dt, dst, valid, layout)

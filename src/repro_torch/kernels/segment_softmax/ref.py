@@ -1,8 +1,12 @@
 """Plain segment form of the segment softmax (GAT's edge softmax over
-in-edges): the counterpart of ``repro.kernels.segment_softmax.ref``."""
+in-edges): the counterpart of ``repro.kernels.segment_softmax.ref``. Its
+segment sum is the fixed-order sum's plain version
+(``kernels.segment_sum.segment_sum_plain``), the same bits on any device."""
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.segment_sum import segment_sum_plain
 
 __all__ = ["segment_softmax_reference"]
 
@@ -22,5 +26,5 @@ def segment_softmax_reference(
     seg_max = seg_max.scatter_reduce(0, idx, s, "amax", include_self=True)
     seg_max = torch.where(seg_max <= _NEG / 2, 0.0, seg_max)  # empty rows
     e = torch.where(valid, torch.exp(s - seg_max[idx]), 0.0)
-    seg_sum = torch.zeros(num_rows, dtype=s.dtype, device=s.device).index_add(0, idx, e)
+    seg_sum = segment_sum_plain(e, idx, num_rows)
     return torch.where(valid, e / torch.clamp(seg_sum[idx], min=1e-30), 0.0)

@@ -480,10 +480,11 @@ def _kernel_modules() -> dict:
     from repro_torch.kernels.embedding_bag import kernel as bag
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.segment_softmax import kernel as softmax
+    from repro_torch.kernels.segment_sum import kernel as segsum
 
     return {"gather_reduce_cores": kernel, "scatter_reduce_cores": scatter,
             "gather_reduce": bucket, "embedding_bag": bag, "segment_softmax": softmax,
-            "flash_attention": flash}
+            "flash_attention": flash, "segment_sum": segsum}
 
 
 def check_on_card(arch, shape_name: str, seed: int = 0, device: str = "cuda",

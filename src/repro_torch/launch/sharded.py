@@ -15,7 +15,10 @@ The forms:
     other mesh dims. Each rank multiplies its share.
   * ``table[ids]``, ``index_select``: ``F.embedding`` on a 2-D table.
   * ``zeros.index_add(0, idx, src)``: each rank adds its rows into a
-    whole-size buffer, reduce-scattered (``segment_sum``).
+    whole-size buffer, reduce-scattered (``segment_sum``). The port's
+    fixed-order ``kernels.segment_sum.segment_sum`` and ``take`` (the
+    torch-function protocol) run as the ``index_add`` and the row take they
+    stand in for, so a dry run's counts are those forms'.
   * ``gather`` along the last dim: on 2-D rows, the masked partial reduced.
   * ``reshape``, ``view``: a split of a dim the reshape merges or splits
     that DTensor's view cannot keep (uneven: K/V heads fewer than the
@@ -711,11 +714,29 @@ def _embedding_bag(table, ids, mode="sum"):
                      name="embedding_bag")
 
 
-def _segment_softmax(scores, dt, dst, valid):
-    """On the gathered edges: the layout is the whole batch's."""
+def _segment_sum(x, seg, num_segments, layout=None):
+    """As ``zeros.index_add(0, seg, x)``, under the forms (``_index_add``)."""
+    if not _is_dt(x):
+        return NotImplemented
+    with ShardedForms():
+        zeros = torch.zeros((num_segments,) + tuple(x.shape[1:]), dtype=x.dtype,
+                            device=x.device)
+        return zeros.index_add(0, seg, x)
+
+
+def _take(table, ids, layout=None):
+    """As ``table[ids]`` (``take_rows``)."""
+    if not (_is_dt(table) or _is_dt(ids)):
+        return NotImplemented
+    return take_rows(table, ids)
+
+
+def _segment_softmax(scores, dt, dst, valid, layout=None):
+    """On the gathered edges: the layouts are the whole batch's."""
     from repro_torch.kernels.segment_softmax.ops import segment_softmax_edges
 
-    return run_local(lambda s, d, v: segment_softmax_edges(s, dt, d, v), (scores, dst, valid),
+    return run_local(lambda s, d, v: segment_softmax_edges(s, dt, d, v, layout),
+                     (scores, dst, valid),
                      ((), (), ()), name="segment_softmax")
 
 
@@ -770,6 +791,7 @@ def _rules() -> dict:
     from repro_torch.kernels.embedding_bag.ops import embedding_bag
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.segment_softmax.ops import segment_softmax_edges
+    from repro_torch.kernels.segment_sum import segment_sum, take
     from repro_torch.models.layers import decode_gqa_attention, moe_ffn, moe_ffn_grouped
     from repro_torch.train.losses import masked_softmax_xent, softmax_xent
 
@@ -781,7 +803,7 @@ def _rules() -> dict:
         torch.Tensor.index_add: _index_add,
         torch.gather: _gather, torch.Tensor.gather: _gather,
         flash_attention: _flash, embedding_bag: _embedding_bag,
-        segment_softmax_edges: _segment_softmax,
+        segment_softmax_edges: _segment_softmax, segment_sum: _segment_sum, take: _take,
         moe_ffn_grouped: _moe_grouped, moe_ffn: _moe, softmax_xent: _softmax_xent,
         masked_softmax_xent: _masked_softmax_xent,
         decode_gqa_attention: _decode_attention,

@@ -166,9 +166,11 @@ def _kernel_launches() -> dict:
     from repro_torch.kernels.embedding_bag import kernel as bag
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.segment_softmax import kernel as softmax
+    from repro_torch.kernels.segment_sum import kernel as segsum
 
     return {name: dict(mod.LAUNCHES) for name, mod in
-            (("embedding_bag", bag), ("flash_attention", flash), ("segment_softmax", softmax))
+            (("embedding_bag", bag), ("flash_attention", flash), ("segment_softmax", softmax),
+             ("segment_sum", segsum))
             if mod.LAUNCHES}
 
 

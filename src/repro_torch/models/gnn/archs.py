@@ -16,7 +16,10 @@ leading ``n_layers`` axis on every leaf (its ``jax.vmap``-stacked tree) and
 runs as a Python loop, so ``params_from_reference`` carries weights across
 leaf for leaf. GAT's edge softmax runs on the port's segment-softmax op
 (``common.segment_softmax``); all message passing routes through
-``aggregate``.
+``aggregate``, whose sums (and GCN's degrees) are the port's fixed-order
+segment sum over the batch's destination layout (``common.edge_layout``),
+and node rows are taken by edge through ``common.edge_take``, whose gradient
+is that sum.
 """
 from __future__ import annotations
 
@@ -28,8 +31,9 @@ import torch
 import torch.nn.functional as Fn
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.segment_sum import segment_sum
 from repro_torch.models.gnn.common import (
-    GraphBatch, aggregate, init_mlp, mlp, segment_softmax,
+    GraphBatch, aggregate, edge_layout, edge_take, init_mlp, mlp, segment_softmax,
 )
 
 __all__ = ["GNNConfig", "init", "apply", "graph_readout", "params_from_reference"]
@@ -162,24 +166,24 @@ def params_from_reference(tree, cfg: GNNConfig, device="cuda") -> Dict[str, Any]
 
 def _gin_apply(params, b: GraphBatch, cfg: GNNConfig):
     h = mlp(params["encoder"], b.node_feat)
-    src = b.edge_src.long()
     for lp in _layers(params):
-        agg = aggregate(h[src], b.edge_dst, b.num_nodes, "sum", b.edge_mask)
+        agg = aggregate(edge_take(h, b), b.edge_dst, b.num_nodes, "sum", b.edge_mask,
+                        layout=edge_layout(b))
         h = mlp(lp["mlp"], (1.0 + lp["eps"]) * h + agg, final_act=True)
     return mlp(params["decoder"], h)
 
 
 def _gat_layer(x, w, a_src, a_dst, b: GraphBatch, final: bool):
     # x (N, Din); w (Din, H, hd); scores via additive attention per head
-    src, dst = b.edge_src.long(), b.edge_dst.long()
     xp = torch.einsum("nd,dhf->nhf", x, w)  # (N, H, hd)
     s_src = (xp * a_src[None]).sum(-1)  # (N, H)
     s_dst = (xp * a_dst[None]).sum(-1)
-    e = Fn.leaky_relu(s_src[src] + s_dst[dst], negative_slope=0.2)  # (E, H)
+    e = Fn.leaky_relu(edge_take(s_src, b) + edge_take(s_dst, b, "dst"),
+                      negative_slope=0.2)  # (E, H)
     att = segment_softmax(e, b)  # (E, H), the segment-softmax kernel per head
-    msgs = xp[src] * att[..., None]  # (E, H, hd)
+    msgs = edge_take(xp, b) * att[..., None]  # (E, H, hd)
     out = aggregate(msgs.reshape(msgs.shape[0], -1), b.edge_dst, b.num_nodes, "sum",
-                    b.edge_mask)
+                    b.edge_mask, layout=edge_layout(b))
     out = out.reshape(x.shape[0], att.shape[1], -1)  # (N, H, hd)
     if final:
         return out.mean(dim=1)  # average heads (GAT output layer)
@@ -203,11 +207,11 @@ def _schnet_apply(params, b: GraphBatch, cfg: GNNConfig):
     dist = b.edge_dist if b.edge_dist is not None else \
         torch.ones(b.num_edges, dtype=torch.float32, device=b.device)
     rbf = _schnet_rbf(dist, cfg.rbf, cfg.cutoff)  # (E, rbf)
-    src = b.edge_src.long()
     for lp in _layers(params):
         w = mlp(lp["filter"], rbf)  # (E, h) continuous-filter weights
-        msgs = mlp(lp["in_proj"], h)[src] * w
-        agg = aggregate(msgs, b.edge_dst, b.num_nodes, "sum", b.edge_mask)
+        msgs = edge_take(mlp(lp["in_proj"], h), b) * w
+        agg = aggregate(msgs, b.edge_dst, b.num_nodes, "sum", b.edge_mask,
+                        layout=edge_layout(b))
         h = h + mlp(lp["out_mlp"], agg)  # residual interaction block
     return mlp(params["decoder"], h)
 
@@ -217,10 +221,11 @@ def _mgn_apply(params, b: GraphBatch, cfg: GNNConfig):
     ef = b.edge_dist[:, None] if b.edge_dist is not None else \
         torch.ones(b.num_edges, 1, dtype=cfg.dtype, device=b.device)
     e = mlp(params["edge_encoder"], ef)
-    src, dst = b.edge_src.long(), b.edge_dst.long()
     for lp in _layers(params):
-        e = e + mlp(lp["edge_mlp"], torch.cat([e, h[src], h[dst]], dim=-1))
-        agg = aggregate(e, b.edge_dst, b.num_nodes, cfg.aggregator, b.edge_mask)
+        e = e + mlp(lp["edge_mlp"], torch.cat([e, edge_take(h, b), edge_take(h, b, "dst")],
+                                              dim=-1))
+        agg = aggregate(e, b.edge_dst, b.num_nodes, cfg.aggregator, b.edge_mask,
+                        layout=edge_layout(b))
         h = h + mlp(lp["node_mlp"], torch.cat([h, agg], dim=-1))
     return mlp(params["decoder"], h)
 
@@ -229,12 +234,14 @@ def _gcn_apply(params, b: GraphBatch, cfg: GNNConfig):
     h = mlp(params["encoder"], b.node_feat)
     src, dst = b.edge_src.long(), b.edge_dst.long()
     ones = b.edge_mask.to(torch.float32)
-    deg = torch.zeros(b.num_nodes, device=b.device).index_add(0, dst, ones) + 1.0
-    deg_src = torch.zeros(b.num_nodes, device=b.device).index_add(0, src, ones) + 1.0
+    deg = segment_sum(ones, dst, b.num_nodes, edge_layout(b)) + 1.0
+    deg_src = segment_sum(ones, src, b.num_nodes, edge_layout(b, "src")) + 1.0
     # symmetric normalization 1/sqrt(d_i d_j) with implicit self loop
     norm = torch.rsqrt(deg_src[src] * deg[dst])
     for lp in _layers(params):
-        agg = aggregate(h[src] * norm[:, None], b.edge_dst, b.num_nodes, "sum", b.edge_mask)
+        agg = aggregate(edge_take(h, b) * norm[:, None], b.edge_dst, b.num_nodes, "sum",
+                        b.edge_mask,
+                        layout=edge_layout(b))
         agg = agg + h * torch.rsqrt(deg)[:, None]  # self loop
         h = torch.relu(mlp(lp["w"], agg))
     return mlp(params["decoder"], h)
@@ -242,9 +249,9 @@ def _gcn_apply(params, b: GraphBatch, cfg: GNNConfig):
 
 def _sage_apply(params, b: GraphBatch, cfg: GNNConfig):
     h = mlp(params["encoder"], b.node_feat)
-    src = b.edge_src.long()
     for lp in _layers(params):
-        agg = aggregate(h[src], b.edge_dst, b.num_nodes, "mean", b.edge_mask)
+        agg = aggregate(edge_take(h, b), b.edge_dst, b.num_nodes, "mean", b.edge_mask,
+                        layout=edge_layout(b))
         h = torch.relu(mlp(lp["w_self"], h) + mlp(lp["w_neigh"], agg))
         # L2 normalize (GraphSAGE 3.1)
         h = h / torch.clamp(torch.linalg.vector_norm(h, dim=-1, keepdim=True), min=1e-6)

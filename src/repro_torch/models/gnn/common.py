@@ -2,8 +2,13 @@
 MLP helpers.
 
 Counterpart of ``repro.models.gnn.common``. Message passing is a take plus a
-segment reduce over an edge index (``index_add_`` / ``scatter_reduce``), the
-same gather/scatter substrate as the graph engine. GAT's edge softmax
+segment reduce over an edge index, the same gather/scatter substrate as the
+graph engine: sums through the port's fixed-order segment sum
+(``kernels.segment_sum``: the hand-written Hopper kernel on the card, its
+plain version on the CPU, the same bits on every run) over a destination
+layout kept on the batch (``edge_layout``), max through ``scatter_reduce``;
+the takes of node rows by edge (``edge_take``) through the port's take, whose
+gradient is that sum over the source or destination layout. GAT's edge softmax
 (``segment_softmax``) runs on the port's segment-softmax op: the hand-written
 Hopper kernel on the card, its plain version on the CPU, over a tile layout
 built once per batch on the host. ``segment_softmax_xla`` is the same op
@@ -17,8 +22,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
-__all__ = ["GraphBatch", "aggregate", "init_mlp", "mlp", "segment_softmax",
-           "softmax_tiles", "flat_softmax_tiles", "segment_softmax_xla"]
+__all__ = ["GraphBatch", "aggregate", "edge_layout", "edge_take", "init_mlp", "mlp",
+           "segment_softmax", "softmax_tiles", "flat_softmax_tiles", "segment_softmax_xla"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,8 +33,9 @@ class GraphBatch:
     For batched small graphs (TU/molecule), ``graph_id`` maps nodes to their
     graph; single-graph tasks use graph_id == 0. Padding nodes/edges are
     masked. ``edge_dist`` carries precomputed pairwise distances (SchNet).
-    GAT's softmax tile layout is built on first use and kept on the batch
-    (``softmax_tiles``).
+    GAT's softmax tile layout and the destination layout of the segment sums
+    are built on first use and kept on the batch (``softmax_tiles``,
+    ``edge_layout``).
     """
 
     node_feat: torch.Tensor  # (N, F)
@@ -79,9 +85,14 @@ def aggregate(
     num_nodes: int,
     kind: str = "sum",
     mask: Optional[torch.Tensor] = None,
+    layout=None,
 ) -> torch.Tensor:
     """Per-destination reduce. Empty rows give 0 for every kind (max: the
-    segment max of no message is -inf, which is mapped to 0)."""
+    segment max of no message is -inf, which is mapped to 0). Sum and mean
+    add in the fixed order of ``layout`` (``segment_layout`` of ``dst``;
+    built per call when None)."""
+    from repro_torch.kernels.segment_sum import segment_sum
+
     idx = dst.long()
     if mask is not None:
         m = mask.reshape(mask.shape + (1,) * (messages.dim() - 1))
@@ -90,13 +101,11 @@ def aggregate(
                                                        device=messages.device))
     shape = (num_nodes,) + tuple(messages.shape[1:])
     if kind in ("sum", "mean"):
-        s = torch.zeros(shape, dtype=messages.dtype, device=messages.device)
-        s = s.index_add(0, idx, messages)
+        s = segment_sum(messages, idx, num_nodes, layout)
         if kind == "sum":
             return s
         ones = mask if mask is not None else torch.ones_like(idx, dtype=torch.float32)
-        c = torch.zeros(num_nodes, dtype=torch.float32, device=messages.device)
-        c = c.index_add(0, idx, ones.to(torch.float32))
+        c = segment_sum(ones.to(torch.float32), idx, num_nodes, layout)
         return s / torch.clamp(c, min=1.0)[:, None]
     if kind == "max":
         out = torch.full(shape, float("-inf"), dtype=messages.dtype, device=messages.device)
@@ -176,12 +185,42 @@ def softmax_tiles(b: GraphBatch):
     return cached
 
 
+def edge_layout(b: GraphBatch, by: str = "dst"):
+    """The segment-sum layout of the batch's edges by destination (``by``
+    "dst") or source ("src") on its device, built at first use and kept on
+    the batch: it orders the sums over those ids (masked edges add their
+    masked zeros), the gradients of the takes by them and GAT's edge
+    softmax's backward. None for a traced batch (DTensors or fake tensors),
+    whose sums and takes a dry run's forms place."""
+    from repro_torch.kernels.segment_sum import segment_layout
+
+    ids = b.edge_dst if by == "dst" else b.edge_src
+    if type(ids) is not torch.Tensor:
+        return None
+    key = f"_{by}_layout"
+    cached = b.__dict__.get(key)
+    if cached is None or cached.device != b.device:
+        cached = segment_layout(ids, b.num_nodes)
+        object.__setattr__(b, key, cached)
+    return cached
+
+
+def edge_take(x: torch.Tensor, b: GraphBatch, by: str = "src") -> torch.Tensor:
+    """``x[b.edge_src]`` (or ``edge_dst``): the port's take, whose gradient
+    into x is the fixed-order segment sum over ``edge_layout(b, by)``."""
+    from repro_torch.kernels.segment_sum import take
+
+    ids = b.edge_src if by == "src" else b.edge_dst
+    return take(x, ids.long(), edge_layout(b, by))
+
+
 def segment_softmax(scores: torch.Tensor, b: GraphBatch) -> torch.Tensor:
     """Softmax of (E,) or (E, H) edge scores over each destination's valid
     in-edges, in edge order; masked edges get 0. Differentiable."""
     from repro_torch.kernels.segment_softmax.ops import segment_softmax_edges
 
-    return segment_softmax_edges(scores, softmax_tiles(b), b.edge_dst, b.edge_mask)
+    return segment_softmax_edges(scores, softmax_tiles(b), b.edge_dst, b.edge_mask,
+                                 edge_layout(b))
 
 
 def flat_softmax_tiles(dst: torch.Tensor, valid: torch.Tensor, num_rows: int, device=None):
@@ -196,13 +235,15 @@ def flat_softmax_tiles(dst: torch.Tensor, valid: torch.Tensor, num_rows: int, de
 
 
 def segment_softmax_xla(scores: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
-                        num_rows: int, tiles=None) -> torch.Tensor:
+                        num_rows: int, tiles=None, layout=None) -> torch.Tensor:
     """Softmax of (E,) or (E, H) edge scores over each row's valid in-edges,
     for flat edge arrays; masked edges get 0. Runs on the segment-softmax op
     (the kernel on the card, its plain version on the CPU) over ``tiles``
-    (``flat_softmax_tiles``; built here when None). Differentiable."""
+    (``flat_softmax_tiles``; built here when None); its backward adds over
+    ``layout`` (``segment_layout(dst, num_rows)``; built there when None).
+    Differentiable."""
     from repro_torch.kernels.segment_softmax.ops import segment_softmax_edges
 
     if tiles is None:
         tiles = flat_softmax_tiles(dst, valid, num_rows)
-    return segment_softmax_edges(scores, tiles, dst, valid)
+    return segment_softmax_edges(scores, tiles, dst, valid, layout)

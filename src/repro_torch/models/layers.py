@@ -20,6 +20,9 @@ import torch.nn.functional as F
 from torch.overrides import handle_torch_function, has_torch_function
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels.fake import is_fake
+from repro_torch.kernels.segment_sum import segment_layout, segment_sum, take
+
 __all__ = [
     "MoEConfig",
     "rms_norm",
@@ -165,8 +168,11 @@ def swiglu(x: torch.Tensor, w1, w3, w2) -> torch.Tensor:
 # any tolerance): top-k is a stable descending sort (``jax.lax.top_k`` puts
 # the lower index first on ties) and the expert sort is stable, as
 # ``jnp.argsort``. ``.at[slot].set`` with the dump slot ``e * capacity`` is a
-# write into a buffer one longer, then a slice; ``.at[].add`` is
-# ``index_add_`` (both add in update order on the CPU).
+# write into a buffer one longer, then a slice. The dispatch's take and the
+# combine's ``.at[].add`` are the port's take and fixed-order segment sum
+# (``kernels.segment_sum``) over one layout of the slots by token, so they add
+# in slot order, as the reference does on the CPU, and give the same bits on
+# every run on the card.
 # ---------------------------------------------------------------------------
 
 
@@ -207,8 +213,9 @@ def route_logits(logits: torch.Tensor, cfg: MoEConfig, capacity: int, dtype: tor
     g_for_slot = torch.zeros((e * capacity + 1,), dtype=dtype, device=logits.device)
     g_for_slot[slot] = g_s.to(dtype)
     me = gates.mean(dim=0)  # (E,)
-    ce = torch.zeros((e,), dtype=torch.float32, device=logits.device).index_add_(
-        0, eids, torch.ones_like(eids, dtype=torch.float32)) / (t * k)
+    # each expert's load: its run in the sorted ids, an integer (no sum)
+    load = torch.diff(starts, append=starts.new_full((1,), t * k))
+    ce = load.to(torch.float32) / (t * k)
     return tok_for_slot[:-1], g_for_slot[:-1], me, ce
 
 
@@ -219,18 +226,34 @@ def _experts(gathered, w1, w3, w2):
     return torch.einsum("...ecf,efd->...ecd", F.silu(h) * h3, w2)
 
 
+def _slot_layout(rows, t: int, x, experts: int):
+    """The segment-sum layout of the slots by token: tokens 0..t-1, the
+    empty slots' t in no run. A token fills at most one slot an expert, so
+    no run is longer than ``experts`` (no host read). None for a fake x (a
+    dry run's trace: the kernels' output rules)."""
+    return None if is_fake(x) else segment_layout(rows, t, max_run=experts)
+
+
+def _dispatch_combine(x, rows, gates, w1, w3, w2, slots_shape):
+    """Tokens x (T, d) into the slots ``rows`` (T for an empty slot) by a
+    take, through the experts, weighted by ``gates`` and summed back into
+    (T, d) in slot order; the take's gradient the same sum."""
+    t, d = x.shape
+    layout = _slot_layout(rows, t, x, w1.shape[0])
+    x_pad = torch.cat([x, torch.zeros((1, d), dtype=x.dtype, device=x.device)], dim=0)
+    gathered = take(x_pad, rows, layout).reshape(*slots_shape, d)
+    out_slots = _experts(gathered, w1, w3, w2)
+    out_slots = out_slots.reshape(-1, d) * gates[:, None]
+    return segment_sum(out_slots, rows, t, layout)
+
+
 def combine_experts(x, tok_for_slot, g_for_slot, w1, w3, w2, capacity: int):
     """One group's tokens x (T, d) through the experts of ``w1``/``w3``/``w2``
     (E', ...): slot j of expert i holds token ``tok_for_slot[i * capacity +
     j]`` (T for an empty slot) with gate ``g_for_slot[...]``; the weighted
     outputs added into their tokens' rows, (T, d)."""
-    t, d = x.shape
-    x_pad = torch.cat([x, torch.zeros((1, d), dtype=x.dtype, device=x.device)], dim=0)
-    gathered = x_pad[tok_for_slot].reshape(w1.shape[0], capacity, d)
-    out_slots = _experts(gathered, w1, w3, w2)
-    out_slots = out_slots.reshape(-1, d) * g_for_slot[:, None]
-    return torch.zeros((t + 1, d), dtype=x.dtype, device=x.device).index_add_(
-        0, tok_for_slot, out_slots)[:t]
+    return _dispatch_combine(x, tok_for_slot, g_for_slot, w1, w3, w2,
+                             (w1.shape[0], capacity))
 
 
 def moe_ffn_grouped(
@@ -259,16 +282,12 @@ def moe_ffn_grouped(
     g_slot = torch.stack([r[1] for r in routes])
     me = torch.stack([r[2] for r in routes])
     ce = torch.stack([r[3] for r in routes])
-    x_pad = torch.cat([xg, torch.zeros((g, 1, d), dtype=x.dtype, device=x.device)], dim=1)
-    gathered = torch.gather(x_pad, 1, tok_slot[..., None].expand(-1, -1, d))
-    out_slots = _experts(gathered.reshape(g, e, capacity, d), w1, w3, w2)
-    out_slots = out_slots.reshape(g, e * capacity, d) * g_slot[..., None]
-    out = torch.stack([
-        torch.zeros((tg + 1, d), dtype=x.dtype, device=x.device).index_add_(
-            0, tok_slot[i], out_slots[i])[:tg]
-        for i in range(g)])  # (G, Tg, d)
+    # one take and one sum over all groups: group i's token j is row i * Tg + j
+    base = torch.arange(g, device=x.device)[:, None] * tg
+    rows = torch.where(tok_slot < tg, tok_slot + base, t).reshape(-1)
+    out = _dispatch_combine(x, rows, g_slot.reshape(-1), w1, w3, w2, (g, e, capacity))
     aux = cfg.router_aux_weight * e * torch.mean(torch.sum(me * ce, dim=-1))
-    return out.reshape(t, d), aux
+    return out, aux
 
 
 def moe_ffn(

@@ -11,8 +11,10 @@ The multi-hot user profile goes through the port's EmbeddingBag op
 the card, the plain version on the CPU, and in training its backward (a
 second kernel on the card, summing each row's terms in a fixed order). The item-table take goes through
 ``lookup_fn`` when one is given (``dist.embedding.make_crossbar_lookup``,
-the serving router's path), else ``index_select``; the MLPs are plain
-matmuls.
+the serving router's path), else, as the category take, through the port's
+take (``kernels.segment_sum.take``), whose gradient into the table is the
+fixed-order segment sum (a kernel on the card, the same bits on every run);
+the MLPs are plain matmuls.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.embedding_bag import embedding_bag
+from repro_torch.kernels.segment_sum import take
 from repro_torch.models.gnn.common import init_mlp, mlp
 
 __all__ = ["DINConfig", "init", "params_from_reference", "batch_to", "score",
@@ -88,17 +91,13 @@ def batch_to(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(np.asarray(v), device=device) for k, v in batch.items()}
 
 
-def _take(table, ids):
-    return table.index_select(0, ids.reshape(-1)).reshape(*ids.shape, table.shape[1])
-
-
 def _embed_elem(params, item_ids, cate_ids, lookup_fn=None):
     """Item rows through ``lookup_fn`` (the crossbar exchange) when given,
     else a plain take; category rows by take. -> (..., 2d)."""
     items = item_ids.clamp(min=0)
     it = lookup_fn(params["item_table"], items) if lookup_fn is not None \
-        else _take(params["item_table"], items)
-    ct = _take(params["cate_table"], cate_ids.clamp(min=0))
+        else take(params["item_table"], items)
+    ct = take(params["cate_table"], cate_ids.clamp(min=0))
     return torch.cat([it, ct], dim=-1)
 
 

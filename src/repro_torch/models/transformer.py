@@ -31,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.segment_sum import take
 from repro_torch.models.layers import (
     MoEConfig,
     apply_rope,
@@ -232,7 +233,8 @@ def _block(lp, x, cfg: LMConfig, cos, sin):
 def forward(params, tokens: torch.Tensor, cfg: LMConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> logits (B, S, V), aux_loss (float32 scalar)."""
     b, s = tokens.shape
-    x = _wsc(params["embed"][tokens.long()], cfg.act_sharding)
+    # the port's take: the table's gradient is the fixed-order segment sum
+    x = _wsc(take(params["embed"], tokens.long()), cfg.act_sharding)
     cos, sin = rope(torch.arange(s, device=tokens.device), cfg.hd, cfg.rope_theta)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()

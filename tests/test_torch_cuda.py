@@ -31,7 +31,12 @@ sweep cases, ragged S, D = 12 to 128, a GQA group of 5, S = 1; float32 and
 bf16), LM smoke configs' forward and grads on the card against the CPU run
 (one launch a layer), and smollm-135m at published width against a
 plain-attention run; the dry run's prediction held against the card on
-one-card cells (din/serve_p99, a reduced granite-moe train and decode step).
+one-card cells (din/serve_p99, a reduced granite-moe train and decode step);
+the fixed-order segment sum bit for bit against its plain version on the CPU
+(float32 and bf16, D = 1 to 130, dropped ids, a 70,000-row hub over three
+levels, sorted ids, x off its aligned base, two launches), ``take`` and the
+sum through autograd bit for bit the CPU's, and a GAT, GCN, DIN and
+granite-moe smoke train step's loss and gradients the same bits twice.
 
 Every test here needs an NVIDIA GPU (the kernel has no CPU mode) and skips
 without one. The file imports neither jax nor ``repro``, so it runs on a
@@ -1051,7 +1056,7 @@ def test_cuda_embedding_bag_grad_through_the_op(cuda_device):
     for mode in ("sum", "mean"):
         grads = {}
         for dev in ("cpu", cuda_device):
-            t = table.to(dev).requires_grad_(True)
+            t = table.to(dev).clone().requires_grad_(True)
             EB.reset_launch_counts()
             loss = (embedding_bag(t, ids.to(dev), mode) * w.to(dev)).sum()
             (grads[str(dev)],) = torch.autograd.grad(loss, t)
@@ -1995,3 +2000,145 @@ def test_cuda_dry_run_prediction_of_a_reduced_moe_cell(cuda_device):
         assert rec["flops_equal"] and rec["card_aten_flops"] == rec["fake_aten_flops"] > 0
         assert rec["card_peak_bytes"] <= 1.10 * rec["predicted_peak_bytes"] + 64 * 2 ** 20, rec
     assert recs[0]["card_kernel_flops"] == recs[0]["fake_kernel_flops"] > 0
+
+
+# -- the fixed-order segment sum ----------------------------------------------
+
+SEGSUM_D = [1, 2, 3, 4, 18, 64, 130]
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32) \
+        .numpy().tobytes()
+
+
+def _segsum_cases(rng, rows, segs):
+    """Segment ids: random with ids < 0 and past the last segment, one hub
+    of 70,000 rows (three levels of chunks of 256), every id past the last
+    segment (all dropped), and ids already in order."""
+    rand = rng.integers(-1, segs + 2, rows)
+    hub = np.concatenate([np.full(70_000, 3), rng.integers(0, segs, rows)])
+    rng.shuffle(hub)
+    return {"random": rand, "hub": hub, "dropped": np.full(rows, segs + 5),
+            "sorted": np.sort(rng.integers(0, segs, rows))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", SEGSUM_D)
+def test_cuda_segment_sum_matches_plain_bit_for_bit(d, dtype, cuda_device):
+    """The kernel bit for bit against its plain version run on the CPU, on
+    x aligned and one element past an aligned base, the layout passed in or
+    rebuilt on the card; one launch a level; the same bits on a second
+    launch."""
+    from repro_torch.kernels.segment_sum import kernel as SS
+    from repro_torch.kernels.segment_sum import segment_layout, segment_sum
+
+    rng = np.random.default_rng(d)
+    segs = 257
+    for name, seg in _segsum_cases(rng, 3000, segs).items():
+        n = seg.shape[0]
+        x = torch.from_numpy((rng.standard_normal((n, d)) * 10.0 **
+                              rng.integers(-3, 3, (n, 1))).astype(np.float32)).to(dtype)
+        want = segment_sum(x, torch.from_numpy(seg), segs)
+        base = torch.zeros(n * d + 1, dtype=dtype, device=cuda_device)
+        base[1:].copy_(x.reshape(-1).to(cuda_device))
+        views = {"aligned": x.to(cuda_device), "offset": base[1:].view(n, d)}
+        seg_c = torch.from_numpy(seg).to(cuda_device)
+        layout = segment_layout(seg_c, segs)
+        for vname, xv in views.items():
+            before = sum(SS.LAUNCHES.values())
+            got = segment_sum(xv, seg_c, segs, layout)
+            again = segment_sum(xv, seg_c, segs)
+            torch.cuda.synchronize()
+            assert sum(SS.LAUNCHES.values()) == before + 2 * len(layout.starts)
+            assert got.dtype == dtype and _bits(got.cpu()) == _bits(want), (name, vname)
+            assert _bits(again.cpu()) == _bits(got.cpu()), (name, vname)
+
+
+@pytest.mark.cuda
+def test_cuda_take_and_sum_gradients_match_cpu(cuda_device):
+    """``take`` and ``segment_sum`` through autograd on the card: values and
+    gradients bit for bit the CPU's."""
+    from repro_torch.kernels.segment_sum import segment_sum, take
+
+    rng = np.random.default_rng(5)
+    table = torch.from_numpy(rng.standard_normal((1000, 18)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, 1000, (512, 33)).astype(np.int32))
+    ids[:, 20:] = 0  # a long run on row 0, as DIN's clamped padding
+    g = torch.from_numpy(rng.standard_normal((512, 33, 18)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        t = table.to(dev).clone().requires_grad_(True)
+        rows = take(t, ids.to(dev))
+        s = segment_sum(rows.reshape(-1, 18), ids.to(dev).reshape(-1), 1000)
+        (rows * g.to(dev)).sum().backward(retain_graph=True)
+        tg = t.grad.clone()
+        t.grad = None
+        s.square().sum().backward()
+        out[str(dev)] = (rows.detach().cpu(), s.detach().cpu(), tg.cpu(), t.grad.cpu())
+    for a, b in zip(out["cpu"], out[str(cuda_device)]):
+        assert torch.equal(a, b)
+
+
+def _twice(fn):
+    """``fn()`` twice: every tensor of the two results bit for bit equal."""
+    a, b = fn(), fn()
+    flat_a, flat_b = [], []
+    for res, flat in ((a, flat_a), (b, flat_b)):
+        stack = [res]
+        while stack:
+            v = stack.pop()
+            if isinstance(v, dict):
+                stack.extend(v[k] for k in sorted(v))
+            elif isinstance(v, (list, tuple)):
+                stack.extend(v)
+            elif isinstance(v, torch.Tensor):
+                flat.append(v.detach().cpu())
+    assert len(flat_a) == len(flat_b) > 1
+    for x, y in zip(flat_a, flat_b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", ["gat-cora", "gcn-cora", "din", "granite-moe-1b-a400m"])
+def test_cuda_train_step_same_bits_on_every_run(arch_id, cuda_device):
+    """A smoke config's loss and every gradient, twice from the same weights
+    and batch on the card: the same bits (the sums, the softmax's backward,
+    the takes' and the MoE's gradients all add in a fixed order)."""
+    import repro_torch.core.graph as TG
+    from repro_torch.configs.registry import get
+    from repro_torch.data.synthetic import graph_batch_from_coo, lm_batch, recsys_batch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.gnn import archs
+    from repro_torch.models.recsys import din
+    from repro_torch.train import steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get(arch_id).smoke()
+    gen = torch.Generator().manual_seed(0)
+    if arch_id == "din":
+        params = _tree_to(din.init(cfg, gen, "cpu"), cuda_device)
+        b = din.batch_to(recsys_batch(0, 1, 512, cfg.seq_len, cfg.item_vocab, cfg.cate_vocab,
+                                      cfg.profile_bag_len), cuda_device)
+        args = (steps.make_din_loss(cfg), params, b)
+    elif arch_id == "granite-moe-1b-a400m":
+        params = _tree_to(tfm.init_params(cfg, gen, "cpu"), cuda_device)
+        b = {k: torch.from_numpy(v).to(cuda_device)
+             for k, v in lm_batch(0, 0, 2, 200, cfg.vocab).items()}
+        args = (steps.make_lm_loss(cfg), params, b["tokens"], b["labels"])
+    else:
+        g = TG.symmetrize(TG.rmat(12, 8, seed=4))
+        batch, labels = graph_batch_from_coo(g.src, g.dst, g.num_vertices, 16, seed=4)
+        params = _tree_to(archs.init(cfg, 16, 5, gen, "cpu"), cuda_device)
+        if arch_id == "gat-cora":
+            for k in ("l1_asrc", "l1_adst", "l2_asrc", "l2_adst"):
+                params[k] = torch.randn(params[k].shape, device=cuda_device) * 0.5
+        batch = batch.to(cuda_device)
+        coef = torch.randn(g.num_vertices, 5, generator=gen).to(cuda_device)
+
+        def loss_fn(p, bt):
+            return (archs.apply(p, bt, cfg) * coef).sum()
+
+        args = (loss_fn, params, batch)
+    _twice(lambda: steps.value_and_grad(*args))

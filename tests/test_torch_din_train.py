@@ -115,6 +115,48 @@ def test_din_loss_and_grads_match_reference(smoke, step):
     assert torch.equal(detached["item_table"], grads["item_table"])
 
 
+class _AddAtTake(torch.autograd.Function):
+    """``table[ids]`` whose table gradient is ``np.add.at`` in flat id order:
+    the sequential float32 fold the fixed-order segment sum promises."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.shape = tuple(table.shape)
+        return table[ids.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        out = np.zeros(ctx.shape, np.float32)
+        np.add.at(out, ids.reshape(-1).numpy(), g.reshape(-1, ctx.shape[1]).numpy())
+        return torch.from_numpy(out), None
+
+
+@pytest.mark.parametrize("step", [0, 5])
+def test_din_takes_sum_their_gradients_in_fixed_order(smoke, step, monkeypatch):
+    """The four takes (history and target, items and categories) run through
+    ``kernels.segment_sum.take``: one fixed-order sum each in the backward
+    (no ``index_select`` backward), and the tables' gradients bit for bit
+    those of takes summed by ``np.add.at`` in id order."""
+    from repro_torch.kernels.segment_sum import kernel as SS
+
+    _, cfg_t, _, tree = smoke
+    b = tdin.batch_to(_batch(cfg_t, step), "cpu")
+    tparams = tdin.params_from_reference(tree, "cpu")
+    calls = []
+    real = SS.segment_sum_rows
+    monkeypatch.setattr(SS, "segment_sum_rows",
+                        lambda x, seg, layout, n: calls.append(n) or real(x, seg, layout, n))
+    _, grads = steps.value_and_grad(steps.make_din_loss(cfg_t), tparams, b)
+    assert sorted(calls) == [cfg_t.cate_vocab] * 2 + [cfg_t.item_vocab] * 2
+    monkeypatch.setattr(tdin, "take", _AddAtTake.apply)
+    _, want = steps.value_and_grad(steps.make_din_loss(cfg_t), tparams, b)
+    assert len(calls) == 4
+    for k in ("item_table", "cate_table"):
+        assert torch.equal(grads[k], want[k]), k
+
+
 def test_din_train_steps_match_reference(smoke):
     cfg_r, cfg_t, params, tree = smoke
     ocfg = dict(lr=1e-3, total_steps=3, warmup_steps=2)
@@ -235,6 +277,34 @@ def test_bag_backward_runs_walked_in_order(kind, mode):
             acc = (acc + term).astype(np.float32)
         out[row] = acc
     assert np.array_equal(_bits(out), _bits(_add_at(ids, g, n, mode)))
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("kind", ["random", "repeats", "all_padding", "one_id", "hub",
+                                  "long_hub"])
+def test_bag_backward_launch_is_the_segment_sum_walk(kind, mode):
+    """The backward's launch (the segment-sum kernel over the ids' runs, each
+    term its bag's gradient row, divided first for mean) on the CPU, where
+    the segment sum's plain version walks the kernel's order: the bits of
+    ``np.add.at`` in (b, i) order, a hub of 1,200 ids (past the segment
+    sum's 256-row chunk) in one level, and no launch counted."""
+    from repro_torch.kernels.embedding_bag import kernel as EBK
+    from repro_torch.kernels.segment_sum import kernel as SS
+
+    if kind == "long_hub":
+        ids, g, n = _bag_case("hub", seed=2)
+        ids = np.tile(ids, (5, 5))  # (120, 50), 2 in every slot
+        g = np.tile(g, (5, 1))
+    else:
+        ids, g, n = _bag_case(kind, seed=2)
+    t_ids = torch.from_numpy(ids)
+    order, start = backward_runs(t_ids, n)
+    counts = (t_ids >= 0).sum(dim=1, dtype=torch.int32) if mode == "mean" else None
+    before, ss_before = dict(EBK.LAUNCHES), dict(SS.LAUNCHES)
+    got = EBK.launch_backward(torch.from_numpy(g), order, start, counts, ids.shape[1], mode)
+    assert EBK.LAUNCHES == before and SS.LAUNCHES == ss_before
+    assert got.dtype == torch.float32 and got.shape == (n, g.shape[1])
+    assert np.array_equal(_bits(got.numpy()), _bits(_add_at(ids, g, n, mode)))
 
 
 @pytest.mark.parametrize("mode", ["sum", "mean"])

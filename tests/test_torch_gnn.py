@@ -10,6 +10,10 @@
     ~100 there, where float32 matmuls and segment sums taken in another
     order differ by a few ulps (up to 7e-5);
   * ``graph_readout`` and ``aggregate`` (sum, mean, max, with empty rows);
+  * every arch's sums (forward and backward, GAT's softmax backward too)
+    through the fixed-order segment sum over the batch's kept destination
+    or source layout, built once, each aggregate's sum bit for bit the
+    sequential float32 fold of the valid messages in edge order;
   * ``mlp`` with its activation, final activation and layer norm;
   * the graph generators byte-identical, the GNN configs value for value.
 
@@ -111,6 +115,43 @@ def test_aggregate_and_readout_match_reference(kind):
     want = np.asarray(rarchs.graph_readout(jnp.asarray(out), _np_batch(b), kind))
     got = archs.graph_readout(torch.from_numpy(out), b, kind).numpy()
     np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("arch_id", ARCH_IDS)
+def test_sums_run_through_the_fixed_order_op(arch_id, monkeypatch):
+    """The forward's and backward's segment sums all go through
+    ``kernels.segment_sum`` (no ``index_add``), each over the one destination
+    or source layout kept on the batch (GAT's softmax backward too); an
+    aggregate's sum is the sequential float32 fold of its valid messages in
+    edge order, as the kernel adds on the card."""
+    from repro_torch.kernels.segment_sum import kernel as SS
+
+    b = _graphs()["rmat"]
+    calls = []
+    real = SS.segment_sum_rows
+    monkeypatch.setattr(SS, "segment_sum_rows",
+                        lambda x, seg, layout, n: calls.append((n, layout))
+                        or real(x, seg, layout, n))
+    add = torch.Tensor.index_add
+    monkeypatch.setattr(torch.Tensor, "index_add", lambda *a, **k: pytest.fail("index_add"))
+    monkeypatch.setattr(torch.Tensor, "index_add_", lambda *a, **k: pytest.fail("index_add_"))
+    cfg_r, tree = _params(arch_id, 12, 5)
+    cfg_t = t_get(arch_id).smoke()
+    leaves, rebuild = tree_flatten(archs.params_from_reference(tree, cfg_t, "cpu"))
+    live = [p.requires_grad_(True) for p in leaves]
+    archs.apply(rebuild(live), b, cfg_t).square().sum().backward()
+    layout = common.edge_layout(b)
+    assert layout is common.edge_layout(b)
+    kept = (layout, common.edge_layout(b, "src"))
+    assert calls and all(n == b.num_nodes and any(l_ is k for k in kept) for n, l_ in calls)
+    monkeypatch.setattr(torch.Tensor, "index_add", add)
+    msgs = torch.from_numpy(np.random.default_rng(9).standard_normal((b.num_edges, 3))
+                            .astype(np.float32))
+    got = common.aggregate(msgs, b.edge_dst, b.num_nodes, "sum", b.edge_mask, layout=layout)
+    want = torch.zeros(b.num_nodes, 3)
+    for i in np.nonzero(b.edge_mask.numpy())[0]:
+        want[b.edge_dst[i]] = want[b.edge_dst[i]] + msgs[i]
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("layer_norm,final_act", [(False, False), (True, False), (True, True)])

@@ -19,8 +19,12 @@ At every LM arch's ``smoke()`` config and the reference's ``TINY``
     1/2), an expert that gets no token and tied gates: ``_route``'s slots
     bit-equal to the reference's (read from its traced program) and the
     outputs bit-equal;
+  * the MoE dispatch's take and combine's sum through the fixed-order
+    segment sum (one each a call, grouped or not), gradients against
+    ``jax.grad``;
   * ``count_params`` / ``active_params``, ``lm_batch`` bit for bit, the LM
-    configs and ``LM_SHAPES`` value for value;
+    configs and ``LM_SHAPES`` value for value, the registry's ``ASSIGNED``,
+    ``EXTRA`` and ``ASSIGNED_IDS`` id for id;
   * ``repro_torch.models.transformer``, ``repro_torch.kernels.flash_attention``
     and the launchers import neither jax nor ``repro``.
 
@@ -251,6 +255,43 @@ def test_moe_grouped_matches_reference(groups):
     np.testing.assert_allclose(got[0].numpy(), ungrouped[0].numpy(), rtol=2e-4, atol=2e-5)
 
 
+@pytest.mark.parametrize("groups", [None, 2])
+def test_moe_dispatch_and_combine_run_through_the_fixed_order_op(groups, monkeypatch):
+    """The dispatch's take and the combine's sum go through
+    ``kernels.segment_sum``, one of each a call over all groups (no
+    ``index_add`` and no ``gather``), and the gradients of the tokens and
+    every weight match ``jax.grad`` of the reference's MoE."""
+    from repro_torch.kernels.segment_sum import kernel as SS
+
+    t, k = 32, 2
+    args = _moe_inputs(5, t, 16, 4)
+    cfg_kw = dict(num_experts=4, top_k=k, d_ff_expert=8)
+    rcfg, tcfg = rlayers.MoEConfig(**cfg_kw), layers.MoEConfig(**cfg_kw)
+    capacity = (t // (groups or 1)) * k // 2  # some slots dropped, some empty
+    coef = np.random.default_rng(6).standard_normal((t, 16)).astype(np.float32)
+
+    def r_loss(*a):
+        out, aux = (rlayers.moe_ffn(*a, rcfg, capacity=capacity) if groups is None else
+                    rlayers.moe_ffn_grouped(*a, rcfg, capacity=capacity, groups=groups))
+        return (out * coef).sum() + aux
+
+    want = jax.grad(r_loss, argnums=tuple(range(5)))(*map(jnp.asarray, args))
+    calls = []
+    real = SS.segment_sum_rows
+    monkeypatch.setattr(SS, "segment_sum_rows",
+                        lambda x, seg, layout, n: calls.append(n) or real(x, seg, layout, n))
+    for name in ("index_add", "index_add_", "gather"):
+        monkeypatch.setattr(torch.Tensor, name, lambda *a, **kw: pytest.fail(name))
+    monkeypatch.setattr(torch, "gather", lambda *a, **kw: pytest.fail("gather"))
+    live = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    out, aux = (layers.moe_ffn(*live, tcfg, capacity=capacity) if groups is None else
+                layers.moe_ffn_grouped(*live, tcfg, capacity=capacity, groups=groups))
+    ((out * torch.from_numpy(coef)).sum() + aux).backward()
+    assert calls == [t, t]  # the combine, then the take's gradient
+    for got, w in zip(live, want):
+        _close(got.grad.numpy(), np.asarray(w))
+
+
 def test_moe_capacity_zero_overflow_matches_reference():
     got, want = _moe_both(_moe_inputs(1, 16, 8, 4, f=4, scale=1.0),
                           dict(num_experts=4, top_k=1, d_ff_expert=4), capacity=8)
@@ -425,6 +466,17 @@ def test_lm_configs_match_reference(name):
         for f in dataclasses.fields(mr):
             assert _same_field(getattr(mt, f.name), getattr(mr, f.name), f.name), f.name
         assert mt.hd == mr.hd
+
+
+def test_registry_names_match_reference():
+    from repro.configs import registry as rreg
+
+    from repro_torch.configs import registry as treg
+
+    assert treg.ASSIGNED_IDS == rreg.ASSIGNED_IDS
+    assert [m.ARCH.arch_id for m in treg.ASSIGNED] == [m.ARCH.arch_id for m in rreg.ASSIGNED]
+    assert [m.ARCH.arch_id for m in treg.EXTRA] == [m.ARCH.arch_id for m in rreg.EXTRA]
+    assert list(treg.ARCHS) == list(rreg.ARCHS)
 
 
 def test_lm_shapes_match_reference():

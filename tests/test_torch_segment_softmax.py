@@ -10,7 +10,9 @@
   * GAT's form (``build_edge_tiles`` over UNSORTED edges, the dst sort
     composed into ``gather_idx``) against the reference's segment form;
   * the autograd backward against ``jax.grad`` of
-    ``segment_softmax_reference``, rtol 1e-5, atol 1e-6.
+    ``segment_softmax_reference``, rtol 1e-5, atol 1e-6; its segment sum the
+    fixed-order op over the caller's destination layout, bit for bit the
+    sequential fold.
 
 The CUDA kernel itself is checked on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py`` phase ``softmax_kernel``). Inputs come from numpy seeds.
@@ -152,6 +154,47 @@ def test_backward_matches_jax_grad(heads):
     (w * torch.from_numpy(coef)).sum().backward()
     np.testing.assert_allclose(s.grad.numpy(), want, **GRAD_TOL)
     np.testing.assert_array_equal(s.grad.numpy()[~valid], 0.0)
+
+
+@pytest.mark.parametrize("heads", [1, 4])
+def test_backward_sums_over_the_given_layout(heads, monkeypatch):
+    """The backward's segment sum is the fixed-order op over the layout the
+    caller passes (``segment_layout`` of the edges' destinations), no
+    ``index_add``; its gradient bit for bit the one with no layout passed
+    (the sum's own, built per call) and the sequential float32 fold of
+    ``w * g`` over the valid edges."""
+    from repro_torch.kernels.segment_sum import kernel as SS
+    from repro_torch.kernels.segment_sum import segment_layout
+
+    n, e = 70, 500
+    rng = np.random.default_rng(heads + 20)
+    dst = rng.integers(0, n, e).astype(np.int32)
+    valid = rng.random(e) < 0.85
+    scores = ((rng.random((e, heads)) - 0.5) * 6).astype(np.float32)
+    coef = torch.from_numpy(rng.standard_normal((e, heads)).astype(np.float32))
+    dt = device_tiles(build_edge_tiles(dst, valid, n, vb=16, eb=32), "cpu")
+    layout = segment_layout(torch.from_numpy(dst), n)
+    seen = []
+    real = SS.segment_sum_rows
+    monkeypatch.setattr(SS, "segment_sum_rows",
+                        lambda x, seg, layout, k: seen.append(layout) or real(x, seg, layout, k))
+    monkeypatch.setattr(torch.Tensor, "index_add_", lambda *a, **k: pytest.fail("index_add_"))
+
+    def grad(given):
+        s = torch.from_numpy(scores).requires_grad_(True)
+        w = segment_softmax_edges(s, dt, torch.from_numpy(dst), torch.from_numpy(valid), given)
+        (w * coef).sum().backward()
+        return s.grad, w.detach()
+
+    got, w = grad(layout)
+    assert len(seen) == 1 and seen[0] is layout
+    bare, _ = grad(None)
+    assert torch.equal(got, bare)
+    wg = w * coef
+    seg = torch.zeros(n, heads)
+    for i in np.nonzero(valid)[0]:
+        seg[dst[i]] = seg[dst[i]] + wg[i]
+    assert torch.equal(got, w * (coef - seg[torch.from_numpy(dst).long()]))
 
 
 def test_wrapper_checks():
