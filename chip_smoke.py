@@ -248,9 +248,10 @@ heads x 8), attention vectors seeded non-zero:
              item table), (c) smollm-135m's embedding gradient at train_4k
              ((4 * 4096, 576) bf16 into the 49,152-row vocab) and (d)
              granite-moe's combine at lm's reduced cell ((E * C, 1024) bf16
-             into the 2,048 tokens): ms a call (all its levels' launches) and a launch,
-             the op with its layout built, plain ms, the library call's
-             (zeros + index_add_, what it replaces), the byte bound
+             into the 2,048 tokens): ms a call (one launch, counted), the
+             layout's sort alone, the op with its layout built, plain ms, the
+             library call's (zeros + index_add_, what it replaces), the byte
+             bound
   gnn        train: 49 steps of make_gnn_train_step with AdamW(lr 1e-3) on
              full_graph_sm uncut (symmetrize(rmat(12, 2, seed=0)) padded to
              16,384 masked slots, d_feat 1433, 7 classes): ms per step
@@ -262,7 +263,7 @@ heads x 8), attention vectors seeded non-zero:
              ogbn-products' widths (d_feat 100, 47 classes; the graph cut from
              2,449,408 / 61,859,328 to 1,048,576 / 31,403,850 by chip time and
              the host build): ms per forward, edges/s, launches (2 a
-             forward; the segment sum's 2 a forward times its levels), every
+             forward; the segment sum's 2 a forward, one a sum), every
              forward's output bit for bit the first's, device idle share of
              one profiled forward, peak memory, outputs within 1e-4 of a
              plain-softmax run. Then one
@@ -2922,8 +2923,8 @@ def main() -> int:
         wall = time.perf_counter() - t_all
         launches = dict(EB.LAUNCHES)
         ss_launches = dict(SS.LAUNCHES)
-        if not rehearsal:  # four takes a step, each its layout's levels, and the bag's backward
-            check(sum(ss_launches.values()) >= 5 * n_steps and set(ss_launches) == {"f32"},
+        if not rehearsal:  # one launch a sum: four takes a step and the bag's backward
+            check(sum(ss_launches.values()) == 5 * n_steps and set(ss_launches) == {"f32"},
                   f"din train: segment_sum launches {ss_launches} over {n_steps} steps")
         peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
         with torch.no_grad():
@@ -3360,8 +3361,9 @@ def main() -> int:
             layout = build(seg, n_seg)
             sync()
             layout_s = time.perf_counter() - t
-            levels = len(layout.starts)
+            n0 = sum(SS.LAUNCHES.values())
             got = segment_sum(x, seg, n_seg, layout)
+            per_call = sum(SS.LAUNCHES.values()) - n0
             again = segment_sum(x, seg, n_seg, layout)
             want = segment_sum_plain(x, seg, n_seg)
             sync()
@@ -3371,17 +3373,17 @@ def main() -> int:
             check(bits_equal(got, want),
                   f"segment_sum {label}: kernel and plain version differ (max err {err})")
             check(bits_equal(got, again), f"segment_sum {label}: two launches differ")
+            check(dev.type != "cuda" or per_call == 1,
+                  f"segment_sum {label}: {per_call} launches a call, not one")
             reps = 2 if rehearsal else 10
             inside = seg[(seg >= 0) & (seg < n_seg)]
             row = dict(rows=int(seg.shape[0]), width=d, segments=n_seg, dtype=str(dtype),
-                       levels=levels,
+                       launches_per_call=per_call,
                        longest_run=int(torch.bincount(inside, minlength=n_seg).max()),
                        layout_seconds=layout_s, max_abs_err=err)
-            row.update(kernel_ms(lambda: segment_sum(x, seg, n_seg, layout), reps, levels,
+            row.update(kernel_ms(lambda: segment_sum(x, seg, n_seg, layout), reps, 1,
                                  "segment_sum_kernel"))
-            row["ms_per_launch"] = row.pop("ms")
-            row["ms"] = device_ms(lambda: segment_sum(x, seg, n_seg, layout), reps, 1,
-                                  launches=levels)
+            row["sort_ms"] = device_ms(lambda: segment_layout(seg, n_seg), max(1, reps // 5), 1)
             row["op_ms"] = device_ms(lambda: segment_sum(x, seg, n_seg), max(1, reps // 5), 1)
             row["plain_ms"] = device_ms(lambda: segment_sum_plain(x, seg, n_seg), 1, 1)
             # an id past the segments (the MoE's empty slot) into one more row
@@ -3410,10 +3412,10 @@ def main() -> int:
                   "layout's max_run E as the MoE layer builds it; bit for bit the plain "
                   "version and a second launch; "
                   "ms: CUDA events around back-to-back calls of the kernel path given the "
-                  "layout (levels launches a call), the stream held while the host enqueues; "
-                  "ms_per_launch beside it (profiler_ms: the kernel's profiler events); op_ms: "
-                  "the op with its layout built (a stable sort, searchsorted, the levels' "
-                  "glue, one host read a level); plain_ms: the plain version in the same "
+                  "layout (launches_per_call: 1), the stream held while the host enqueues "
+                  "(profiler_ms: the kernel's profiler events); sort_ms: segment_layout alone "
+                  "(a stable sort and searchsorted, no host read); op_ms: "
+                  "the op with its layout built; plain_ms: the plain version in the same "
                   "order; library_ms: zeros + index_add_ in x's type, the call the kernel "
                   "replaces; bound: x and the ids read and the sums written once at "
                   "3.35 TB/s")
@@ -3479,9 +3481,10 @@ def main() -> int:
         wall = time.perf_counter() - t_all
         train_launches = dict(SK.LAUNCHES)
         train_ss = dict(SS.LAUNCHES)
-        if not rehearsal:  # the aggregates, the softmax backward, the takes' gradients
+        if not rehearsal:  # one launch a sum: a layer's aggregate, its softmax's
+            # backward and its three takes' gradients, two layers a step
             n_ss = sum(train_ss.values())
-            check(n_ss > 0 and n_ss % n_steps == 0 and set(train_ss) == {"f32"},
+            check(n_ss == 10 * n_steps and set(train_ss) == {"f32"},
                   f"gat train: segment_sum launches {train_ss} over {n_steps} steps")
         check(all(np.isfinite(losses)) and losses[-1] < losses[0],
               f"gat train: loss did not fall ({losses[0]} -> {losses[-1]})")
@@ -3536,9 +3539,8 @@ def main() -> int:
         del first_out
         infer_launches = dict(SK.LAUNCHES)
         infer_ss = dict(SS.LAUNCHES)
-        if not rehearsal:  # the two layers' aggregates, each its layout's levels
-            check(sum(infer_ss.values()) == n_fwd * 2 * len(edge_layout(big).starts)
-                  and set(infer_ss) == {"f32"},
+        if not rehearsal:  # the two layers' aggregates, one launch each
+            check(sum(infer_ss.values()) == n_fwd * 2 and set(infer_ss) == {"f32"},
                   f"gat infer: segment_sum launches {infer_ss} over {n_fwd} forwards")
         if not rehearsal:
             check(infer_launches == {"f32": 2 * n_fwd},
@@ -4282,8 +4284,8 @@ def main() -> int:
         wall = time.perf_counter() - t_all
         train_launches = dict(FK.LAUNCHES)
         train_ss = dict(SS.LAUNCHES)
-        if not rehearsal:  # the embedding take's gradient, its layout's levels a step
-            check(sum(train_ss.values()) >= n_steps and set(train_ss) == {"bf16"},
+        if not rehearsal:  # the embedding take's gradient, one launch a step
+            check(sum(train_ss.values()) == n_steps and set(train_ss) == {"bf16"},
                   f"lm train: segment_sum launches {train_ss} over {n_steps} steps")
         if not rehearsal:  # forward and the block's recompute in backward: 2 a layer
             check(train_launches == {"bf16": 2 * n_layers * n_steps},
@@ -4620,8 +4622,8 @@ def main() -> int:
              bound_by=segsum_rows[shapes[0]]["bound_by"],
              library_ms=segsum_rows[shapes[0]]["library_ms"],
              by_shape={k: {f: segsum_rows[k][f] for f in (
-                 "ms", "ms_per_launch", "levels", "op_ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms", "max_abs_err")} for k in shapes})
+                 "ms", "launches_per_call", "sort_ms", "op_ms", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms", "max_abs_err")} for k in shapes})
         for v, shapes in (("f32", ("a_gat_smoke_graph", "b_din_take")),
                           ("bf16", ("c_smollm_embedding_grad", "d_granite_moe_combine")))
     ] + [

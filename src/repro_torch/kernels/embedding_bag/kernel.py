@@ -77,16 +77,22 @@ def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor, mode: str) -> tor
     return out
 
 
-def backward_runs(ids: torch.Tensor, num_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(order, start): the positions b * L + i of the flattened ids, stably
-    sorted by id, so each row's occurrences lie together in (b, i) order; and
-    the (num_rows + 1) run starts, row n's run being [start[n], start[n + 1]).
-    Padding (< 0) sorts first and lies in no run."""
+def sorted_runs(ids: torch.Tensor, num_rows: int) -> tuple[torch.Tensor, ...]:
+    """(keys, order, start): the flattened ids stably sorted (``keys``), the
+    positions b * L + i they came from (``order``), so each row's
+    occurrences lie together in (b, i) order, and the (num_rows + 1) run
+    starts, row n's run being [start[n], start[n + 1]). Padding (< 0) sorts
+    first and lies in no run."""
     flat = ids.reshape(-1)
     keys, order = torch.sort(flat, stable=True)
     start = torch.searchsorted(keys, torch.arange(num_rows + 1, dtype=flat.dtype,
                                                   device=flat.device))
-    return order, start
+    return keys, order, start
+
+
+def backward_runs(ids: torch.Tensor, num_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(order, start) of ``sorted_runs``."""
+    return sorted_runs(ids, num_rows)[1:]
 
 
 def embedding_bag_backward_cuda(grad_out: torch.Tensor, ids: torch.Tensor, num_rows: int,
@@ -114,9 +120,11 @@ def launch_backward(grad_out: torch.Tensor, order: torch.Tensor, start: torch.Te
     """The backward's launch alone on ``backward_runs``' (order, start) and,
     for mean, the (B,) int32 counts of real ids a bag: -> (len(start) - 1,
     D). Row n is the segment-sum kernel's walk of its run in (b, i) order,
-    each term grad_out[order[p] // L] (divided by the bag's count first for
-    mean, as the plain version divides), one level however long the run; on
-    CPU tensors the segment sum's plain version walks the same order."""
+    each term grad_out[order[p] // L] (the kernel divides the positions as
+    it reads them; for mean the rows divided by the bag's count first, as
+    the plain version divides), one fold however long the run, in the
+    kernel's run part; on CPU tensors the segment sum's plain version walks
+    the same order."""
     from repro_torch.kernels.segment_sum import kernel as SS
 
     num_rows, d = start.shape[0] - 1, grad_out.shape[1]
@@ -128,7 +136,7 @@ def launch_backward(grad_out: torch.Tensor, order: torch.Tensor, start: torch.Te
     terms = grad_out
     if counts is not None:
         terms = grad_out / counts.clamp(min=1).to(torch.float32)[:, None]
-    grad = SS.fold_runs(terms.contiguous(), order // max(length, 1), start, torch.float32)
+    grad = SS.fold_runs(terms.contiguous(), order, start, torch.float32, div=max(length, 1))
     if num_rows and d and grad.device.type == "cuda":  # else nothing was launched
         key = f"{mode}_backward"
         LAUNCHES[key] = LAUNCHES.get(key, 0) + 1

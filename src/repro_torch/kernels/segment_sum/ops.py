@@ -4,7 +4,7 @@
 is the sum of the rows x[i] with seg[i] == s, ids outside [0, num_segments)
 dropped, added in a fixed order: ascending i within each segment (a segment
 of more than ``kernel.CHUNK`` rows: its chunks of ``CHUNK`` rows in
-ascending order, their sums again in chunks, see ``segment_layout``), in
+ascending order, their sums again in chunks, see ``tree_levels``), in
 float32 for float32 and bf16 (rounded once at the end) and in float64 for
 float64. The order is the layout's alone, so two calls give the same bits
 on the card, where ``index_add`` does not. Its gradient is the gather
@@ -16,17 +16,22 @@ fixed-order segment sum of the rows' gradients over ``ids`` (a take is a bag
 of one id: the layout is the bag backward's sort and run starts). DIN's
 takes and the MoE dispatch go through it.
 
-The layout is a stable sort of the ids and the start of each segment's run
-(``searchsorted``); a caller that sums over the same ids more than once
-builds it once (``segment_layout``) and passes it: GAT's softmax layout
-carries one per batch (``kernels.segment_softmax.ops.EdgeTiles``), and the
-other GNNs keep one on the batch (``models.gnn.common.edge_layout``). Both
-functions take the torch-function protocol (a dry run's
-``launch.sharded.ShardedForms``).
+The layout is a stable sort of the ids, the start of each segment's run
+(``searchsorted``) and the run of every ``kernel.MARK``-th sorted position
+(the sorted id there), built on the ids' device with no host read: the
+kernel computes the tree of every run from them in one launch, and the
+plain version on the CPU derives the tree's levels from ``start`` on the
+host (``tree_levels``). A
+caller that sums over the same ids more than once builds it once
+(``segment_layout``) and passes it: GAT's softmax layout carries one per
+batch (``kernels.segment_softmax.ops.EdgeTiles``), and the other GNNs keep
+one on the batch (``models.gnn.common.edge_layout``). Both functions take
+the torch-function protocol (a dry run's ``launch.sharded.ShardedForms``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -35,56 +40,65 @@ from torch.overrides import handle_torch_function, has_torch_function
 from repro_torch.kernels.fake import is_fake
 from repro_torch.kernels.segment_sum import kernel
 
-__all__ = ["SegmentLayout", "segment_layout", "layout_of_runs", "segment_sum", "take",
+__all__ = ["SegmentLayout", "segment_layout", "tree_levels", "segment_sum", "take",
            "segment_sum_plain"]
 
 
 @dataclasses.dataclass(frozen=True)
 class SegmentLayout:
     """The order a segment sum adds in: ``order`` (n,) int64, the row at each
-    sorted position (None: the rows are already in segment order), and per
-    level the (k + 1,) int64 run starts; a level's runs sum the previous
-    level's outputs (the first level's, rows through ``order``), and the
-    last level's runs are the ``num_segments`` segments. ``covers_all``:
-    every row lies in a run (no id outside [0, num_segments))."""
+    sorted position (None: the rows are already in segment order), and
+    ``start`` (num_segments + 1,) int64, each segment's first position; run
+    s is positions [start[s], start[s + 1]). ``covers_all``: the caller
+    knows every row lies in a run (no id outside [0, num_segments)); False
+    makes the sum's gradient mask its gather. ``max_run``: a bound on every
+    run the caller knows (a run of at most ``CHUNK`` rows is one fold).
+    ``marks``: the run holding every ``kernel.MARK``-th position (an id
+    outside [0, num_segments) there: in no run), where a run may exceed
+    ``CHUNK`` rows; the kernel finds a long run's chunks by them (None:
+    ``kernel.run_marks`` derives them from ``start`` on the card)."""
 
     order: Optional[torch.Tensor]
-    starts: tuple
+    start: torch.Tensor
     num_rows: int
-    covers_all: bool
+    covers_all: bool = False
+    max_run: Optional[int] = None
+    marks: Optional[torch.Tensor] = None
 
     @property
     def num_segments(self) -> int:
-        return int(self.starts[-1].shape[0]) - 1
+        return int(self.start.shape[0]) - 1
 
     @property
     def device(self) -> torch.device:
-        return self.starts[-1].device
+        return self.start.device
+
+    @functools.cached_property
+    def levels(self) -> tuple:
+        """The tree's levels (``tree_levels``), derived on the host at first
+        use: the plain version's; the kernel never reads them."""
+        return tree_levels(self.start, self.max_run)
 
     def to(self, device) -> "SegmentLayout":
         move = lambda t: None if t is None else t.to(device)  # noqa: E731
-        return dataclasses.replace(self, order=move(self.order),
-                                   starts=tuple(move(s) for s in self.starts))
+        return dataclasses.replace(self, order=move(self.order), start=move(self.start),
+                                   marks=move(self.marks))
 
 
-def layout_of_runs(order, start: torch.Tensor, num_rows: int,
-                   max_run: Optional[int] = None) -> SegmentLayout:
-    """The layout of runs already found: ``order`` (n,) int64 the rows at
-    the sorted positions (None: the positions are the rows), ``start``
-    (num_segments + 1,) int64 each segment's first position, ``num_rows``
-    the rows summed. Every run longer than ``CHUNK`` is cut into chunks of
-    ``CHUNK`` in run order, the chunks' sums a run of the next level, until
-    no run is longer: one host read for the longest run, one more a level
-    added. ``max_run``: a bound on every run the caller knows, at most
-    ``CHUNK``: one level and no host read (``covers_all`` then False)."""
+def tree_levels(start: torch.Tensor, max_run: Optional[int] = None) -> tuple:
+    """The levels of the tree a segment sum folds in, from the runs'
+    ``start``: per level the (k + 1,) int64 run starts; a level's runs sum
+    the previous level's outputs (the first level's, rows through the
+    layout's order), and the last level's runs are the segments. Every run
+    longer than ``CHUNK`` is cut into chunks of ``CHUNK`` in run order, the
+    chunks' sums a run of the next level, until no run is longer: one host
+    read for the longest run, one more a level added. ``max_run`` at most
+    ``CHUNK``: one level and no host read."""
     c = kernel.CHUNK
     if max_run is not None and max_run <= c:
-        return SegmentLayout(order=order, starts=(start,), num_rows=num_rows, covers_all=False)
+        return (start,)
     lens = start[1:] - start[:-1]
-    first, last = start[0], start[-1]
-    longest = lens.max() if lens.numel() else first * 0
-    first, last, longest = (int(v) for v in torch.stack([first, last, longest]).tolist())
-    covers_all = first == 0 and last == num_rows
+    longest = int(lens.max()) if lens.numel() else 0
     levels = []
     cur = start
     s = lens.shape[0]
@@ -97,22 +111,26 @@ def layout_of_runs(order, start: torch.Tensor, num_rows: int,
         levels.append(torch.cat([cur[run_of] + j * c, cur[-1:]]))
         cur, lens, longest = cs, nc, -(-longest // c)
     levels.append(cur)
-    return SegmentLayout(order=order, starts=tuple(levels), num_rows=num_rows,
-                         covers_all=covers_all)
+    return tuple(levels)
 
 
-def segment_layout(seg: torch.Tensor, num_segments: int, *,
-                   max_run: Optional[int] = None) -> SegmentLayout:
+def segment_layout(seg: torch.Tensor, num_segments: int, *, max_run: Optional[int] = None,
+                   covers_all: bool = False) -> SegmentLayout:
     """The layout of segment ids ``seg`` (any shape, flattened) on their
     device: a stable sort and each segment's run start by ``searchsorted``,
-    the bag backward's runs (``backward_runs``); an id < 0 sorts first and
-    one >= num_segments last, in no run. ``max_run`` as
-    ``layout_of_runs``'."""
-    from repro_torch.kernels.embedding_bag.kernel import backward_runs
+    the bag backward's runs (``sorted_runs``), and, where a run may exceed
+    ``CHUNK`` rows, the sorted ids at every ``MARK``-th position, with no
+    host read; an id < 0 sorts first and one >= num_segments last, in no
+    run. ``max_run`` and ``covers_all`` as ``SegmentLayout``'s."""
+    from repro_torch.kernels.embedding_bag.kernel import sorted_runs
 
     flat = seg.reshape(-1)
-    order, start = backward_runs(flat, num_segments)
-    return layout_of_runs(order, start, flat.shape[0], max_run)
+    keys, order, start = sorted_runs(flat, num_segments)
+    marks = None
+    if max_run is None or max_run > kernel.CHUNK:
+        marks = keys[::kernel.MARK].to(torch.int64).contiguous()
+    return SegmentLayout(order=order, start=start, num_rows=flat.shape[0], covers_all=covers_all,
+                         max_run=max_run, marks=marks)
 
 
 def _gather(g: torch.Tensor, seg: torch.Tensor, covers_all: bool) -> torch.Tensor:

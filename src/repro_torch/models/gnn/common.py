@@ -200,7 +200,8 @@ def edge_layout(b: GraphBatch, by: str = "dst"):
     key = f"_{by}_layout"
     cached = b.__dict__.get(key)
     if cached is None or cached.device != b.device:
-        cached = segment_layout(ids, b.num_nodes)
+        # the batch's edge ids index its nodes (its edge takes read them)
+        cached = segment_layout(ids, b.num_nodes, covers_all=True)
         object.__setattr__(b, key, cached)
     return cached
 

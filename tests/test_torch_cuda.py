@@ -34,7 +34,10 @@ plain-attention run; the dry run's prediction held against the card on
 one-card cells (din/serve_p99, a reduced granite-moe train and decode step);
 the fixed-order segment sum bit for bit against its plain version on the CPU
 (float32 and bf16, D = 1 to 130, dropped ids, a 70,000-row hub over three
-levels, sorted ids, x off its aligned base, two launches), ``take`` and the
+levels, sorted ids, x off its aligned base, two launches, one launch a
+call), runs of 1 to 3,108,500 rows bit for bit the plain version, no host
+synchronisation in the layout, the sum and ``take``'s backward, the bag's
+backward with one id 100,000 times, ``take`` and the
 sum through autograd bit for bit the CPU's, and a GAT, GCN, DIN and
 granite-moe smoke train step's loss and gradients the same bits twice.
 
@@ -2029,8 +2032,8 @@ def _segsum_cases(rng, rows, segs):
 def test_cuda_segment_sum_matches_plain_bit_for_bit(d, dtype, cuda_device):
     """The kernel bit for bit against its plain version run on the CPU, on
     x aligned and one element past an aligned base, the layout passed in or
-    rebuilt on the card; one launch a level; the same bits on a second
-    launch."""
+    rebuilt on the card; one launch a call, whatever the tree's levels; the
+    same bits on a second launch."""
     from repro_torch.kernels.segment_sum import kernel as SS
     from repro_torch.kernels.segment_sum import segment_layout, segment_sum
 
@@ -2051,9 +2054,108 @@ def test_cuda_segment_sum_matches_plain_bit_for_bit(d, dtype, cuda_device):
             got = segment_sum(xv, seg_c, segs, layout)
             again = segment_sum(xv, seg_c, segs)
             torch.cuda.synchronize()
-            assert sum(SS.LAUNCHES.values()) == before + 2 * len(layout.starts)
+            assert sum(SS.LAUNCHES.values()) == before + 2
             assert got.dtype == dtype and _bits(got.cpu()) == _bits(want), (name, vname)
             assert _bits(again.cpu()) == _bits(got.cpu()), (name, vname)
+
+
+# run lengths at the chunk's edges, at the tree's second level's edges, and
+# DIN's clamped padding at train_batch (3,108,500 ids of row 0)
+SEGSUM_RUNS = [1, 255, 256, 257, 65_536, 65_537, 3_108_500]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 18), (torch.float32, 64),
+                                     (torch.float32, 1), (torch.bfloat16, 576)])
+@pytest.mark.parametrize("run", SEGSUM_RUNS)
+def test_cuda_segment_sum_long_runs_one_launch(run, dtype, d, cuda_device):
+    """One run of ``run`` rows among short random runs, its rows scattered:
+    one launch a call, bit for bit the plain version (on the card, the same
+    order) and two launches the same bits, on x aligned and one element past
+    an aligned base."""
+    from repro_torch.kernels.segment_sum import kernel as SS
+    from repro_torch.kernels.segment_sum import segment_layout, segment_sum, segment_sum_plain
+
+    if run * d > 80_000_000:
+        d = max(1, 80_000_000 // run // 2 * 2)  # the 3.1 M-row run at d <= 25
+    rng = np.random.default_rng(run % 997 + d)
+    segs = 5000
+    seg = np.concatenate([np.full(run, 17), rng.integers(-1, segs + 1, 20_000)])
+    rng.shuffle(seg)
+    n = seg.shape[0]
+    gen = torch.Generator(device=cuda_device).manual_seed(run + d)
+    x = (torch.randn((n, d), generator=gen, device=cuda_device) *
+         10.0 ** torch.randint(-3, 3, (n, 1), generator=gen, device=cuda_device)).to(dtype)
+    base = torch.zeros(n * d + 1, dtype=dtype, device=cuda_device)
+    base[1:].copy_(x.reshape(-1))
+    seg_c = torch.from_numpy(seg).to(cuda_device)
+    layout = segment_layout(seg_c, segs)
+    want = segment_sum_plain(x, seg_c, segs)
+    for vname, xv in {"aligned": x, "offset": base[1:].view(n, d)}.items():
+        before = sum(SS.LAUNCHES.values())
+        got = segment_sum(xv, seg_c, segs, layout)
+        again = segment_sum(xv, seg_c, segs, layout)
+        torch.cuda.synchronize()
+        assert sum(SS.LAUNCHES.values()) == before + 2, vname
+        assert got.dtype == dtype and _bits(got.cpu()) == _bits(want.cpu()), vname
+        assert _bits(again.cpu()) == _bits(got.cpu()), vname
+
+
+@pytest.mark.cuda
+def test_cuda_segment_sum_path_does_not_synchronize(cuda_device):
+    """``segment_layout``, ``segment_sum`` (forward and backward) and
+    ``take``'s backward on CUDA tensors under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing waits on the
+    device, long runs and a layout built in the backward included."""
+    from repro_torch.kernels.segment_sum import segment_layout, segment_sum, take
+
+    rng = np.random.default_rng(9)
+    ids = np.concatenate([np.zeros(70_000, np.int64), rng.integers(0, 3000, 50_000)])
+    rng.shuffle(ids)
+    ids_c = torch.from_numpy(ids).to(cuda_device)
+    x = torch.randn((ids.shape[0], 18), device=cuda_device, requires_grad=True)
+    table = torch.randn((3000, 64), device=cuda_device, requires_grad=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        layout = segment_layout(ids_c, 3000)
+        s = segment_sum(x, ids_c, 3000, layout)
+        s2 = segment_sum(x.detach(), ids_c, 3000)  # the layout built inside
+        rows = take(table, ids_c)
+        (s.square().sum() + rows.sum()).backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(s.detach(), s2)
+    assert torch.equal(table.grad, segment_sum(torch.ones((ids.shape[0], 64),
+                                                          device=cuda_device), ids_c, 3000))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_cuda_bag_backward_id_repeated_100000_times(mode, cuda_device):
+    """The bag's backward with one id in 100,000 slots (a run the kernel's
+    run part walks whole) beside random ids and padding: bit for
+    bit its plain version on the CPU, one launch, and the same bits twice."""
+    from repro_torch.kernels.embedding_bag import embedding_bag_backward_reference
+    from repro_torch.kernels.embedding_bag import kernel as EB
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_backward_cuda
+
+    rng = np.random.default_rng(11)
+    b, length, n, d = 4000, 32, 10_000, 18
+    ids = rng.integers(-1, n, (b, length)).astype(np.int32)
+    ids[:, :25] = 4321
+    assert int((ids == 4321).sum()) >= 100_000
+    g = (rng.standard_normal((b, d)) * 10.0 ** rng.integers(-3, 3, (b, 1))).astype(np.float32)
+    want = embedding_bag_backward_reference(torch.from_numpy(g), torch.from_numpy(ids), n, mode)
+    g_c, ids_c = torch.from_numpy(g).to(cuda_device), torch.from_numpy(ids).to(cuda_device)
+    before = EB.LAUNCHES.get(f"{mode}_backward", 0)
+    got = embedding_bag_backward_cuda(g_c, ids_c, n, mode)
+    again = embedding_bag_backward_cuda(g_c, ids_c, n, mode)
+    torch.cuda.synchronize()
+    assert EB.LAUNCHES[f"{mode}_backward"] == before + 2
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
 
 
 @pytest.mark.cuda

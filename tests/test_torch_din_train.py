@@ -11,7 +11,8 @@
   * the embedding bag's ``torch.autograd.Function`` on the CPU: its
     backward bit for bit against ``np.add.at`` (unbuffered, in index order)
     over the (b, i) row-major terms, sum and mean, on repeated ids in a bag,
-    all-padding bags, B = 1 and L = 1; the backward kernel's run layout
+    all-padding bags, B = 1 and L = 1, one id in 5,000 slots; the backward
+    kernel's run layout
     (``kernel.backward_runs``: the stable sort and the run starts) walked in
     order on the CPU gives the same bits; ``torch.autograd.grad`` through
     ``ops.embedding_bag`` against ``jax.grad`` through the reference's
@@ -305,6 +306,33 @@ def test_bag_backward_launch_is_the_segment_sum_walk(kind, mode):
     assert EBK.LAUNCHES == before and SS.LAUNCHES == ss_before
     assert got.dtype == torch.float32 and got.shape == (n, g.shape[1])
     assert np.array_equal(_bits(got.numpy()), _bits(_add_at(ids, g, n, mode)))
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_bag_backward_run_of_5000_bits_match_add_at(mode):
+    """One id in 5,000 slots (a run past the segment sum's 256-row chunk,
+    which the bag's backward walks whole, not in chunks) beside random ids:
+    the op's gradient and the backward's launch on the CPU bit for bit
+    ``np.add.at`` in (b, i) order."""
+    from repro_torch.kernels.embedding_bag import kernel as EBK
+
+    rng = np.random.default_rng(5)
+    b, length, n, d = 250, 24, 40, 18
+    ids = rng.integers(-1, n, (b, length)).astype(np.int32)
+    ids[:, :20] = 7
+    assert int((ids == 7).sum()) >= 5000
+    scale = np.float32(10.0) ** rng.integers(-3, 3, (b, 1)).astype(np.float32)
+    g = (rng.standard_normal((b, d)).astype(np.float32) * scale).astype(np.float32)
+    want = _add_at(ids, g, n, mode)
+    table = torch.zeros((n, d), requires_grad=True)
+    out = embedding_bag(table, torch.from_numpy(ids), mode)
+    (grad,) = torch.autograd.grad(out, table, torch.from_numpy(g))
+    assert np.array_equal(_bits(grad.numpy()), _bits(want))
+    t_ids = torch.from_numpy(ids)
+    order, start = backward_runs(t_ids, n)
+    counts = (t_ids >= 0).sum(dim=1, dtype=torch.int32) if mode == "mean" else None
+    got = EBK.launch_backward(torch.from_numpy(g), order, start, counts, length, mode)
+    assert np.array_equal(_bits(got.numpy()), _bits(want))
 
 
 @pytest.mark.parametrize("mode", ["sum", "mean"])

@@ -11,7 +11,10 @@ Each time is the host clock around one step ending in a read of its loss (a
 forward: a synchronize), the median, min and max over ``--steps`` after two
 warm ones. Beside it, the first step's loss and gradients (a forward's
 output) computed twice from the same weights and batch: a SHA-256 of each
-run's bytes and whether the two are the same bits. ``--src`` points at
+run's bytes and whether the two are the same bits, and the segment-sum
+kernel's own device time in one profiled step or forward (``*_sum_ms``:
+the ms and launches of the profiler's ``segment_sum_kernel`` events, each
+sum's kernel with the bag backward's). ``--src`` points at
 another checkout's ``src`` (run A, B, B, A on one machine to compare two
 commits). One JSON line goes to stdout (and to ``--out``). Needs a CUDA
 device.
@@ -57,6 +60,22 @@ def _times(fn, steps):
         lat.append((time.perf_counter() - t) * 1e3)
     lat.sort()
     return dict(median=lat[len(lat) // 2], min=lat[0], max=lat[-1], steps=steps)
+
+
+def _sum_ms(fn):
+    """The segment-sum kernel's device ms and launches in one call of fn,
+    from the profiler's events (ms None where it saw no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if "segment_sum_kernel" in e.key]
+    us = sum(getattr(e, "device_time_total", 0.0) or getattr(e, "cuda_time_total", 0.0)
+             for e in evs)
+    return dict(ms=us / 1e3 if us else None, launches=sum(e.count for e in evs))
 
 
 def main() -> int:
@@ -139,6 +158,7 @@ def main() -> int:
 
     out["gat_infer_first"] = twice(forward)
     out["gat_infer_ms"] = _times(forward, max(3, args.steps // 4))
+    out["gat_infer_sum_ms"] = _sum_ms(forward)
     out["gat_infer_graph"] = dict(nodes=big.num_nodes, edges=big.num_edges)
     del big, ip, g
 
@@ -161,6 +181,7 @@ def main() -> int:
         float(m["loss"])
 
     out["din_train_ms"] = _times(din_step, args.steps)
+    out["din_train_sum_ms"] = _sum_ms(din_step)
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:
